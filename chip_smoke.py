@@ -1,0 +1,506 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. card   — name and power limit (as ``nvidia-smi`` gives them), versions;
+2. build  — nvcc builds both CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. kernel 1 (ODLHash projection) against its plain version on the card,
+   including the generated alpha itself;
+4. kernel 2 (fused RLS update) against its plain version on the card;
+5. the paper path: S=1, N=128, ``run_training_phase`` with theta=1 and the
+   auto ladder, held to ``tests/test_odl_system.py``'s claims;
+6. the fleet path: ``har_odl.full()`` at S=16,384 streams, ``train_phase``
+   for 32 ticks and ``algo1`` for 96, through ``run_fleet``; the launch
+   counts show both kernels ran, and the accounting identities hold;
+   then a small fleet run on the card and on the CPU must agree, and a
+   profiler window shows where a tick's device time goes;
+7. times of each kernel, its plain version and its library yardstick, and
+   the kernel's bound.
+
+The line before the last is the ``kernels`` JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
+of the repository, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SEED = 0
+FLEET_STREAMS = 16384
+TRAIN_TICKS = 32
+ALGO1_TICKS = 96
+ALGO1_SHIFT_AT = 64  # DriftConfig.warmup: the detector is armed from here
+K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 128),
+             (130, 100, 72), (1, 16, 16)]
+K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6)]
+ACTIVATIONS = ("sigmoid", "relu", "tanh", "identity")
+
+# NVIDIA H100 SXM data sheet, dense, at 700 W: f32 outside the tensor cores,
+# and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def phase_card():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+
+def phase_build():
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s into {build.build_dir()}")
+    for name, log in build.build_logs().items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+
+def _gen(device, seed):
+    import torch
+
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def phase_kernel1(device="cuda"):
+    """Projection kernel vs ``ref.xorshift_projection_ref`` on the card."""
+    import torch
+
+    from repro_torch.core import xorshift
+    from repro_torch.kernels import ops, ref
+
+    g = _gen(device, SEED)
+    main_err = None
+    for b, n_in, n in K1_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, n_in, generator=g, device=device).to(dtype)
+            for act in ACTIVATIONS:
+                got = ops.xorshift_projection(x, 0x2D2A, n, activation=act)
+                want = ref.xorshift_projection_ref(x, 0x2D2A, n, activation=act)
+                err = (got - want).abs().max().item()
+                tol = 2e-3 if dtype == torch.bfloat16 else 1e-5
+                check(got.shape == (b, n) and err <= tol,
+                      f"projection {b}x{n_in}x{n} {dtype} {act}: err {err} > {tol}")
+                if (b, n_in, n) == K1_SHAPES[0] and dtype == torch.float32 and act == "sigmoid":
+                    main_err = err
+    # The generated alpha itself: identity x, identity activation, scale 1.
+    for n_in, n in ((561, 128), (100, 72)):
+        got = ops.xorshift_projection(
+            torch.eye(n_in, device=device), 0x2D2A, n, activation="identity"
+        )
+        want = xorshift.alpha_hash(0x2D2A, n_in, n, device=device) / torch.sqrt(
+            torch.tensor(float(n_in), device=device)
+        )
+        err = (got - want).abs().max().item()
+        check(err <= 1e-6, f"generated alpha {n_in}x{n}: err {err} > 1e-6")
+    print(f"kernel 1 xorshift_projection: {len(K1_SHAPES) * 2 * len(ACTIVATIONS)} cases + "
+          f"alpha pass; main-shape max |err| {main_err:.3e}")
+    return main_err
+
+
+def _rls_inputs(s, n, k, m, device, seed):
+    """SPD P, beta, H, Y as the engine would give them, and the small operands."""
+    import torch
+
+    from repro_torch.kernels import oselm_update
+
+    g = _gen(device, seed)
+    a = torch.randn(s, n, n, generator=g, device=device) / n ** 0.5
+    P = torch.bmm(a, a.transpose(1, 2)) + 0.1 * torch.eye(n, device=device)
+    del a
+    beta = 0.1 * torch.randn(s, n, m, generator=g, device=device)
+    H = torch.sigmoid(torch.randn(s, k, n, generator=g, device=device))
+    Y = torch.nn.functional.one_hot(
+        torch.randint(0, m, (s, k), generator=g, device=device), m
+    ).to(torch.float32)
+    return (P, beta, H, Y), oselm_update.small_operands(P, beta, H, Y)
+
+
+def phase_kernel2(device="cuda"):
+    """Fused RLS kernel vs ``ref.rls_fused_ref`` on the card."""
+    from repro_torch.kernels import oselm_update, ref
+
+    main_err = None
+    for s, n, k, m in K2_SHAPES:
+        (P, beta, _, _), (pht, g, w) = _rls_inputs(s, n, k, m, device, SEED + n + k)
+        p_got, b_got = oselm_update.rls_fleet(P, beta, pht, g, w)
+        p_want, b_want = ref.rls_fused_ref(P, beta, pht, g, w)
+        ep = (p_got - p_want).abs().max().item()
+        eb = (b_got - b_want).abs().max().item()
+        check(ep <= 2e-5 and eb <= 2e-4,
+              f"rls S={s} N={n} k={k} m={m}: P err {ep} (2e-5), beta err {eb} (2e-4)")
+        print(f"kernel 2 oselm_rls_update_fleet S={s} N={n} k={k} m={m}: "
+              f"P |err| {ep:.3e}, beta |err| {eb:.3e}")
+        if main_err is None:
+            main_err = max(ep, eb)
+        del P, beta, pht, g, w, p_got, b_got, p_want, b_want
+    return main_err
+
+
+def _boot_core(data, theta, n_hidden, device):
+    """``tests/test_odl_system.py::_boot_core`` on the port."""
+    import torch
+
+    from repro_torch.core import odl_head, oselm, pruning
+
+    elm = oselm.OSELMConfig(
+        n_in=561, n_hidden=n_hidden, n_out=6, variant="hash", seed=77, ridge=1e-2
+    )
+    ladder = {} if theta == "auto" else {"ladder": (theta,)}
+    cfg = odl_head.ODLCoreConfig(
+        elm=elm, prune=pruning.PruneConfig(min_trained=max(n_hidden, 288), **ladder)
+    )
+    x0 = torch.as_tensor(data.train_x, device=device)
+    y0 = torch.nn.functional.one_hot(
+        torch.as_tensor(data.train_y, device=device).long(), 6
+    ).to(torch.float32)
+    st0 = oselm.init_state_batch(elm, x0, y0)
+    return cfg, odl_head.init_state(cfg, device)._replace(elm=st0)
+
+
+def phase_paper(device="cuda", n_hidden=128):
+    """S=1 paper path at full width; ``tests/test_odl_system.py``'s claims."""
+    from repro_torch.core import odl_head, pruning
+    from repro_torch.data import har
+
+    data = har.generate(seed=SEED)
+    ox, oy, tx, ty = har.odl_split(data, 0.6, 0)
+    res = {}
+    for theta in (1.0, "auto"):
+        cfg, core = _boot_core(data, theta, n_hidden, device)
+        if theta == 1.0:
+            res["acc_before_drift"] = float(
+                odl_head.accuracy(core, data.test0_x, data.test0_y, cfg))
+            res["acc_noodl"] = float(odl_head.accuracy(core, tx, ty, cfg))
+        t0 = time.perf_counter()
+        core, _ = odl_head.run_training_phase(core, ox, oy, cfg)
+        acc = float(odl_head.accuracy(core, tx, ty, cfg))
+        secs = time.perf_counter() - t0
+        tag = "full" if theta == 1.0 else "auto"
+        res[f"acc_{tag}"] = acc
+        res[f"comm_{tag}"] = float(pruning.comm_volume_fraction(core.prune))
+        res[f"ticks_per_s_{tag}"] = len(ox) / secs
+    print("paper path (S=1, N=%d, %d ticks): %s" % (n_hidden, len(ox), json.dumps(res)))
+    check(res["acc_before_drift"] > 0.90, "accuracy before drift <= 0.90")
+    check(res["acc_noodl"] < res["acc_before_drift"] - 0.05, "drift drop <= 5 pts")
+    check(res["acc_full"] > res["acc_noodl"] + 0.025, "ODL recovery <= 2.5 pts")
+    check(res["comm_full"] == 1.0, "theta=1 comm volume != 1")
+    check(res["comm_auto"] < 0.70, "auto comm volume >= 0.70")
+    check(res["acc_auto"] > res["acc_full"] - 0.02, "auto accuracy < full - 2 pts")
+    return res
+
+
+def _fleet_ticks(data, n_ticks, n_streams, shift_at, device, seed):
+    """(T, S, 561) ticks gathered on the device from rows uploaded once:
+    test0 rows before ``shift_at``, shifted test1 rows from it on."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    calm_x = torch.as_tensor(data.test0_x, device=device)
+    calm_y = torch.as_tensor(data.test0_y, device=device)
+    shift_x = torch.as_tensor(np.clip(data.test1_x * 4.0 + 2.0, -3, 3).astype(np.float32),
+                              device=device)
+    shift_y = torch.as_tensor(data.test1_y, device=device)
+    n_calm = min(shift_at, n_ticks)
+    i0 = torch.as_tensor(rng.integers(0, len(data.test0_x), (n_calm, n_streams)), device=device)
+    i1 = torch.as_tensor(
+        rng.integers(0, len(data.test1_x), (n_ticks - n_calm, n_streams)), device=device
+    )
+    xs = torch.cat([calm_x[i0], shift_x[i1]])
+    ys = torch.cat([calm_y[i0], shift_y[i1]])
+    return xs, ys
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _run_fleet_once(cfg, xs, ys, mode, device):
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.kernels import ops
+
+    n_ticks, n_streams = ys.shape
+    state = engine.init_fleet(cfg, n_streams, device)
+    _sync(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, outs = engine.run_fleet(state, xs, ys, cfg, mode=mode)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    # Accounting identities with the teacher always available.
+    observed = outs.mode_training.to(torch.int32).sum(0)
+    check(torch.equal(state.prune.queries + state.prune.skips, observed),
+          f"{mode}: queries + skips != ticks in training mode")
+    check(torch.equal(state.meter.up_bytes,
+                      outs.queried.to(torch.float32).sum(0) * (cfg.elm.n_in * 4)),
+          f"{mode}: up_bytes != n_in * 4 * queries")
+    for name, t in (("beta", state.elm.beta), ("P", state.elm.P), ("outputs", outs.outputs)):
+        check(bool(torch.isfinite(t).all()), f"{mode}: non-finite {name}")
+    check(outs.pred.shape == (n_ticks, n_streams), f"{mode}: pred shape {tuple(outs.pred.shape)}")
+    return state, outs, secs, counts
+
+
+def phase_fleet(device="cuda", n_streams=FLEET_STREAMS, n_hidden=128,
+                train_ticks=TRAIN_TICKS, algo1_ticks=ALGO1_TICKS):
+    """``har_odl.full()`` fleet through ``run_fleet`` in two modes."""
+    import torch
+
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+
+    cfg = har_odl.full(n_hidden=n_hidden)
+    data = har.generate(seed=SEED)
+    res = {"launches": {}}
+    for mode, n_ticks, shift_at in (("train_phase", train_ticks, train_ticks),
+                                    ("algo1", algo1_ticks, ALGO1_SHIFT_AT)):
+        xs, ys = _fleet_ticks(data, n_ticks, n_streams, shift_at, device, SEED + n_ticks)
+        state, outs, secs, counts = _run_fleet_once(cfg, xs, ys, mode, device)
+        for name, n in counts.items():
+            if device == "cuda":
+                check(n >= n_ticks, f"{mode}: {name} launched {n} < {n_ticks} times")
+            res["launches"][name] = res["launches"].get(name, 0) + n
+        res[f"{mode}_stream_ticks_per_s"] = n_streams * n_ticks / secs
+        res[f"{mode}_secs"] = secs
+        if mode == "algo1":
+            training = outs.mode_training[shift_at:]
+            res["algo1_streams_training"] = int(training.any(0).sum())
+            res["algo1_queries_after_shift"] = int(outs.queried[shift_at:].sum())
+            check(not bool(outs.mode_training[:shift_at].any()), "algo1: training before shift")
+            check(res["algo1_streams_training"] > 0, "algo1: no stream entered training")
+            check(res["algo1_queries_after_shift"] > 0, "algo1: no queries after shift")
+        else:
+            check(bool(outs.queried.all()), "train_phase: a cold head skipped a query")
+        del xs, ys, state, outs
+    print(f"fleet path (S={n_streams}, N={n_hidden}): {json.dumps(res)}")
+    return res
+
+
+def phase_cross_check(n_streams=256, n_ticks=32):
+    """The same small fleet run on the card (kernels) and on the CPU (plain
+    versions).  Decisions must match; weights and outputs within
+    ``tests/test_kernels.py``'s tolerance for P starting at I/ridge (rtol
+    and atol 2e-3); predictions may differ only at near-ties."""
+    import torch
+
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+
+    cfg = har_odl.full()
+    data = har.generate(seed=SEED)
+    xs, ys = _fleet_ticks(data, n_ticks, n_streams, n_ticks, "cpu", SEED + 1)
+    out = {}
+    for device in ("cuda", "cpu"):
+        state, outs = _run_fleet_once(cfg, xs.to(device), ys.to(device), "train_phase", device)[:2]
+        out[device] = (state.elm.beta.cpu(), state.elm.P.cpu(), outs)
+    (bc, pc, oc), (bp, pp, op) = out["cuda"], out["cpu"]
+    for f in ("queried", "mode_training", "theta"):
+        check(torch.equal(getattr(oc, f).cpu(), getattr(op, f)), f"cross-check: {f} differs")
+    mismatch = (oc.pred.cpu() != op.pred).float().mean().item()
+    check(mismatch <= 1e-3, f"cross-check: {mismatch:.2e} of predictions differ")
+    for name, a, b in (("beta", bc, bp), ("P", pc, pp), ("outputs", oc.outputs.cpu(), op.outputs)):
+        check(torch.allclose(a, b, rtol=2e-3, atol=2e-3), f"cross-check: {name} differs")
+    print(f"cross-check card vs cpu (S={n_streams}, T={n_ticks}, train_phase): decisions equal, "
+          f"pred mismatch {mismatch:.2e}, beta |err| {(bc - bp).abs().max().item():.3e}, "
+          f"P |err| {(pc - pp).abs().max().item():.3e}")
+
+
+def phase_profile(device="cuda", n_streams=FLEET_STREAMS, n_ticks=8):
+    """Where a fleet tick's time goes: ``torch.profiler`` over a short
+    ``train_phase`` window at full width (every stream queries and learns)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import engine
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+
+    cfg = har_odl.full()
+    xs, ys = _fleet_ticks(har.generate(seed=SEED), n_ticks + 1, n_streams, n_ticks + 1, device,
+                          SEED + 2)
+    state = engine.init_fleet(cfg, n_streams, device)
+    state, _ = engine.fleet_step(state, xs[0], ys[0], cfg, mode="train_phase")  # warm-up
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(1, n_ticks + 1):
+            state, _ = engine.fleet_step(state, xs[t], ys[t], cfg, mode="train_phase")
+        _sync(device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # Device-side events only (kernels, copies): a CPU op's device time is
+    # that of the kernels it launched, which are listed again on their own.
+    rows = [(e.self_device_time_total / 1e3 / n_ticks, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    if not rows:
+        print(f"profile (S={n_streams}): {wall_ms / n_ticks:.3f} ms/tick wall; the profiler "
+              "recorded no device time (device busy share not measured)")
+        return
+    busy = sum(ms for ms, _ in rows)
+    print(f"profile (S={n_streams}, train_phase, {n_ticks} ticks): "
+          f"{wall_ms / n_ticks:.3f} ms/tick wall, device busy {busy:.3f} ms/tick "
+          f"({100 * busy * n_ticks / wall_ms:.1f} % of wall)")
+    for ms, name in rows[:10]:
+        print(f"  {ms:8.4f} ms/tick  {100 * ms / busy:5.1f} %  {name[:90]}")
+
+
+def _median_ms(fn, reps=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _bound(flops, nbytes):
+    """The least time the card could take: (ms, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def phase_times(device="cuda"):
+    """Median times at the fleet path's shapes, with bounds."""
+    import torch
+
+    from repro_torch.core import xorshift
+    from repro_torch.kernels import oselm_update, ref, xorshift_proj
+
+    rows = []
+    b, n_in, n = K1_SHAPES[0]
+    x = torch.randn(b, n_in, generator=_gen(device, SEED), device=device)
+    alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
+    c = float(1.0 / n_in ** 0.5)
+    bound_ms, bound_by = _bound(flops=2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n))
+    rows.append(dict(
+        name="xorshift_projection",
+        ms=_median_ms(lambda: xorshift_proj.xorshift_projection(x, 0x2D2A, n)),
+        plain_ms=_median_ms(lambda: ref.xorshift_projection_ref(x, 0x2D2A, n)),
+        library_ms=_median_ms(lambda: torch.sigmoid(torch.matmul(x, alpha) * c)),
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+    ))
+    del x, alpha
+
+    s, n, k, m = K2_SHAPES[0]
+    (P, beta, H, Y), (pht, g, w) = _rls_inputs(s, n, k, m, device, SEED)
+    # Bytes: P in, P' out, beta in and out, PHt, G, W in.
+    bound_ms, bound_by = _bound(
+        flops=2.0 * s * n * n * (k + m),
+        nbytes=4.0 * (2 * s * n * n + 2 * s * n * m + 2 * s * n * k + s * n * m),
+    )
+    rows.append(dict(
+        name="oselm_rls_update_fleet",
+        ms=_median_ms(lambda: oselm_update.rls_fleet(P, beta, pht, g, w)),
+        plain_ms=_median_ms(lambda: ref.rls_fused_ref(P, beta, pht, g, w)),
+        library_ms=_median_ms(
+            lambda: torch.baddbmm(beta, torch.baddbmm(P, pht, g, alpha=-1), w)),
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        small_operands_ms=_median_ms(lambda: oselm_update.small_operands(P, beta, H, Y)),
+    ))
+    for r in rows:
+        print(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print(f"time small-operand stage of the RLS update (torch): {rows[1]['small_operands_ms']:.4f} ms")
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this test runs on the card", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    phase_card()
+    phase_build()
+    err1 = phase_kernel1()
+    err2 = phase_kernel2()
+    phase_paper()
+    fleet = phase_fleet()
+    phase_cross_check()
+    phase_profile()
+    times = {r["name"]: r for r in phase_times()}
+
+    meta = {
+        "xorshift_projection": dict(
+            source="src/repro_torch/kernels/csrc/xorshift_proj.cu",
+            replaces="src/repro/kernels/xorshift_proj.py:138",
+            max_abs_err=err1,
+        ),
+        "oselm_rls_update_fleet": dict(
+            source="src/repro_torch/kernels/csrc/oselm_update.cu",
+            replaces="src/repro/kernels/oselm_update.py:172",
+            max_abs_err=err2,
+        ),
+    }
+    kernels = []
+    for name, info in meta.items():
+        t = times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": info["source"],
+            "replaces": info["replaces"],
+            "launches": fleet["launches"][name],
+            "max_abs_err": info["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "ok": True,
+        })
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

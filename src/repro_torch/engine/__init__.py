@@ -1,0 +1,51 @@
+"""repro_torch.engine — fleet-scale ODL: Algorithm 1 batched over streams.
+
+PyTorch counterpart of ``repro.engine`` (the fleet engine and its S=1 view;
+streaming, cohorts, durability, RPC and sharding are not ported yet).
+
+``EngineState`` (``types.py``) carries a leading stream axis S on every leaf::
+
+    EngineState
+    ├── elm:   OSELMState   beta (S, N, m) · P (S, N, N) · count (S,)
+    ├── prune: PruneState   level/streak/queries/skips/phase_trained (S,)
+    ├── drift: DriftState   mean/var/steps/hits/calm/active (S,)
+    └── meter: CommMeter    up_bytes/down_bytes (S,)
+
+One tick is ``plan`` (projection kernel, readout, confidence, drift, query
+decision, comm meter) then ``learn`` (fused RLS kernel + auto-theta ladder);
+``fleet_step`` composes them and ``run_fleet`` loops it over T ticks.
+``gate``/``apply_labels`` are the serving split.  The S=1 view (``step``,
+``run_training_phase``, ``run_stream``, ``accuracy``) lives in ``scalar.py``.
+"""
+
+from repro_torch.engine.fleet import (  # noqa: F401
+    GateOutput,
+    PlanOutput,
+    apply_labels,
+    broadcast_streams,
+    fleet_accuracy,
+    fleet_step,
+    gate,
+    init_fleet,
+    learn,
+    plan,
+    run_fleet,
+    stream_slice,
+)
+from repro_torch.engine.types import (  # noqa: F401
+    EngineConfig,
+    EngineState,
+    FleetStepOutput,
+    ODLCoreConfig,
+    ODLCoreState,
+    StepOutput,
+    init_state,
+)
+
+from .scalar import (  # noqa: F401,E402
+    accuracy,
+    run_stream,
+    run_training_phase,
+    step,
+    train_phase_step,
+)
