@@ -8,26 +8,39 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card   — name and power limit (as ``nvidia-smi`` gives them), versions;
-2. build  — nvcc builds both CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernel 1 (ODLHash projection) against its plain version on the card,
-   including the generated alpha itself;
-4. kernel 2 (fused RLS update) against its plain version on the card;
+2. build  — nvcc builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. kernel 1 (ODLHash projection, tensor cores) against its plain version on
+   the card, including the generated alpha itself;
+4. the RLS update against its plain version on the card, through both
+   routes: the single pass (kernels 2 and 3: the fleet entry and the
+   one-head entry) and the two-stage route; masked streams exact;
 5. the paper path: S=1, N=128, ``run_training_phase`` with theta=1 and the
    auto ladder, held to ``tests/test_odl_system.py``'s claims;
 6. the fleet path: ``har_odl.full()`` at S=16,384 streams, ``train_phase``
    for 32 ticks and ``algo1`` for 96, through ``run_fleet``; the launch
    counts show both kernels ran, and the accounting identities hold;
    then a small fleet run on the card and on the CPU must agree, and a
-   profiler window shows where a tick's device time goes;
-7. times of each kernel, its plain version and its library yardstick, and
-   the kernel's bound.
+   profiler window shows where a tick's device time goes (the RLS update
+   must be one kernel per tick there);
+7. times of each kernel and route, its plain version and its library
+   yardstick, and its bound.
 
 The line before the last is the ``kernels`` JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
 of the repository, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --time-port PATH
+
+instead times the port of the checkout at PATH (``.`` for this one) with
+this script's timing code and prints one JSON line: the card, the device
+time of the projection and of the whole RLS update at the fleet shape,
+fleet ``train_phase`` stream-ticks per second after a warm-up, and the
+profiled tick (wall, device time per kernel, busy share).  To compare two
+checkouts, run it for both in turns on one card (A, B, B, A).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -42,15 +55,27 @@ FLEET_STREAMS = 16384
 TRAIN_TICKS = 32
 ALGO1_TICKS = 96
 ALGO1_SHIFT_AT = 64  # DriftConfig.warmup: the detector is armed from here
+PROFILE_TICKS = 8
 K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 128),
              (130, 100, 72), (1, 16, 16)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6)]
+# Shapes the single pass does not take go to the two-stage route.
+K2_EXTRA_SHAPES = [(64, 384, 1, 6), (4, 64, 64, 3)]
+K3_SHAPE = (128, 16, 6)  # one head: N, k, m
+TWO_STAGE_SHAPE = (64, 384, 1, 6)
+# The kernels the fleet path launches every tick (``ops.launch_counts`` keys).
+PATH_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet")
 ACTIVATIONS = ("sigmoid", "relu", "tanh", "identity")
 
 # NVIDIA H100 SXM data sheet, dense, at 700 W: f32 outside the tensor cores,
-# and HBM3 bandwidth.
+# TF32 on them, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+SLEEP_CYCLES = 400_000_000  # about 0.2 s of device time ahead of each timed batch
+# Calls per timed batch of a plain version or composite: each launches tens of
+# kernels, and a batch must not fill the launch queue behind the sleep.
+PLAIN_REPS = 4
 
 
 def check(cond: bool, what: str) -> None:
@@ -58,14 +83,18 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def phase_card():
-    import torch
-
-    smi = subprocess.run(
+def _card():
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(smi)
+
+
+def phase_card():
+    import torch
+
+    print(_card())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
 
@@ -96,6 +125,7 @@ def phase_kernel1(device="cuda"):
 
     g = _gen(device, SEED)
     main_err = None
+    worst = (0.0, "")
     for b, n_in, n in K1_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(b, n_in, generator=g, device=device).to(dtype)
@@ -108,6 +138,8 @@ def phase_kernel1(device="cuda"):
                       f"projection {b}x{n_in}x{n} {dtype} {act}: err {err} > {tol}")
                 if (b, n_in, n) == K1_SHAPES[0] and dtype == torch.float32 and act == "sigmoid":
                     main_err = err
+                if dtype == torch.float32 and err > worst[0]:
+                    worst = (err, f"{b}x{n_in}x{n} {act}")
     # The generated alpha itself: identity x, identity activation, scale 1.
     for n_in, n in ((561, 128), (100, 72)):
         got = ops.xorshift_projection(
@@ -119,15 +151,14 @@ def phase_kernel1(device="cuda"):
         err = (got - want).abs().max().item()
         check(err <= 1e-6, f"generated alpha {n_in}x{n}: err {err} > 1e-6")
     print(f"kernel 1 xorshift_projection: {len(K1_SHAPES) * 2 * len(ACTIVATIONS)} cases + "
-          f"alpha pass; main-shape max |err| {main_err:.3e}")
+          f"alpha pass; main-shape max |err| {main_err:.3e}, worst f32 case {worst[0]:.3e} "
+          f"({worst[1]})")
     return main_err
 
 
 def _rls_inputs(s, n, k, m, device, seed):
-    """SPD P, beta, H, Y as the engine would give them, and the small operands."""
+    """SPD P, beta, H, Y as the engine would give them."""
     import torch
-
-    from repro_torch.kernels import oselm_update
 
     g = _gen(device, seed)
     a = torch.randn(s, n, n, generator=g, device=device) / n ** 0.5
@@ -138,28 +169,56 @@ def _rls_inputs(s, n, k, m, device, seed):
     Y = torch.nn.functional.one_hot(
         torch.randint(0, m, (s, k), generator=g, device=device), m
     ).to(torch.float32)
-    return (P, beta, H, Y), oselm_update.small_operands(P, beta, H, Y)
+    return P, beta, H, Y
 
 
 def phase_kernel2(device="cuda"):
-    """Fused RLS kernel vs ``ref.rls_fused_ref`` on the card."""
-    from repro_torch.kernels import oselm_update, ref
+    """The RLS update vs ``ref.rls_update_ref`` on the card, through the
+    dispatch (single pass or two-stage route by shape) and the one-head
+    entry; a masked stream must come out exactly as it went in."""
+    import torch
 
-    main_err = None
-    for s, n, k, m in K2_SHAPES:
-        (P, beta, _, _), (pht, g, w) = _rls_inputs(s, n, k, m, device, SEED + n + k)
-        p_got, b_got = oselm_update.rls_fleet(P, beta, pht, g, w)
-        p_want, b_want = ref.rls_fused_ref(P, beta, pht, g, w)
+    from repro_torch.kernels import ops, oselm_update, ref
+
+    errs = {}
+    for s, n, k, m in K2_SHAPES + K2_EXTRA_SHAPES:
+        P, beta, H, Y = _rls_inputs(s, n, k, m, device, SEED + n + k)
+        H[0] = 0.0
+        Y[0] = 0.0  # stream 0 masked
+        route = ops.rls_route(n, k, m)
+        plan = oselm_update.single_pass_plan(n, k, m)
+        if plan is not None:
+            check(oselm_update.kernel_smem_bytes(n, k, m, *plan)
+                  == oselm_update.single_pass_smem_bytes(n, k, m, *plan),
+                  f"rls N={n} k={k} m={m}: the dispatch and the kernel disagree on shared memory")
+        counter = "oselm_rls_update_fleet" if route == "single" else "rls_two_stage"
+        before = ops.launch_counts[counter]
+        p_got, b_got = ops.oselm_rls_update_fleet(P, beta, H, Y)
+        check(ops.launch_counts[counter] == before + 1, f"rls N={n} k={k}: {counter} not launched")
+        p_want, b_want = ref.rls_update_ref(P, beta, H, Y)
         ep = (p_got - p_want).abs().max().item()
         eb = (b_got - b_want).abs().max().item()
         check(ep <= 2e-5 and eb <= 2e-4,
-              f"rls S={s} N={n} k={k} m={m}: P err {ep} (2e-5), beta err {eb} (2e-4)")
-        print(f"kernel 2 oselm_rls_update_fleet S={s} N={n} k={k} m={m}: "
-              f"P |err| {ep:.3e}, beta |err| {eb:.3e}")
-        if main_err is None:
-            main_err = max(ep, eb)
-        del P, beta, pht, g, w, p_got, b_got, p_want, b_want
-    return main_err
+              f"rls S={s} N={n} k={k} m={m} ({route}): P err {ep} (2e-5), beta err {eb} (2e-4)")
+        check(torch.equal(p_got[0], P[0]) and torch.equal(b_got[0], beta[0]),
+              f"rls S={s} N={n} k={k} m={m} ({route}): masked stream changed")
+        print(f"kernel 2 RLS update S={s} N={n} k={k} m={m} route={route} plan={plan}: "
+              f"P |err| {ep:.3e}, beta |err| {eb:.3e}, masked stream exact")
+        errs[counter] = max(errs.get(counter, 0.0), ep, eb)
+        del P, beta, H, Y, p_got, b_got, p_want, b_want
+    # Kernel 3: the one-head entry (S = 1, k up to 64).
+    n, k, m = K3_SHAPE
+    P, beta, H, Y = (a[0] for a in _rls_inputs(1, n, k, m, device, SEED + 3))
+    before = ops.launch_counts["oselm_rls_update"]
+    p_got, b_got = ops.oselm_rls_update(P, beta, H, Y)
+    check(ops.launch_counts["oselm_rls_update"] == before + 1, "rls one head: kernel not launched")
+    p_want, b_want = (a[0] for a in ref.rls_update_ref(P[None], beta[None], H[None], Y[None]))
+    ep = (p_got - p_want).abs().max().item()
+    eb = (b_got - b_want).abs().max().item()
+    check(ep <= 2e-5 and eb <= 2e-4, f"rls one head N={n} k={k}: P err {ep}, beta err {eb}")
+    print(f"kernel 3 oselm_rls_update N={n} k={k} m={m}: P |err| {ep:.3e}, beta |err| {eb:.3e}")
+    errs["oselm_rls_update"] = max(ep, eb)
+    return errs
 
 
 def _boot_core(data, theta, n_hidden, device):
@@ -288,9 +347,11 @@ def phase_fleet(device="cuda", n_streams=FLEET_STREAMS, n_hidden=128,
         xs, ys = _fleet_ticks(data, n_ticks, n_streams, shift_at, device, SEED + n_ticks)
         state, outs, secs, counts = _run_fleet_once(cfg, xs, ys, mode, device)
         for name, n in counts.items():
-            if device == "cuda":
+            if device == "cuda" and name in PATH_KERNELS:
                 check(n >= n_ticks, f"{mode}: {name} launched {n} < {n_ticks} times")
             res["launches"][name] = res["launches"].get(name, 0) + n
+        if device == "cuda":
+            check(counts["rls_two_stage"] == 0, f"{mode}: the fleet shape took the two-stage route")
         res[f"{mode}_stream_ticks_per_s"] = n_streams * n_ticks / secs
         res[f"{mode}_secs"] = secs
         if mode == "algo1":
@@ -336,9 +397,24 @@ def phase_cross_check(n_streams=256, n_ticks=32):
           f"P |err| {(pc - pp).abs().max().item():.3e}")
 
 
-def phase_profile(device="cuda", n_streams=FLEET_STREAMS, n_ticks=8):
-    """Where a fleet tick's time goes: ``torch.profiler`` over a short
-    ``train_phase`` window at full width (every stream queries and learns)."""
+def _train_phase_rate(device="cuda", n_streams=FLEET_STREAMS, n_ticks=TRAIN_TICKS):
+    """Fleet ``train_phase`` stream-ticks per second (host clock), after a
+    warm-up run that takes the first launches, the allocator's growth and
+    the library handles out of the timing."""
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+
+    cfg = har_odl.full()
+    xs, ys = _fleet_ticks(har.generate(seed=SEED), n_ticks, n_streams, n_ticks, device,
+                          SEED + n_ticks)
+    _run_fleet_once(cfg, xs[:4], ys[:4], "train_phase", device)
+    return n_streams * n_ticks / _run_fleet_once(cfg, xs, ys, "train_phase", device)[2]
+
+
+def _profile_window(device="cuda", n_streams=FLEET_STREAMS, n_ticks=PROFILE_TICKS):
+    """``torch.profiler`` over a short ``train_phase`` window at full width
+    (every stream queries and learns): (wall ms per tick, the device-side
+    events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -360,98 +436,242 @@ def phase_profile(device="cuda", n_streams=FLEET_STREAMS, n_ticks=8):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # Device-side events only (kernels, copies): a CPU op's device time is
     # that of the kernels it launched, which are listed again on their own.
-    rows = [(e.self_device_time_total / 1e3 / n_ticks, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
+    return wall_ms / n_ticks, [e for e in prof.key_averages()
+                               if e.device_type == DeviceType.CUDA
+                               and e.self_device_time_total > 0]
+
+
+def phase_profile(device="cuda", n_streams=FLEET_STREAMS, n_ticks=PROFILE_TICKS):
+    """Where a fleet tick's time goes, and a check that the RLS update is
+    one kernel per tick there."""
+    wall_ms, events = _profile_window(device, n_streams, n_ticks)
+    rows = sorted(((e.self_device_time_total / 1e3 / n_ticks, e.key) for e in events),
+                  reverse=True)
+    # The RLS update is one kernel per tick: no separate PHt product, no
+    # k x k solve, no two-stage pass.
+    rls = [e for e in events if "rls_single_kernel" in e.key]
+    check(len(rls) == 1 and rls[0].count == n_ticks,
+          f"profile: rls_single_kernel ran {[e.count for e in rls]} times in {n_ticks} ticks")
+    stray = [e.key for e in events if any(w in e.key for w in ("trsm", "getrf", "getrs",
+                                                                "rls_fleet_kernel"))]
+    check(not stray, f"profile: the RLS update launched more than its kernel: {stray}")
     if not rows:
-        print(f"profile (S={n_streams}): {wall_ms / n_ticks:.3f} ms/tick wall; the profiler "
+        print(f"profile (S={n_streams}): {wall_ms:.3f} ms/tick wall; the profiler "
               "recorded no device time (device busy share not measured)")
         return
     busy = sum(ms for ms, _ in rows)
     print(f"profile (S={n_streams}, train_phase, {n_ticks} ticks): "
-          f"{wall_ms / n_ticks:.3f} ms/tick wall, device busy {busy:.3f} ms/tick "
-          f"({100 * busy * n_ticks / wall_ms:.1f} % of wall)")
+          f"{wall_ms:.3f} ms/tick wall, device busy {busy:.3f} ms/tick "
+          f"({100 * busy / wall_ms:.1f} % of wall)")
     for ms, name in rows[:10]:
         print(f"  {ms:8.4f} ms/tick  {100 * ms / busy:5.1f} %  {name[:90]}")
 
 
-def _median_ms(fn, reps=20, warmup=3):
+def _device_ms(fn, reps=20, rounds=3):
+    """Device time of one call of ``fn``: CUDA events around a batch of
+    calls, the median of ``rounds`` batches.  A sleep kernel keeps the card
+    busy while the host enqueues the batch, so the events see the calls back
+    to back and not the host's launch overhead (which, for calls under
+    0.1 ms, is what a timing of single calls measures).  The batch is cut
+    below ``reps`` where the host needs more than half the sleep to enqueue
+    it, and the timing raises if the host still outran the sleep (as it does
+    when a batch fills the launch queue and the host waits on the card)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()  # warm-up, and the host's time per call
+    host_call_ms = 1e3 * (time.perf_counter() - t0) / 3
     torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    b.record()
+    b.synchronize()
+    sleep_ms = a.elapsed_time(b)
+    n = max(1, min(reps, int(0.5 * sleep_ms / max(host_call_ms, 1e-3))))
     times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(rounds):
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        check(host_ms < sleep_ms, f"timing: the host took {host_ms:.1f} ms to enqueue, "
+                                  f"longer than the {sleep_ms:.1f} ms sleep")
+        times.append(a.elapsed_time(b) / n)
     times.sort()
     return times[len(times) // 2]
 
 
-def _bound(flops, nbytes):
+def _bound(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
     """The least time the card could take: (ms, what bounds it)."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
+def _rls_bound(s, n, k, m):
+    """The whole RLS update: P in and out, beta in and out, H and Y in;
+    2 S N^2 (2k + m) operations (PHt, the downdate, P' W) at the f32 rate."""
+    return _bound(flops=2.0 * s * n * n * (2 * k + m),
+                  nbytes=4.0 * (2 * s * n * n + 2 * s * n * m + s * k * n + s * k * m))
+
+
+def _rls_composite(P, beta, H, Y):
+    """The torch composite of one RLS update: the small operands, then two
+    ``baddbmm`` calls (the yardstick; the port never calls it)."""
+    import torch
+
+    from repro_torch.kernels import oselm_update
+
+    pht, g, w = oselm_update.small_operands(P, beta, H, Y)
+    return torch.baddbmm(beta, torch.baddbmm(P, pht, g, alpha=-1), w)
+
+
+def _cycling_x(device, b, n_in):
+    """A function that returns three x of (b, n_in) f32 in turn: at the
+    fleet shape each is 36.8 MB, so x comes from device memory and not the
+    50 MB L2, as in a fleet tick."""
+    import torch
+
+    gen = _gen(device, SEED)
+    xs = [torch.randn(b, n_in, generator=gen, device=device) for _ in range(3)]
+    turn = iter(range(10 ** 9))
+    return lambda: xs[next(turn) % len(xs)]
+
+
 def phase_times(device="cuda"):
-    """Median times at the fleet path's shapes, with bounds."""
+    """Median times at the fleet path's shapes (kernel 3 and the two-stage
+    route at theirs), with bounds."""
     import torch
 
     from repro_torch.core import xorshift
-    from repro_torch.kernels import oselm_update, ref, xorshift_proj
+    from repro_torch.kernels import ops, oselm_update, ref, xorshift_proj
 
     rows = []
     b, n_in, n = K1_SHAPES[0]
-    x = torch.randn(b, n_in, generator=_gen(device, SEED), device=device)
+    x = _cycling_x(device, b, n_in)
     alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
     c = float(1.0 / n_in ** 0.5)
-    bound_ms, bound_by = _bound(flops=2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n))
+    # Three TF32 products on the tensor cores: the work at the precision the
+    # kernel must deliver.
+    bound_ms, bound_by = _bound(flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
+                                peak_flops=PEAK_TF32_FLOPS)
     rows.append(dict(
         name="xorshift_projection",
-        ms=_median_ms(lambda: xorshift_proj.xorshift_projection(x, 0x2D2A, n)),
-        plain_ms=_median_ms(lambda: ref.xorshift_projection_ref(x, 0x2D2A, n)),
-        library_ms=_median_ms(lambda: torch.sigmoid(torch.matmul(x, alpha) * c)),
+        ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
+        plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
+        library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
+        library="sigmoid(matmul(x, alpha) * c), cuBLAS f32",
         bound_ms=bound_ms,
         bound_by=bound_by,
     ))
     del x, alpha
 
     s, n, k, m = K2_SHAPES[0]
-    (P, beta, H, Y), (pht, g, w) = _rls_inputs(s, n, k, m, device, SEED)
-    # Bytes: P in, P' out, beta in and out, PHt, G, W in.
-    bound_ms, bound_by = _bound(
-        flops=2.0 * s * n * n * (k + m),
-        nbytes=4.0 * (2 * s * n * n + 2 * s * n * m + 2 * s * n * k + s * n * m),
-    )
+    P, beta, H, Y = _rls_inputs(s, n, k, m, device, SEED)
     rows.append(dict(
         name="oselm_rls_update_fleet",
-        ms=_median_ms(lambda: oselm_update.rls_fleet(P, beta, pht, g, w)),
-        plain_ms=_median_ms(lambda: ref.rls_fused_ref(P, beta, pht, g, w)),
-        library_ms=_median_ms(
-            lambda: torch.baddbmm(beta, torch.baddbmm(P, pht, g, alpha=-1), w)),
+        ms=_device_ms(lambda: oselm_update.rls_single(P, beta, H, Y)),
+        plain_ms=_device_ms(lambda: ref.rls_update_ref(P, beta, H, Y), reps=PLAIN_REPS),
+        library_ms=_device_ms(lambda: _rls_composite(P, beta, H, Y), reps=PLAIN_REPS),
+        library="torch composite: small_operands + 2x baddbmm",
+        two_stage_ms=_device_ms(lambda: oselm_update.rls_fleet(
+            P, beta, *oselm_update.small_operands(P, beta, H, Y)), reps=PLAIN_REPS),
+        **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))),
+    ))
+    del P, beta, H, Y
+
+    n, k, m = K3_SHAPE
+    P, beta, H, Y = (a[0] for a in _rls_inputs(1, n, k, m, device, SEED + 3))
+    rows.append(dict(
+        name="oselm_rls_update",
+        ms=_device_ms(lambda: ops.oselm_rls_update(P, beta, H, Y)),
+        plain_ms=_device_ms(lambda: ref.rls_update_ref(P[None], beta[None], H[None], Y[None]),
+                            reps=PLAIN_REPS),
+        library_ms=_device_ms(lambda: _rls_composite(P[None], beta[None], H[None], Y[None]),
+                              reps=PLAIN_REPS),
+        library="torch composite: small_operands + 2x baddbmm",
+        **dict(zip(("bound_ms", "bound_by"), _rls_bound(1, n, k, m))),
+    ))
+
+    # The two-stage route's kernel, the fused pass, on small operands made
+    # beforehand (at S=64 torch's batched solve waits on the host, which no
+    # batch timing can hide; the route as a whole is timed above at the
+    # fleet shape).
+    s, n, k, m = TWO_STAGE_SHAPE
+    P, beta, H, Y = _rls_inputs(s, n, k, m, device, SEED + 4)
+    check(ops.rls_route(n, k, m) == "two_stage", f"{TWO_STAGE_SHAPE} is not a two-stage shape")
+    pht, g, w = oselm_update.small_operands(P, beta, H, Y)
+    bound_ms, bound_by = _bound(
+        flops=2.0 * s * n * n * (k + m),
+        nbytes=4.0 * (2 * s * n * n + 2 * s * n * m + 2 * s * n * k + s * n * m))
+    rows.append(dict(
+        name="rls_two_stage",
+        ms=_device_ms(lambda: oselm_update.rls_fleet(P, beta, pht, g, w)),
+        plain_ms=_device_ms(lambda: ref.rls_fused_ref(P, beta, pht, g, w), reps=PLAIN_REPS),
+        library_ms=_device_ms(lambda: torch.baddbmm(beta, torch.baddbmm(P, pht, g, alpha=-1), w)),
+        library="2x baddbmm",
         bound_ms=bound_ms,
         bound_by=bound_by,
-        small_operands_ms=_median_ms(lambda: oselm_update.small_operands(P, beta, H, Y)),
     ))
     for r in rows:
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    print(f"time small-operand stage of the RLS update (torch): {rows[1]['small_operands_ms']:.4f} ms")
+              f"library {r['library_ms']:.4f} ms ({r['library']}), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of it reached)")
+    print(f"time the two-stage route at the fleet shape: {rows[1]['two_stage_ms']:.4f} ms")
     return rows
 
 
-def main() -> int:
+def time_port(root: Path, device="cuda") -> dict:
+    """``--time-port``: the same measurements for the port at ``root``,
+    through its public entry points, so that two checkouts are timed by one
+    piece of code."""
+    from repro_torch.kernels import build, ops, xorshift_proj
+
+    build.build_all()
+    out = {"root": str(root), "card": _card()}
+    b, n_in, n = K1_SHAPES[0]
+    x = _cycling_x(device, b, n_in)
+    out["projection_ms"] = _device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n))
+    del x
+    P, beta, H, Y = _rls_inputs(*K2_SHAPES[0], device, SEED)
+    out["rls_update_ms"] = _device_ms(lambda: ops.oselm_rls_update_fleet(P, beta, H, Y))
+    del P, beta, H, Y
+    out["train_phase_stream_ticks_per_s"] = _train_phase_rate(device)
+    wall_ms, events = _profile_window(device)
+    kernels = {e.key[:80]: e.self_device_time_total / 1e3 / PROFILE_TICKS for e in events}
+    out["profiled_tick_wall_ms"] = wall_ms
+    out["profiled_tick_device_ms"] = sum(kernels.values())
+    out["profiled_busy_share"] = out["profiled_tick_device_ms"] / wall_ms
+    # The profiler slows the host, so also: the profiled device time over an
+    # unprofiled tick's wall (from the train_phase rate above).
+    out["unprofiled_tick_ms"] = 1e3 * FLEET_STREAMS / out["train_phase_stream_ticks_per_s"]
+    out["device_over_unprofiled_tick"] = (out["profiled_tick_device_ms"]
+                                          / out["unprofiled_tick_ms"])
+    out["profiled_kernels_ms"] = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--time-port", type=Path, metavar="PATH",
+                    help="only time the port of the checkout at PATH; print one JSON line")
+    args = ap.parse_args(argv)
+    if args.time_port is not None:
+        # Ahead of this checkout's src, so that PATH's repro_torch is imported.
+        sys.path.insert(0, str(args.time_port.resolve() / "src"))
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card", file=sys.stderr)
         return 1
+    if args.time_port is not None:
+        print(json.dumps(time_port(args.time_port)))
+        return 0
     t_start = time.perf_counter()
     phase_card()
     phase_build()
@@ -463,6 +683,7 @@ def main() -> int:
     phase_profile()
     times = {r["name"]: r for r in phase_times()}
 
+    rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
     meta = {
         "xorshift_projection": dict(
             source="src/repro_torch/kernels/csrc/xorshift_proj.cu",
@@ -470,9 +691,16 @@ def main() -> int:
             max_abs_err=err1,
         ),
         "oselm_rls_update_fleet": dict(
-            source="src/repro_torch/kernels/csrc/oselm_update.cu",
-            replaces="src/repro/kernels/oselm_update.py:172",
-            max_abs_err=err2,
+            source=rls_src, replaces="src/repro/kernels/oselm_update.py:172",
+            max_abs_err=err2["oselm_rls_update_fleet"],
+        ),
+        "oselm_rls_update": dict(
+            source=rls_src, replaces="src/repro/kernels/oselm_update.py:88",
+            max_abs_err=err2["oselm_rls_update"],
+        ),
+        "rls_two_stage": dict(
+            source=rls_src, replaces="src/repro/kernels/oselm_update.py:172",
+            max_abs_err=err2["rls_two_stage"],
         ),
     }
     kernels = []
@@ -490,6 +718,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "library": t["library"],
             "ok": True,
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,12 +1,19 @@
-"""Device dispatch for the two kernels, and their launch counts.
+"""Device dispatch for the kernels, and their launch counts.
 
 A CPU tensor goes to the plain PyTorch version (``ref``); a CUDA tensor goes
 to the hand-written kernel, and a failed build or launch raises — there is
-no fallback.  Any other device raises.
+no fallback.  Any other device raises.  The RLS update takes one of two
+routes by shape (``rls_route``); that is a choice by shape, made before any
+launch, never a retry.
 
-``launch_counts`` holds one plain integer per kernel, raised by one where
-the kernel is launched and nowhere else, so a run can show that its main
-path went through the kernels (``chip_smoke.py`` reads it).
+``launch_counts`` holds one plain integer per kernel and route, raised by
+one where the kernel is launched and nowhere else, so a run can show that
+its main path went through the kernels (``chip_smoke.py`` reads it):
+
+* ``xorshift_projection`` — the projection kernel;
+* ``oselm_rls_update_fleet`` — the single-pass RLS kernel, from the fleet entry;
+* ``oselm_rls_update`` — the same kernel, from the one-head entry;
+* ``rls_two_stage`` — the two-stage RLS route, from either entry.
 """
 
 from __future__ import annotations
@@ -17,7 +24,12 @@ from repro_torch.kernels import oselm_update as _oselm_update
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import xorshift_proj as _xorshift_proj
 
-launch_counts = {"xorshift_projection": 0, "oselm_rls_update_fleet": 0}
+launch_counts = {
+    "xorshift_projection": 0,
+    "oselm_rls_update_fleet": 0,
+    "oselm_rls_update": 0,
+    "rls_two_stage": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -56,23 +68,39 @@ def xorshift_projection(
     return h.reshape(lead + (n_hidden,))
 
 
+def rls_route(n: int, k: int, m: int) -> str:
+    """``"single"`` where the single-pass kernel takes (N, k, m), else
+    ``"two_stage"`` (N > 256, k > 64, N not a multiple of 4, or a layout
+    that does not fit in shared memory)."""
+    return "two_stage" if _oselm_update.single_pass_plan(n, k, m) is None else "single"
+
+
+def _rls(P, beta, H, Y, counter):
+    if not _on_cuda(P):
+        return _ref.rls_update_ref(P, beta, H, Y)
+    P, beta = P.contiguous(), beta.contiguous()
+    H, Y = H.to(torch.float32).contiguous(), Y.to(torch.float32).contiguous()
+    if rls_route(P.shape[1], H.shape[1], beta.shape[2]) == "single":
+        out = _oselm_update.rls_single(P, beta, H, Y)
+        launch_counts[counter] += 1
+    else:
+        out = _oselm_update.rls_fleet(P, beta, *_oselm_update.small_operands(P, beta, H, Y))
+        launch_counts["rls_two_stage"] += 1
+    return out
+
+
 def oselm_rls_update_fleet(
     P: torch.Tensor, beta: torch.Tensor, H: torch.Tensor, Y: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused rank-k RLS update for S heads: P (S,N,N), beta (S,N,m),
-    H (S,k,N), Y (S,k,m) -> new (P', beta'), Pallas numerics."""
-    pht, g, w = _oselm_update.small_operands(P, beta, H, Y)
-    if _on_cuda(P):
-        out = _oselm_update.rls_fleet(P.contiguous(), beta.contiguous(), pht, g, w)
-        launch_counts["oselm_rls_update_fleet"] += 1
-        return out
-    return _ref.rls_fused_ref(P, beta, pht, g, w)
+    """Rank-k RLS update for S heads: P (S,N,N), beta (S,N,m), H (S,k,N),
+    Y (S,k,m) -> new (P', beta'), Pallas numerics."""
+    return _rls(P, beta, H, Y, "oselm_rls_update_fleet")
 
 
 def oselm_rls_update(
     P: torch.Tensor, beta: torch.Tensor, H: torch.Tensor, Y: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused rank-k RLS update of one head: P (N,N), beta (N,m), H (k,N),
-    Y (k,m) -> (P', beta').  The S = 1 case of ``oselm_rls_update_fleet``."""
-    new_p, new_beta = oselm_rls_update_fleet(P[None], beta[None], H[None], Y[None])
+    """Rank-k RLS update of one head: P (N,N), beta (N,m), H (k,N), Y (k,m)
+    -> (P', beta').  The S = 1 case of ``oselm_rls_update_fleet``."""
+    new_p, new_beta = _rls(P[None], beta[None], H[None], Y[None], "oselm_rls_update")
     return new_p[0], new_beta[0]

@@ -1,19 +1,24 @@
-"""Fused rank-k RLS (OS-ELM) update on Hopper: the small-operand stage and
-the launch wrapper of ``csrc/oselm_update.cu``.
+"""Rank-k RLS (OS-ELM) update on Hopper: the launch wrappers of
+``csrc/oselm_update.cu``.
 
 Replaces the Pallas TPU kernels ``repro/kernels/oselm_update.py::
-oselm_rls_update_fleet`` (``_rls_fleet_kernel``) and, as its S = 1 case,
-``oselm_rls_update`` (``_rls_kernel``).  The update splits as in the JAX
-wrapper:
+oselm_rls_update_fleet`` (``_rls_fleet_kernel`` with its wrapper's jnp
+small-operand stage) and, as its S = 1 case, ``oselm_rls_update``
+(``_rls_kernel``).  Two routes, chosen by shape in ``ops.rls_route``:
 
-* small operands, plain torch (``small_operands``): PHt = P Hᵀ,
-  S = I + H PHt, G = S⁻¹ PHtᵀ, E = Y − H β, W = Hᵀ E;
-* the fused pass, the kernel (``rls_fleet``): P' = P − PHt G and
-  β' = β + P' W, each P element read once and written once.
+* the single pass (``rls_single``), for N <= 256, k <= 64, N a multiple of
+  4 and a shared-memory layout that fits: one launch takes (P, β, H, Y) and
+  computes PHt = P Hᵀ, S = I + H PHt, G = S⁻¹ PHtᵀ, E = Y − H β, W = Hᵀ E,
+  P' = P − PHt G and β' = β + P' W, each P byte read once and written
+  once.  Persistent clusters (``single_pass_plan``: blocks per stream and
+  stages of the ring) walk the streams;
+* the two-stage route for every other shape: the small operands in plain
+  torch (``small_operands``, as the JAX wrapper computes them outside its
+  ``pallas_call``), then the fused pass (``rls_fleet``).
 
-The fused pass is bound by device memory (2·S·N²·4 bytes of P in and out);
-see the source for the design.  Plain version: ``ref.rls_fused_ref``.
-Device dispatch and the launch count live in ``ops``.
+Both are bound by device memory (P in and P' out); see the source for the
+designs.  Plain version: ``ref.rls_update_ref``.  Device dispatch and the
+launch counts live in ``ops``.
 """
 
 from __future__ import annotations
@@ -24,41 +29,131 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import small_operands  # the two-stage route's first stage
+
+__all__ = ["rls_fleet", "rls_single", "single_pass_plan", "single_pass_smem_bytes",
+           "small_operands"]
+
+SINGLE_MAX_N = 256
+SINGLE_MAX_K = 64
+SINGLE_MAX_ROWS = 128  # rows of P per block; more go to a cluster of blocks
+CLUSTER_SIZES = (1, 2, 4)
+MAX_STAGES = 3
+MAX_SMEM_BYTES = 227 * 1024  # dynamic shared memory a block may opt into on Hopper
+_BAR_BYTES = 32
 
 
-def small_operands(
+def single_pass_smem_bytes(n: int, k: int, m: int, c: int, ns: int) -> int:
+    """Shared memory of one block of the single pass: the mbarriers, then in
+    floats ``ns`` stages of [its rows of P (R x N, R = N / c) | H / G (k x N)
+    | β (N x m)], Wᵀ (m x N), its rows of PHt (R x k), two k x k buffers and
+    E (k x m).  The same layout as ``Layout`` in ``csrc/oselm_update.cu``."""
+    r = n // c
+    stage = r * n + k * n + n * m
+    return _BAR_BYTES + 4 * (ns * stage + m * n + r * k + 2 * k * k + k * m)
+
+
+def single_pass_plan(n: int, k: int, m: int) -> tuple[int, int] | None:
+    """(blocks per stream, stages) of the single pass for this shape, or
+    None where it does not take the shape: N > 256, k > 64, N not a multiple
+    of 4 (rows of P must be 16-byte aligned for the bulk copies), or no
+    cluster of 1, 2 or 4 blocks of at most 128 rows each whose layout fits.
+    The smallest cluster with two stages or more wins, else the smallest
+    with one."""
+    if not (1 <= n <= SINGLE_MAX_N and 1 <= k <= SINGLE_MAX_K and m >= 1 and n % 4 == 0):
+        return None
+    fits = []
+    for c in CLUSTER_SIZES:
+        if n % c or n // c > SINGLE_MAX_ROWS:
+            continue
+        ns = max((s for s in range(1, MAX_STAGES + 1)
+                  if single_pass_smem_bytes(n, k, m, c, s) <= MAX_SMEM_BYTES), default=0)
+        if ns >= 2:
+            return c, ns
+        if ns == 1:
+            fits.append((c, 1))
+    return fits[0] if fits else None
+
+
+@functools.cache
+def _lib():
+    lib = build.library("oselm_update")
+    lib.oselm_rls_single_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    lib.oselm_rls_single_launch.restype = ctypes.c_int
+    lib.oselm_rls_single_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.oselm_rls_single_smem_bytes.restype = ctypes.c_int
+    lib.oselm_rls_fleet_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.oselm_rls_fleet_launch.restype = ctypes.c_int
+    lib.oselm_rls_fleet_error_string.argtypes = [ctypes.c_int]
+    lib.oselm_rls_fleet_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def kernel_smem_bytes(n: int, k: int, m: int, c: int, ns: int) -> int:
+    """The kernel library's own count of ``single_pass_smem_bytes`` (the
+    card's checks hold the two equal)."""
+    return int(_lib().oselm_rls_single_smem_bytes(n, k, m, c, ns))
+
+
+def _check(ops_: dict[str, torch.Tensor], want: dict[str, tuple], who: str) -> None:
+    dev = ops_["P"].device
+    for name, t in ops_.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{who} kernel needs CUDA tensors, {name} is on {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, P on {dev}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dim() != 3:
+            raise ValueError(f"{name} must be 3-d, got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]}")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: {_lib().oselm_rls_fleet_error_string(rc).decode()}")
+
+
+def rls_single(
     P: torch.Tensor,  # (S, N, N)
     beta: torch.Tensor,  # (S, N, m)
     H: torch.Tensor,  # (S, k, N)
     Y: torch.Tensor,  # (S, k, m)
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """PHt (S, N, k), G (S, k, N) and W (S, N, m), contiguous — the stage the
-    JAX wrapper computes outside its ``pallas_call``.
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole update in one launch on the card; returns new (P', β').
 
-    The k x k solve uses ``solve_ex``: like ``jnp.linalg.solve`` it does not
-    check for a singular S (S = I + H P Hᵀ is SPD for an SPD P), and unlike
-    ``linalg.solve`` it does not make the host wait for the card to check.
+    Every operand must be a contiguous f32 CUDA tensor on one device with the
+    shapes above, P, β and H 16-byte aligned, and the shape one the single
+    pass takes (``single_pass_plan``).  Raises on anything else, and if
+    the launch fails.
     """
-    k = H.shape[1]
-    pht = torch.einsum("snj,skj->snk", P, H)
-    ss = torch.eye(k, dtype=torch.float32, device=P.device) + torch.einsum(
-        "skn,snj->skj", H, pht
-    )
-    g = torch.linalg.solve_ex(ss, pht.transpose(1, 2)).result
-    e = Y.to(torch.float32) - torch.einsum("skn,snm->skm", H, beta)
-    w = torch.einsum("skn,skm->snm", H, e)
-    return pht.contiguous(), g.contiguous(), w.contiguous()
-
-
-@functools.cache
-def _launcher():
-    lib = build.library("oselm_update")
-    fn = lib.oselm_rls_fleet_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.oselm_rls_fleet_error_string.argtypes = [ctypes.c_int]
-    lib.oselm_rls_fleet_error_string.restype = ctypes.c_char_p
-    return fn, lib.oselm_rls_fleet_error_string
+    s, n = P.shape[0], P.shape[1]
+    k, m = H.shape[1], beta.shape[2]
+    _check({"P": P, "beta": beta, "H": H, "Y": Y},
+           {"P": (s, n, n), "beta": (s, n, m), "H": (s, k, n), "Y": (s, k, m)}, "rls_single")
+    plan = single_pass_plan(n, k, m)
+    if plan is None:
+        raise ValueError(f"the single pass does not take N={n}, k={k}, m={m}")
+    for name, t in (("P", P), ("beta", beta), ("H", H)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the bulk copies")
+    new_p = torch.empty_like(P)
+    new_beta = torch.empty_like(beta)
+    if s == 0:
+        return new_p, new_beta
+    with torch.cuda.device(P.device):
+        rc = _lib().oselm_rls_single_launch(
+            P.data_ptr(), beta.data_ptr(), H.data_ptr(), Y.data_ptr(),
+            new_p.data_ptr(), new_beta.data_ptr(), s, n, k, m, *plan,
+            torch.cuda.current_stream(P.device).cuda_stream,
+        )
+    _raise_on(rc, "oselm_update single pass")
+    return new_p, new_beta
 
 
 def rls_fleet(
@@ -68,44 +163,28 @@ def rls_fleet(
     g: torch.Tensor,  # (S, k, N)
     w: torch.Tensor,  # (S, N, m)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fused pass on the card; returns new (P', β') buffers.
+    """The fused pass of the two-stage route on the card; returns new
+    (P', β') buffers.
 
     Every operand must be a contiguous f32 CUDA tensor on one device with the
     shapes above.  Raises on anything else, and if the launch fails.
     """
-    ops_ = {"P": P, "beta": beta, "pht": pht, "g": g, "w": w}
-    for name, t in ops_.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"rls_fleet kernel needs CUDA tensors, {name} is on {t.device}")
-        if t.device != P.device:
-            raise ValueError(f"{name} is on {t.device}, P on {P.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 3:
-            raise ValueError(f"{name} must be 3-d, got shape {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     s, n = P.shape[0], P.shape[1]
     k, m = pht.shape[2], beta.shape[2]
     if k < 1 or m < 1:
         raise ValueError(f"rank k and outputs m must be positive, got k={k}, m={m}")
-    want = {
-        "P": (s, n, n), "beta": (s, n, m), "pht": (s, n, k), "g": (s, k, n), "w": (s, n, m),
-    }
-    for name, shape in want.items():
-        if tuple(ops_[name].shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(ops_[name].shape)}, expected {shape}")
+    _check({"P": P, "beta": beta, "pht": pht, "g": g, "w": w},
+           {"P": (s, n, n), "beta": (s, n, m), "pht": (s, n, k), "g": (s, k, n),
+            "w": (s, n, m)}, "rls_fleet")
     new_p = torch.empty_like(P)
     new_beta = torch.empty_like(beta)
     if s == 0 or n == 0:
         return new_p, new_beta
-    launch, error_string = _launcher()
     with torch.cuda.device(P.device):
-        rc = launch(
+        rc = _lib().oselm_rls_fleet_launch(
             P.data_ptr(), beta.data_ptr(), pht.data_ptr(), g.data_ptr(), w.data_ptr(),
             new_p.data_ptr(), new_beta.data_ptr(), s, n, k, m,
             torch.cuda.current_stream(P.device).cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"oselm_update launch failed: {error_string(rc).decode()}")
+    _raise_on(rc, "oselm_update two-stage pass")
     return new_p, new_beta

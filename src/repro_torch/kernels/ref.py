@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the two hand-written kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
-Each function here states the exact arithmetic the corresponding CUDA kernel
+Each function here states the arithmetic the corresponding CUDA kernel
 (``csrc/xorshift_proj.cu``, ``csrc/oselm_update.cu``) computes.  The wrappers
 in ``ops`` run them for CPU tensors; on the card they run only in tests and
-in ``chip_smoke.py``, which hold the kernels against them.
+in ``chip_smoke.py``, which hold the kernels against them — apart from
+``small_operands``, which is also the first stage of the two-stage RLS route.
 """
 
 from __future__ import annotations
@@ -47,6 +48,31 @@ def xorshift_projection_ref(
     return activate(z, activation)
 
 
+def small_operands(
+    P: torch.Tensor,  # (S, N, N)
+    beta: torch.Tensor,  # (S, N, m)
+    H: torch.Tensor,  # (S, k, N)
+    Y: torch.Tensor,  # (S, k, m)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """PHt (S, N, k), G (S, k, N) and W (S, N, m), contiguous — the stage the
+    JAX wrapper computes outside its ``pallas_call``: PHt = P Hᵀ,
+    S = I + H PHt, G = S⁻¹ PHtᵀ, E = Y − H β, W = Hᵀ E.
+
+    The k x k solve uses ``solve_ex``: like ``jnp.linalg.solve`` it does not
+    check for a singular S (S = I + H P Hᵀ is SPD for an SPD P), and unlike
+    ``linalg.solve`` it does not make the host wait for the card to check.
+    """
+    k = H.shape[1]
+    pht = torch.einsum("snj,skj->snk", P, H)
+    ss = torch.eye(k, dtype=torch.float32, device=P.device) + torch.einsum(
+        "skn,snj->skj", H, pht
+    )
+    g = torch.linalg.solve_ex(ss, pht.transpose(1, 2)).result
+    e = Y.to(torch.float32) - torch.einsum("skn,snm->skm", H, beta)
+    w = torch.einsum("skn,skm->snm", H, e)
+    return pht.contiguous(), g.contiguous(), w.contiguous()
+
+
 def rls_fused_ref(
     P: torch.Tensor,  # (S, N, N)
     beta: torch.Tensor,  # (S, N, m)
@@ -58,3 +84,14 @@ def rls_fused_ref(
     ``beta' = beta + P' @ W`` (no symmetrisation; beta' from P')."""
     new_p = P - torch.bmm(pht, g)
     return new_p, beta + torch.bmm(new_p, w)
+
+
+def rls_update_ref(
+    P: torch.Tensor,  # (S, N, N)
+    beta: torch.Tensor,  # (S, N, m)
+    H: torch.Tensor,  # (S, k, N)
+    Y: torch.Tensor,  # (S, k, m)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole rank-k RLS update with the Pallas numerics: the small
+    operands, then the fused pass.  The plain version of both routes."""
+    return rls_fused_ref(P, beta, *small_operands(P, beta, H, Y))

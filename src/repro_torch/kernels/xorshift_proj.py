@@ -2,11 +2,14 @@
 ``csrc/xorshift_proj.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/xorshift_proj.py::
-xorshift_projection`` (``_proj_kernel``).  The kernel is a tiled f32 SGEMM
-whose B operand, the ODLHash matrix alpha, is generated tile by tile inside
-each block from the counter hash and never stored, so device memory sees
-only x in and H out.  On this card it is bound by its f32 FMAs (no TF32: the
-1e-5 tolerance needs full f32); see the source for the design.
+xorshift_projection`` (``_proj_kernel``).  The kernel is a GEMM on the
+tensor cores (wgmma, TF32) whose B operand, the ODLHash matrix alpha, is
+generated tile by tile inside each block from the counter hash and never
+stored, so device memory sees only x in and H out.  alpha splits exactly
+into two TF32 parts and x into a TF32 part and a remainder, so three TF32
+products keep the f32 tolerance (1e-5); the integer work of hashing and
+splitting into shared memory is what bounds it.  See the source for the
+design.
 
 Plain version: ``ref.xorshift_projection_ref``.  Device dispatch and the
 launch count live in ``ops``.
