@@ -22,6 +22,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    then a small fleet run on the card and on the CPU must agree, and a
    profiler window shows where a tick's device time goes (the RLS update
    must be one kernel per tick there);
+6c. the stream path: the same fleet through ``stream.run`` with the runners
+   replayed as CUDA graphs and ticks shipped from host memory; with a
+   zero-latency teacher it must equal ``run_fleet`` bit for bit, then
+   ``algo1`` with a late, lossy teacher under each backpressure policy must
+   keep the query accounting exact;
+6d. a small stream run with latency on the card and on the CPU must agree
+   (decisions and counters equal);
+6e. a profiler window over graphed stream ticks: one projection and one RLS
+   kernel per tick, and where the tick's device and host time go;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound.
 
@@ -33,7 +42,8 @@ of the repository, it exits non-zero and prints no result.
 instead times the port of the checkout at PATH (``.`` for this one) with
 this script's timing code and prints one JSON line: the card, the device
 time of the projection and of the whole RLS update at the fleet shape,
-fleet ``train_phase`` stream-ticks per second after a warm-up, and the
+fleet ``train_phase`` stream-ticks per second after a warm-up, the same
+for the graphed stream path (null for a checkout without it), and the
 profiled tick (wall, device time per kernel, busy share).  To compare two
 checkouts, run it for both in turns on one card (A, B, B, A).
 """
@@ -41,6 +51,7 @@ checkouts, run it for both in turns on one card (A, B, B, A).
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -56,6 +67,12 @@ TRAIN_TICKS = 32
 ALGO1_TICKS = 96
 ALGO1_SHIFT_AT = 64  # DriftConfig.warmup: the detector is armed from here
 PROFILE_TICKS = 8
+# The stream path's teacher under the backpressure policies (phase 6c), and
+# the card-against-CPU check's (phase 6d).
+STREAM_TEACHER = dict(latency=2, jitter=2, loss_prob=0.02, partial_prob=0.05, seed=SEED)
+STREAM_CAPACITY = 8
+POLICIES = ("drop_oldest", "drop_newest", "block", "coalesce")
+STREAM_CHECK = dict(n_streams=256, n_ticks=48, latency=3, jitter=2, capacity=4)
 K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 128),
              (130, 100, 72), (1, 16, 16)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6)]
@@ -342,10 +359,11 @@ def phase_fleet(device="cuda", n_streams=FLEET_STREAMS, n_hidden=128,
     cfg = har_odl.full(n_hidden=n_hidden)
     data = har.generate(seed=SEED)
     res = {"launches": {}}
-    for mode, n_ticks, shift_at in (("train_phase", train_ticks, train_ticks),
-                                    ("algo1", algo1_ticks, ALGO1_SHIFT_AT)):
+    runs = {}
+    for mode, n_ticks, shift_at in _fleet_modes(train_ticks, algo1_ticks):
         xs, ys = _fleet_ticks(data, n_ticks, n_streams, shift_at, device, SEED + n_ticks)
         state, outs, secs, counts = _run_fleet_once(cfg, xs, ys, mode, device)
+        runs[mode] = (state, outs)
         for name, n in counts.items():
             if device == "cuda" and name in PATH_KERNELS:
                 check(n >= n_ticks, f"{mode}: {name} launched {n} < {n_ticks} times")
@@ -365,7 +383,12 @@ def phase_fleet(device="cuda", n_streams=FLEET_STREAMS, n_hidden=128,
             check(bool(outs.queried.all()), "train_phase: a cold head skipped a query")
         del xs, ys, state, outs
     print(f"fleet path (S={n_streams}, N={n_hidden}): {json.dumps(res)}")
-    return res
+    return res, runs
+
+
+def _fleet_modes(train_ticks=TRAIN_TICKS, algo1_ticks=ALGO1_TICKS):
+    """(mode, ticks, shift tick) of the fleet and stream paths."""
+    return (("train_phase", train_ticks, train_ticks), ("algo1", algo1_ticks, ALGO1_SHIFT_AT))
 
 
 def phase_cross_check(n_streams=256, n_ticks=32):
@@ -458,13 +481,257 @@ def phase_profile(device="cuda", n_streams=FLEET_STREAMS, n_ticks=PROFILE_TICKS)
     if not rows:
         print(f"profile (S={n_streams}): {wall_ms:.3f} ms/tick wall; the profiler "
               "recorded no device time (device busy share not measured)")
-        return
+        return {"wall_ms": wall_ms, "device_ms": float("nan")}
     busy = sum(ms for ms, _ in rows)
     print(f"profile (S={n_streams}, train_phase, {n_ticks} ticks): "
           f"{wall_ms:.3f} ms/tick wall, device busy {busy:.3f} ms/tick "
           f"({100 * busy / wall_ms:.1f} % of wall)")
     for ms, name in rows[:10]:
         print(f"  {ms:8.4f} ms/tick  {100 * ms / busy:5.1f} %  {name[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": busy}
+
+
+def _run_stream_once(cfg, ticks, labels, mode, device, teacher_kw=None, **kw):
+    """One ``stream.run`` of the port over ``ticks`` (host arrays, shipped
+    by the session) on ``device``: (state, outputs, stats, seconds)."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.engine import stream
+
+    teacher = stream.LatencyTeacher(stream.array_labels(labels), **(teacher_kw or {}))
+    state = engine.init_fleet(cfg, ticks.shape[1], device)
+    _sync(device)
+    t0 = time.perf_counter()
+    state, outs, stats = stream.run(state, iter(ticks), cfg, teacher, mode=mode, **kw)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    check(stats.reconciled, f"stream {mode}: the accounting identity does not hold: "
+                            f"{stats.summary()}")
+    for name, t in (("beta", state.elm.beta), ("P", state.elm.P)):
+        check(bool(torch.isfinite(t).all()), f"stream {mode}: non-finite {name}")
+    return state, outs, stats, secs
+
+
+def _state_leaves(state):
+    """(name, tensor) of every leaf of an ``EngineState``."""
+    return [(f"{g}.{leaf}", getattr(getattr(state, g), leaf))
+            for g in ("elm", "prune", "drift", "meter") for leaf in getattr(state, g)._fields]
+
+
+def _decisions_and_floats_agree(what, outs_a, outs_b, state_a, state_b):
+    """The ROADMAP long-run rule: decisions exact tick by tick; predictions
+    apart only at near-ties (the two classes' outputs within the float
+    tolerance), and the ladder's streak and level apart only on the streams
+    where one flipped (a flip turns an agreement into a mismatch); floats
+    within rtol and atol 2e-3.  Returns the share of predictions apart."""
+    import numpy as np
+    import torch
+
+    for f in ("queried", "trained", "mode_training", "theta"):
+        check(np.array_equal(getattr(outs_a, f), getattr(outs_b, f)), f"{what}: {f} differs")
+    flips = outs_a.pred != outs_b.pred
+    mismatch = float(np.mean(flips))
+    check(mismatch <= 1e-3, f"{what}: {mismatch:.2e} of predictions differ")
+    t_idx, s_idx = np.nonzero(flips)
+    o = outs_b.outputs[t_idx, s_idx]
+    rows = np.arange(len(t_idx))
+    gap = np.abs(o[rows, outs_a.pred[t_idx, s_idx]] - o[rows, outs_b.pred[t_idx, s_idx]])
+    check(bool(np.all(gap <= 2e-3 + 2e-3 * np.abs(o).max(axis=-1, initial=0.0))),
+          f"{what}: a prediction differs away from a near-tie (gaps {gap.tolist()})")
+    check(np.allclose(outs_a.outputs, outs_b.outputs, rtol=2e-3, atol=2e-3),
+          f"{what}: outputs differ")
+    flipped = torch.as_tensor(flips.any(axis=0))
+    for (name, a), (_, b) in zip(_state_leaves(state_a), _state_leaves(state_b)):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.float32:
+            ok = torch.allclose(a, b, rtol=2e-3, atol=2e-3)
+        elif name in ("prune.streak", "prune.level"):
+            ok = torch.equal(a[~flipped], b[~flipped])
+        else:
+            ok = torch.equal(a, b)
+        check(ok, f"{what}: state leaf {name} differs")
+    return mismatch
+
+
+def phase_stream(runs, device="cuda", n_streams=FLEET_STREAMS):
+    """6c: the fleet through ``stream.run`` with graphed runners, ticks
+    shipped from host memory.  Zero latency must equal the eager
+    ``run_fleet`` runs of phase 6 (``runs``) bit for bit; then ``algo1``
+    with a late, lossy teacher under each backpressure policy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import ops
+
+    cfg = har_odl.full()
+    data = har.generate(seed=SEED)
+    res = {}
+    ops.reset_launch_counts()
+    graphs.reset_replay_counts()
+    for mode, n_ticks, shift_at in _fleet_modes():
+        xs, ys = _fleet_ticks(data, n_ticks, n_streams, shift_at, device, SEED + n_ticks)
+        ticks, labels = xs.cpu().numpy(), ys.cpu().numpy()
+        del xs, ys
+        state, outs, stats, secs = _run_stream_once(cfg, ticks, labels, mode, device,
+                                                    {"latency": 0})
+        f_state, f_outs = runs[mode]
+        f_host = {f: getattr(f_outs, f).cpu().numpy() for f in f_outs._fields}
+        differ = [f for f in f_outs._fields if not np.array_equal(f_host[f], getattr(outs, f))]
+        differ += [name for (name, a), (_, b) in zip(_state_leaves(f_state), _state_leaves(state))
+                   if not torch.equal(a, b)]
+        res[f"{mode}_bit_for_bit"] = not differ
+        if differ:
+            print(f"stream {mode}: differs from run_fleet in {differ}; holding it to the "
+                  "long-run rule instead")
+            _decisions_and_floats_agree(f"stream {mode} vs run_fleet", outs,
+                                        f_outs._replace(**f_host), state, f_state)
+        check(stats.labels_applied == stats.queries_issued == int(outs.queried.sum()),
+              f"stream {mode}: a zero-latency label was not applied")
+        res[f"{mode}_stream_ticks_per_s"] = n_streams * n_ticks / secs
+        res[f"{mode}_tick_p50_ms"] = stats.tick_p50_ms
+        res[f"{mode}_tick_p95_ms"] = stats.tick_p95_ms
+        del state, outs, f_state, f_outs
+    n_ticks = ticks.shape[0]
+    for policy in POLICIES:
+        state, outs, stats, secs = _run_stream_once(
+            cfg, ticks, labels, "algo1", device, STREAM_TEACHER, capacity=STREAM_CAPACITY,
+            backpressure=policy)
+        check(stats.labels_applied > 0, f"stream algo1 {policy}: no label applied")
+        summary = stats.summary()
+        res[policy] = {k: summary[k] for k in (
+            "queries_issued", "labels_applied", "queries_dropped", "queries_lost",
+            "queries_coalesced", "asks_deferred", "replies_orphaned", "tick_p50_ms",
+            "tick_p95_ms", "label_latency_p50", "label_latency_p95")}
+        res[policy]["ticks_per_s"] = n_ticks / secs
+        del state, outs
+    res["launches"] = dict(ops.launch_counts)
+    res["kernel_replays"] = dict(graphs.kernel_replays)
+    res["runner_replays"] = dict(graphs.replay_counts)
+    for name in PATH_KERNELS:
+        check(device != "cuda" or res["kernel_replays"][name] >= n_ticks,
+              f"stream: {name} replayed {res['kernel_replays'][name]} < {n_ticks} times")
+    check(res["launches"]["rls_two_stage"] == res["kernel_replays"]["rls_two_stage"] == 0,
+          "stream: the fleet shape took the two-stage route")
+    print(f"stream path (S={n_streams}, graphed runners, ticks from host memory): "
+          f"{json.dumps(res)}")
+    return res
+
+
+def phase_stream_cross_check(n_streams=STREAM_CHECK["n_streams"],
+                             n_ticks=STREAM_CHECK["n_ticks"]):
+    """6d: one small stream run with latency on the card (graphs, kernels)
+    and on the CPU (eager, plain versions).  Counters and decisions must be
+    equal; a ring entry aliasing a graph's static buffers would train on
+    the wrong features and break the floats."""
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+
+    cfg = har_odl.full()
+    xs, ys = _fleet_ticks(har.generate(seed=SEED), n_ticks, n_streams, n_ticks, "cpu", SEED + 3)
+    teacher = {"latency": STREAM_CHECK["latency"], "jitter": STREAM_CHECK["jitter"], "seed": SEED}
+    runs = {device: _run_stream_once(cfg, xs.numpy(), ys.numpy(), "train_phase", device,
+                                     teacher, capacity=STREAM_CHECK["capacity"],
+                                     backpressure="drop_oldest")
+            for device in ("cuda", "cpu")}
+    (sc, oc, tc, _), (sh, oh, th, _) = runs["cuda"], runs["cpu"]
+    sc_sum, th_sum = tc.summary(), th.summary()
+    for k in sc_sum:
+        if isinstance(sc_sum[k], int) and not isinstance(sc_sum[k], bool):
+            check(sc_sum[k] == th_sum[k], f"stream cross-check: counter {k} differs")
+    check(list(tc.label_latency_ticks) == list(th.label_latency_ticks),
+          "stream cross-check: label latencies differ")
+    mismatch = _decisions_and_floats_agree("stream cross-check", oc, oh, sc, sh)
+    print(f"stream cross-check card vs cpu (S={n_streams}, T={n_ticks}, latency "
+          f"{STREAM_CHECK['latency']}, jitter {STREAM_CHECK['jitter']}, capacity "
+          f"{STREAM_CHECK['capacity']}): counters and decisions equal "
+          f"(applied {tc.labels_applied}, dropped {tc.queries_dropped}, orphaned "
+          f"{tc.replies_orphaned}), pred mismatch {mismatch:.2e}, beta |err| "
+          f"{(sc.elm.beta.cpu() - sh.elm.beta).abs().max().item():.3e}")
+
+
+def _stream_window(device="cuda", n_streams=FLEET_STREAMS, n_ticks=PROFILE_TICKS,
+                   profiled=False, collect=True):
+    """A graphed zero-latency ``train_phase`` session at full width, ticks on
+    the card: three ticks capture its graphs, then ``n_ticks`` advances are
+    timed (under ``torch.profiler`` when ``profiled``).  Returns (wall ms
+    per tick, the profiler or None)."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import engine
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+    from repro_torch.engine import stream
+
+    cfg = har_odl.full()
+    xs, ys = _fleet_ticks(har.generate(seed=SEED), n_ticks + 4, n_streams, n_ticks + 4, device,
+                          SEED + 5)
+    teacher = stream.LatencyTeacher(stream.array_labels(ys.cpu().numpy()))
+    sess = stream.StreamSession(engine.init_fleet(cfg, n_streams, device), cfg, teacher,
+                                mode="train_phase", collect=collect)
+    sess.start(xs[0])
+    for t in range(1, 4):
+        sess.advance(xs[t])
+    _sync(device)
+    window = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext())
+    with window as prof:
+        t0 = time.perf_counter()
+        for t in range(4, n_ticks + 4):
+            sess.advance(xs[t])
+        _sync(device)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n_ticks
+    sess.advance(None)
+    sess.finish()
+    return wall_ms, prof
+
+
+def phase_stream_profile(eager, fleet, device="cuda", n_streams=FLEET_STREAMS,
+                         n_ticks=PROFILE_TICKS):
+    """6e: a profiler window over graphed stream ticks.  Each tick must run
+    one projection and one RLS kernel; prints the tick's device time, the
+    busy share (profiled, and over an unprofiled window's wall), the host's
+    time by call, an unprofiled window without the ``collect`` pulls, and
+    the eager fleet tick of phases 6 and 6b beside it."""
+    from torch.autograd import DeviceType
+
+    unprofiled_ms, _ = _stream_window(device, n_streams, n_ticks)
+    no_collect_ms, _ = _stream_window(device, n_streams, n_ticks, collect=False)
+    wall_ms, prof = _stream_window(device, n_streams, n_ticks, profiled=True)
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    for kernel in ("proj_kernel", "rls_single_kernel"):
+        hits = [e for e in dev if kernel in e.key]
+        check(len(hits) == 1 and hits[0].count == n_ticks,
+              f"stream profile: {kernel} ran {[e.count for e in hits]} times in {n_ticks} "
+              "graphed ticks")
+    rows = sorted(((e.self_device_time_total / 1e3 / n_ticks, e.key) for e in dev), reverse=True)
+    busy = sum(ms for ms, _ in rows)
+    host = sorted(((e.self_cpu_time_total / 1e3 / n_ticks, e.key) for e in events
+                   if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0),
+                  reverse=True)
+    eager_ms = 1e3 * fleet["train_phase_secs"] / TRAIN_TICKS
+    print(f"stream profile (S={n_streams}, graphed train_phase, {n_ticks} ticks on the card): "
+          f"{wall_ms:.3f} ms/tick wall profiled, {unprofiled_ms:.3f} unprofiled; device "
+          f"{busy:.3f} ms/tick ({100 * busy / wall_ms:.1f} % of the profiled wall, "
+          f"{100 * busy / unprofiled_ms:.1f} % of the unprofiled); one proj_kernel and one "
+          f"rls_single_kernel per tick")
+    print(f"  unprofiled without the collect pulls: {no_collect_ms:.3f} ms/tick "
+          f"({100 * busy / no_collect_ms:.1f} % busy)")
+    print(f"  eager fleet tick beside it: {eager_ms:.3f} ms unprofiled (phase 6), "
+          f"{eager['wall_ms']:.3f} ms profiled with {eager['device_ms']:.3f} ms device "
+          f"(phase 6b)")
+    for ms, name in rows[:8]:
+        print(f"  device {ms:8.4f} ms/tick  {100 * ms / busy:5.1f} %  {name[:80]}")
+    for ms, name in host[:8]:
+        print(f"  host   {ms:8.4f} ms/tick  {name[:80]}")
+    return {"wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms, "device_ms": busy,
+            "no_collect_ms": no_collect_ms}
 
 
 def _device_ms(fn, reps=20, rounds=3):
@@ -642,6 +909,15 @@ def time_port(root: Path, device="cuda") -> dict:
     out["rls_update_ms"] = _device_ms(lambda: ops.oselm_rls_update_fleet(P, beta, H, Y))
     del P, beta, H, Y
     out["train_phase_stream_ticks_per_s"] = _train_phase_rate(device)
+    # The graphed stream path (32 zero-latency train_phase ticks on the card
+    # after three that capture the graphs), behind a warm-up session: the
+    # first stream session of a process runs slow; null where the checkout
+    # has no stream path.
+    out["stream_stream_ticks_per_s"] = None
+    if importlib.util.find_spec("repro_torch.engine.stream") is not None:
+        _stream_window(device, n_ticks=4)
+        out["stream_stream_ticks_per_s"] = (
+            1e3 * FLEET_STREAMS / _stream_window(device, n_ticks=TRAIN_TICKS)[0])
     wall_ms, events = _profile_window(device)
     kernels = {e.key[:80]: e.self_device_time_total / 1e3 / PROFILE_TICKS for e in events}
     out["profiled_tick_wall_ms"] = wall_ms
@@ -678,9 +954,13 @@ def main(argv=None) -> int:
     err1 = phase_kernel1()
     err2 = phase_kernel2()
     phase_paper()
-    fleet = phase_fleet()
+    fleet, runs = phase_fleet()
     phase_cross_check()
-    phase_profile()
+    eager = phase_profile()
+    streamed = phase_stream(runs)
+    del runs
+    phase_stream_cross_check()
+    phase_stream_profile(eager, fleet)
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -712,6 +992,10 @@ def main(argv=None) -> int:
             "source": info["source"],
             "replaces": info["replaces"],
             "launches": fleet["launches"][name],
+            # The stream path (phase 6c): eager launches (the warm-up before
+            # each graph's capture) and launches by graph replays.
+            "stream_launches": streamed["launches"][name],
+            "graph_replays": streamed["kernel_replays"][name],
             "max_abs_err": info["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

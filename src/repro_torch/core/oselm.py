@@ -187,11 +187,14 @@ def fleet_rank1_update_h(
     y: torch.Tensor,  # (S, m) one-hot targets
     cfg: OSELMConfig,
     mask: Optional[torch.Tensor] = None,  # (S,) in {0, 1}
+    out: Optional[tuple[torch.Tensor, torch.Tensor]] = None,  # (P', beta') buffers
 ) -> OSELMState:
     """Masked rank-1 RLS for S independent heads through the fused kernel.
 
     Takes precomputed hidden activations so a tick never projects twice.
-    A masked stream is an exact identity on (P, beta, count).
+    A masked stream is an exact identity on (P, beta, count).  With ``out``
+    the new P and beta are written into those buffers (the stream runtime's
+    ping-pong pair) instead of new ones.
     """
     if mask is None:
         mask = torch.ones(h.shape[0], dtype=torch.float32, device=h.device)
@@ -199,7 +202,7 @@ def fleet_rank1_update_h(
     hm = h * mask[:, None]
     ym = y.to(torch.float32) * mask[:, None]
     new_p, new_beta = ops.oselm_rls_update_fleet(
-        state.P, state.beta, hm[:, None, :], ym[:, None, :]
+        state.P, state.beta, hm[:, None, :], ym[:, None, :], out=out
     )
     return OSELMState(beta=new_beta, P=new_p, count=state.count + mask.to(torch.int32))
 

@@ -1,7 +1,9 @@
 """repro_torch.engine — fleet-scale ODL: Algorithm 1 batched over streams.
 
-PyTorch counterpart of ``repro.engine`` (the fleet engine and its S=1 view;
-streaming, cohorts, durability, RPC and sharding are not ported yet).
+PyTorch counterpart of ``repro.engine``: the fleet engine, its S=1 view
+and the streaming async-teacher runtime (``stream.py``, whose per-tick
+runners replay as CUDA graphs on the card through ``graphs.py``).  Cohorts,
+durability, RPC and sharding are not ported yet.
 
 ``EngineState`` (``types.py``) carries a leading stream axis S on every leaf::
 
@@ -15,7 +17,9 @@ One tick is ``plan`` (projection kernel, readout, confidence, drift, query
 decision, comm meter) then ``learn`` (fused RLS kernel + auto-theta ladder);
 ``fleet_step`` composes them and ``run_fleet`` loops it over T ticks.
 ``gate``/``apply_labels`` are the serving split.  The S=1 view (``step``,
-``run_training_phase``, ``run_stream``, ``accuracy``) lives in ``scalar.py``.
+``run_training_phase``, ``run_stream``, ``accuracy``) lives in ``scalar.py``;
+``stream.run`` drives the engine from a tick iterator with a teacher whose
+answers come back late, out of order, partly or never.
 """
 
 from repro_torch.engine.fleet import (  # noqa: F401

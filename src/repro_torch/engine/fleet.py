@@ -34,6 +34,12 @@ from repro_torch.engine.types import (
 
 MODES = ("algo1", "train_phase", "serve")
 
+# How many tick-function factories each runner cache keeps per process (the
+# stream runners in ``engine/stream.py``): a serving process cycles through a
+# handful of (cfg, mode, donate) combinations, and an unbounded cache would
+# keep one per combination forever.
+RUNNER_CACHE_SIZE = 32
+
 
 def init_fleet(
     cfg: EngineConfig, n_streams: int, device: str | torch.device | None = None
@@ -181,14 +187,16 @@ def learn(
     controller_on: torch.Tensor,  # (S,) bool — plan-time controller gate
     cfg: EngineConfig,
     theta: Optional[torch.Tensor] = None,  # (S,) plan-time threshold
+    out: Optional[tuple[torch.Tensor, torch.Tensor]] = None,  # (P', beta') buffers
 ) -> EngineState:
     """Deferred half of a tick: masked rank-1 RLS on the teacher's answers
     (the fused RLS kernel) plus the auto-theta ladder transition for the
     answered queries, judged against the plan-time values.  A stream outside
-    ``mask`` is an exact identity."""
+    ``mask`` is an exact identity.  ``out``: buffers the new P and beta are
+    written into (``oselm.fleet_rank1_update_h``)."""
     y = labels_mod.one_hot(labels, cfg.elm.n_out)  # (S, m)
     agree = pred == labels
-    new_elm = oselm.fleet_rank1_update_h(state.elm, h, y, cfg.elm, mask=mask)
+    new_elm = oselm.fleet_rank1_update_h(state.elm, h, y, cfg.elm, mask=mask, out=out)
     new_prune = _tree_where(
         controller_on & mask,
         pruning.update(state.prune, mask, agree, confidence, cfg.prune, theta=theta),
@@ -240,6 +248,13 @@ def fleet_accuracy(
     o = torch.einsum("bn,snm->sbm", h, state.elm.beta)  # (S, B, m)
     preds = torch.argmax(o, dim=-1)  # (S, B)
     return (preds == ys.to(preds.device)[None, :]).to(torch.float32).mean(dim=-1)
+
+
+def runner_cache_info() -> dict:
+    """Hit/miss/size counters of this module's runner caches, for serving
+    stats (``engine.stream.cache_stats`` merges these with its own).  Empty:
+    ``run_fleet`` is an eager per-tick loop and caches no chunk runner."""
+    return {}
 
 
 def run_fleet(

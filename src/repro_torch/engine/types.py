@@ -61,6 +61,13 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of NamedTuples of tensors (nested any depth), in field order."""
+    if isinstance(tree, tuple):
+        return [leaf for part in tree for leaf in tree_leaves(part)]
+    return [tree]
+
+
 def init_state(cfg: EngineConfig, device: str | torch.device | None = None) -> EngineState:
     """Fresh axis-free (single-head) state, on CUDA unless ``device`` says
     otherwise; broadcast for a fleet via ``engine.init_fleet``."""

@@ -8,7 +8,11 @@ launch, never a retry.
 
 ``launch_counts`` holds one plain integer per kernel and route, raised by
 one where the kernel is launched and nowhere else, so a run can show that
-its main path went through the kernels (``chip_smoke.py`` reads it):
+its main path went through the kernels (``chip_smoke.py`` reads it).  A
+call made while a CUDA graph is being captured launches nothing: it records
+the kernel into the graph, and raises ``captured_counts`` instead, from
+which ``engine.graphs`` learns which kernels each of its graphs replays.
+The keys of both:
 
 * ``xorshift_projection`` — the projection kernel;
 * ``oselm_rls_update_fleet`` — the single-pass RLS kernel, from the fleet entry;
@@ -30,11 +34,19 @@ launch_counts = {
     "oselm_rls_update": 0,
     "rls_two_stage": 0,
 }
+captured_counts = dict.fromkeys(launch_counts, 0)
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of ``name`` on the current CUDA stream, or one kernel node
+    recorded into the graph that stream is capturing."""
+    counts = captured_counts if torch.cuda.is_current_stream_capturing() else launch_counts
+    counts[name] += 1
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -62,7 +74,7 @@ def xorshift_projection(
         h = _xorshift_proj.xorshift_projection(
             x2.contiguous(), seed, n_hidden, scale=scale, activation=activation
         )
-        launch_counts["xorshift_projection"] += 1
+        _count("xorshift_projection")
     else:
         h = _ref.xorshift_projection_ref(x2, seed, n_hidden, scale=scale, activation=activation)
     return h.reshape(lead + (n_hidden,))
@@ -75,26 +87,38 @@ def rls_route(n: int, k: int, m: int) -> str:
     return "two_stage" if _oselm_update.single_pass_plan(n, k, m) is None else "single"
 
 
-def _rls(P, beta, H, Y, counter):
+def _rls(P, beta, H, Y, counter, out=None):
     if not _on_cuda(P):
-        return _ref.rls_update_ref(P, beta, H, Y)
+        new = _ref.rls_update_ref(P, beta, H, Y)
+        if out is None:
+            return new
+        for dst, src in zip(out, new):
+            dst.copy_(src)
+        return out
     P, beta = P.contiguous(), beta.contiguous()
     H, Y = H.to(torch.float32).contiguous(), Y.to(torch.float32).contiguous()
     if rls_route(P.shape[1], H.shape[1], beta.shape[2]) == "single":
-        out = _oselm_update.rls_single(P, beta, H, Y)
-        launch_counts[counter] += 1
+        new = _oselm_update.rls_single(P, beta, H, Y, out=out)
+        _count(counter)
     else:
-        out = _oselm_update.rls_fleet(P, beta, *_oselm_update.small_operands(P, beta, H, Y))
-        launch_counts["rls_two_stage"] += 1
-    return out
+        new = _oselm_update.rls_fleet(P, beta, *_oselm_update.small_operands(P, beta, H, Y),
+                                      out=out)
+        _count("rls_two_stage")
+    return new
 
 
 def oselm_rls_update_fleet(
-    P: torch.Tensor, beta: torch.Tensor, H: torch.Tensor, Y: torch.Tensor
+    P: torch.Tensor,
+    beta: torch.Tensor,
+    H: torch.Tensor,
+    Y: torch.Tensor,
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Rank-k RLS update for S heads: P (S,N,N), beta (S,N,m), H (S,k,N),
-    Y (S,k,m) -> new (P', beta'), Pallas numerics."""
-    return _rls(P, beta, H, Y, "oselm_rls_update_fleet")
+    Y (S,k,m) -> (P', beta'), Pallas numerics.  With ``out`` the update is
+    written into those two buffers (which must not overlap the inputs) and
+    they are returned; else into new ones."""
+    return _rls(P, beta, H, Y, "oselm_rls_update_fleet", out)
 
 
 def oselm_rls_update(

@@ -114,6 +114,27 @@ def _check(ops_: dict[str, torch.Tensor], want: dict[str, tuple], who: str) -> N
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]}")
 
 
+def _outputs(P: torch.Tensor, beta: torch.Tensor, inputs: tuple[torch.Tensor, ...],
+             out: tuple[torch.Tensor, torch.Tensor] | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (P', β') buffers a launch writes: fresh ones, or ``out`` once it is
+    checked.  Both kernels write out of place and store P' 16 bytes at a
+    time, so an ``out`` buffer must be a contiguous f32 tensor of P's (β's)
+    shape on its device, 16-byte aligned, and overlap no input."""
+    if out is None:
+        return torch.empty_like(P), torch.empty_like(beta)
+    for name, o, like in (("P out", out[0], P), ("beta out", out[1], beta)):
+        if o.shape != like.shape or o.dtype != like.dtype or o.device != like.device:
+            raise ValueError(f"{name} must be {like.dtype} {tuple(like.shape)} on {like.device}, "
+                             f"got {o.dtype} {tuple(o.shape)} on {o.device}")
+        if not o.is_contiguous() or o.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        for t in inputs:
+            lo, hi = t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+            if o.data_ptr() < hi and lo < o.data_ptr() + o.numel() * o.element_size():
+                raise ValueError(f"{name} overlaps an input: the kernel writes out of place")
+    return out
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: {_lib().oselm_rls_fleet_error_string(rc).decode()}")
@@ -124,8 +145,10 @@ def rls_single(
     beta: torch.Tensor,  # (S, N, m)
     H: torch.Tensor,  # (S, k, N)
     Y: torch.Tensor,  # (S, k, m)
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The whole update in one launch on the card; returns new (P', β').
+    """The whole update in one launch on the card; returns (P', β'), written
+    into ``out`` when it is given (see ``_outputs``), else into new buffers.
 
     Every operand must be a contiguous f32 CUDA tensor on one device with the
     shapes above, P, β and H 16-byte aligned, and the shape one the single
@@ -142,8 +165,7 @@ def rls_single(
     for name, t in (("P", P), ("beta", beta), ("H", H)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the bulk copies")
-    new_p = torch.empty_like(P)
-    new_beta = torch.empty_like(beta)
+    new_p, new_beta = _outputs(P, beta, (P, beta, H, Y), out)
     if s == 0:
         return new_p, new_beta
     with torch.cuda.device(P.device):
@@ -162,9 +184,11 @@ def rls_fleet(
     pht: torch.Tensor,  # (S, N, k)
     g: torch.Tensor,  # (S, k, N)
     w: torch.Tensor,  # (S, N, m)
+    out: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fused pass of the two-stage route on the card; returns new
-    (P', β') buffers.
+    """The fused pass of the two-stage route on the card; returns (P', β'),
+    written into ``out`` when it is given (see ``_outputs``), else into new
+    buffers.
 
     Every operand must be a contiguous f32 CUDA tensor on one device with the
     shapes above.  Raises on anything else, and if the launch fails.
@@ -176,8 +200,7 @@ def rls_fleet(
     _check({"P": P, "beta": beta, "pht": pht, "g": g, "w": w},
            {"P": (s, n, n), "beta": (s, n, m), "pht": (s, n, k), "g": (s, k, n),
             "w": (s, n, m)}, "rls_fleet")
-    new_p = torch.empty_like(P)
-    new_beta = torch.empty_like(beta)
+    new_p, new_beta = _outputs(P, beta, (P, beta, pht, g, w), out)
     if s == 0 or n == 0:
         return new_p, new_beta
     with torch.cuda.device(P.device):

@@ -247,6 +247,17 @@ def test_cpu_path_launches_no_kernel():
     assert ops.launch_counts == before
 
 
+def test_rls_update_writes_into_out_buffers():
+    """With ``out`` the update lands in the caller's buffers (the stream
+    runtime's ping-pong pair), equal to a call without it."""
+    P, beta, H, Y = map(torch.as_tensor, _rls_case(3, 16, 1, 4, seed=2))
+    want = ops.oselm_rls_update_fleet(P, beta, H, Y)
+    out = (torch.empty_like(P), torch.empty_like(beta))
+    got = ops.oselm_rls_update_fleet(P, beta, H, Y, out=out)
+    assert got[0] is out[0] and got[1] is out[1]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_kernel_wrappers_refuse_non_cuda_tensors():
     """A kernel wrapper launches on CUDA or raises; it never computes the
     plain version itself."""
@@ -333,6 +344,23 @@ def test_cuda_rls_masked_stream_is_exact_identity(cuda_device, s, n, k, m):
                                         for a in (P, beta, H, Y)))
     np.testing.assert_array_equal(p[1].cpu().numpy(), P[1])
     np.testing.assert_array_equal(b[1].cpu().numpy(), beta[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,k,m", [(5, 128, 1, 6), (4, 384, 1, 6)])
+def test_cuda_rls_writes_into_out_buffers(cuda_device, s, n, k, m):
+    """Both routes write into ``out`` exactly what they write into new
+    buffers, and refuse an ``out`` that overlaps an input (they write out
+    of place)."""
+    P, beta, H, Y = (torch.as_tensor(a, device=cuda_device) for a in _rls_case(s, n, k, m, 3))
+    want = ops.oselm_rls_update_fleet(P, beta, H, Y)
+    out = (torch.full_like(P, float("nan")), torch.full_like(beta, float("nan")))
+    got = ops.oselm_rls_update_fleet(P, beta, H, Y, out=out)
+    torch.cuda.synchronize()
+    assert got[0] is out[0] and got[1] is out[1]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="overlaps"):
+        ops.oselm_rls_update_fleet(P, beta, H, Y, out=(P, out[1]))
 
 
 @pytest.mark.cuda
