@@ -31,6 +31,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    (decisions and counters equal);
 6e. a profiler window over graphed stream ticks: one projection and one RLS
    kernel per tick, and where the tick's device and host time go;
+6f. the multiplexer: 16 tenants of 1024 streams (the fleet's 16,384 when
+   stacked) through ``multiplex.run``, ``train_phase`` on HAR rows, a late,
+   lossy teacher per tenant, the four policies four tenants each, 12
+   tenants of 32 ticks and 4 of 24 (members detach mid-run), and a 17th
+   tenant admitted after round 2 (the patch path).  Fused ``rr``, fused
+   ``drr``, unfused ``rr`` and each tenant solo through ``stream.run`` must
+   give every tenant bit-for-bit the same result, with exact accounting.
+   Before that, one plan and one learn on 16 stacked members must equal
+   each member's own at member widths 1, 3 and 1024; after it, a window of
+   fused cohort ticks must replay one projection and one RLS kernel per
+   tick for the whole cohort (and a profiler window gives its busy share);
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound.
 
@@ -43,9 +54,10 @@ instead times the port of the checkout at PATH (``.`` for this one) with
 this script's timing code and prints one JSON line: the card, the device
 time of the projection and of the whole RLS update at the fleet shape,
 fleet ``train_phase`` stream-ticks per second after a warm-up, the same
-for the graphed stream path (null for a checkout without it), and the
-profiled tick (wall, device time per kernel, busy share).  To compare two
-checkouts, run it for both in turns on one card (A, B, B, A).
+for the graphed stream path and for the fused multiplexer of phase 6f (each
+null for a checkout without it), and the profiled tick (wall, device time
+per kernel, busy share).  To compare two checkouts, run it for both in
+turns on one card (A, B, B, A).
 """
 
 from __future__ import annotations
@@ -80,8 +92,27 @@ K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6)]
 K2_EXTRA_SHAPES = [(64, 384, 1, 6), (4, 64, 64, 3)]
 K3_SHAPE = (128, 16, 6)  # one head: N, k, m
 TWO_STAGE_SHAPE = (64, 384, 1, 6)
-# The kernels the fleet path launches every tick (``ops.launch_counts`` keys).
-PATH_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet")
+# The kernels the fleet path launches every tick (``ops.launch_counts`` keys),
+# by mode: the drift detector's feature mean runs only where the detector does.
+PATH_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet", "readout", "row_abs_mean")
+MODE_KERNELS = {"train_phase": PATH_KERNELS[:3], "algo1": PATH_KERNELS}
+# The per-stream row kernels against their plain versions: (S, N, m) of the
+# readout, (S, n) of the feature mean; the first of each is the fleet's.
+READOUT_SHAPES = [(FLEET_STREAMS, 128, 6), (1, 128, 6), (3, 16, 4), (1024, 100, 1), (130, 33, 7)]
+ROW_MEAN_SHAPES = [(FLEET_STREAMS, 561), (1, 561), (3, 24), (130, 100)]
+# Phase 6f, the multiplexer: 16 tenants of 1024 streams stack to the fleet's
+# 16,384; 12 run 32 ticks and 4 run 24, and one more of 32 ticks is admitted
+# after round 2.
+MUX_STREAMS = 1024
+MUX_TICKS = (32,) * 12 + (24,) * 4
+MUX_LATE_TICKS = 32
+MUX_QUANTUM = 8
+MUX_WIDTHS = (1, 3, 1024)  # member widths of the row-independence check, 16 members each
+MUX_WINDOW = 8  # fused cohort ticks per timed window
+COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
+            "tickets_dropped", "queries_dropped", "replies_orphaned", "tickets_lost",
+            "queries_lost", "tickets_coalesced", "queries_coalesced", "asks_deferred",
+            "tickets_reasked")
 ACTIVATIONS = ("sigmoid", "relu", "tanh", "identity")
 
 # NVIDIA H100 SXM data sheet, dense, at 700 W: f32 outside the tensor cores,
@@ -238,6 +269,40 @@ def phase_kernel2(device="cuda"):
     return errs
 
 
+def phase_kernel_rows(device="cuda"):
+    """The readout and feature-mean kernels vs ``ref.readout_ref`` and
+    ``ref.row_abs_mean_ref`` on the card (rtol and atol 1e-5: f32 sums of
+    up to 561 terms in another order)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    g = _gen(device, SEED + 7)
+    errs = {}
+    cases = [("readout", shape) for shape in READOUT_SHAPES]
+    cases += [("row_abs_mean", shape) for shape in ROW_MEAN_SHAPES]
+    for name, shape in cases:
+        if name == "readout":
+            s, n, m = shape
+            h = torch.sigmoid(torch.randn(s, n, generator=g, device=device))
+            beta = 0.1 * torch.randn(s, n, m, generator=g, device=device)
+            before = ops.launch_counts[name]
+            got, want = ops.readout(h, beta), ref.readout_ref(h, beta)
+        else:
+            x = 2.0 * torch.randn(*shape, generator=g, device=device)
+            before = ops.launch_counts[name]
+            got, want = ops.row_abs_mean(x), ref.row_abs_mean_ref(x)
+        check(ops.launch_counts[name] == before + 1, f"{name} {shape}: kernel not launched")
+        err = (got - want).abs().max().item()
+        check(got.shape == want.shape and torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+              f"{name} {shape}: max |err| {err} beyond rtol and atol 1e-5")
+        if shape in (READOUT_SHAPES[0], ROW_MEAN_SHAPES[0]):
+            errs[name] = err
+    print(f"row kernels: readout {len(READOUT_SHAPES)} shapes, fleet |err| {errs['readout']:.3e}; "
+          f"row_abs_mean {len(ROW_MEAN_SHAPES)} shapes, fleet |err| {errs['row_abs_mean']:.3e}")
+    return errs
+
+
 def _boot_core(data, theta, n_hidden, device):
     """``tests/test_odl_system.py::_boot_core`` on the port."""
     import torch
@@ -365,7 +430,7 @@ def phase_fleet(device="cuda", n_streams=FLEET_STREAMS, n_hidden=128,
         state, outs, secs, counts = _run_fleet_once(cfg, xs, ys, mode, device)
         runs[mode] = (state, outs)
         for name, n in counts.items():
-            if device == "cuda" and name in PATH_KERNELS:
+            if device == "cuda" and name in MODE_KERNELS[mode]:
                 check(n >= n_ticks, f"{mode}: {name} launched {n} < {n_ticks} times")
             res["launches"][name] = res["launches"].get(name, 0) + n
         if device == "cuda":
@@ -705,7 +770,7 @@ def phase_stream_profile(eager, fleet, device="cuda", n_streams=FLEET_STREAMS,
     wall_ms, prof = _stream_window(device, n_streams, n_ticks, profiled=True)
     events = prof.key_averages()
     dev = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    for kernel in ("proj_kernel", "rls_single_kernel"):
+    for kernel in ("proj_kernel", "rls_single_kernel", "readout_kernel"):
         hits = [e for e in dev if kernel in e.key]
         check(len(hits) == 1 and hits[0].count == n_ticks,
               f"stream profile: {kernel} ran {[e.count for e in hits]} times in {n_ticks} "
@@ -719,8 +784,8 @@ def phase_stream_profile(eager, fleet, device="cuda", n_streams=FLEET_STREAMS,
     print(f"stream profile (S={n_streams}, graphed train_phase, {n_ticks} ticks on the card): "
           f"{wall_ms:.3f} ms/tick wall profiled, {unprofiled_ms:.3f} unprofiled; device "
           f"{busy:.3f} ms/tick ({100 * busy / wall_ms:.1f} % of the profiled wall, "
-          f"{100 * busy / unprofiled_ms:.1f} % of the unprofiled); one proj_kernel and one "
-          f"rls_single_kernel per tick")
+          f"{100 * busy / unprofiled_ms:.1f} % of the unprofiled); one proj_kernel, one "
+          f"rls_single_kernel and one readout_kernel per tick")
     print(f"  unprofiled without the collect pulls: {no_collect_ms:.3f} ms/tick "
           f"({100 * busy / no_collect_ms:.1f} % busy)")
     print(f"  eager fleet tick beside it: {eager_ms:.3f} ms unprofiled (phase 6), "
@@ -732,6 +797,285 @@ def phase_stream_profile(eager, fleet, device="cuda", n_streams=FLEET_STREAMS,
         print(f"  host   {ms:8.4f} ms/tick  {name[:80]}")
     return {"wall_ms": wall_ms, "unprofiled_ms": unprofiled_ms, "device_ms": busy,
             "no_collect_ms": no_collect_ms}
+
+
+def _stacked_rows_differ(cfg, width, n_members, device, seed):
+    """One ``algo1`` plan and one learn on ``n_members`` stacked members of
+    ``width`` streams and on each member alone (heads warmed by two learns
+    first): the plan fields and state leaves whose rows differ."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.engine import fleet
+    from repro_torch.engine.types import tree_map
+
+    g = _gen(device, seed)
+    total, m = width * n_members, cfg.elm.n_out
+    st = engine.init_fleet(cfg, total, device)
+    for _ in range(2):
+        st, p = fleet.plan(st, torch.randn(total, cfg.elm.n_in, generator=g, device=device), cfg,
+                           mode="train_phase")
+        lab = torch.randint(0, m, (total,), generator=g, device=device).to(torch.int32)
+        st = fleet.learn(st, p.h, lab, p.pred, p.confidence, p.queried, p.controller_on, cfg,
+                         theta=p.theta)
+    x = 2.0 * torch.tanh(torch.randn(total, cfg.elm.n_in, generator=g, device=device))
+    lab = torch.randint(0, m, (total,), generator=g, device=device).to(torch.int32)
+    mask = torch.rand(total, generator=g, device=device) < 0.7
+    new, p = fleet.plan(st, x, cfg, mode="algo1")
+    after = fleet.learn(new, p.h, lab, p.pred, p.confidence, mask, p.controller_on, cfg,
+                        theta=p.theta)
+    differ = set()
+    for i in range(n_members):
+        lo, hi = i * width, (i + 1) * width
+        new_i, p_i = fleet.plan(tree_map(lambda a: a[lo:hi].clone(), st), x[lo:hi].clone(), cfg,
+                                mode="algo1")
+        after_i = fleet.learn(new_i, p_i.h, lab[lo:hi].clone(), p_i.pred, p_i.confidence,
+                              mask[lo:hi].clone(), p_i.controller_on, cfg, theta=p_i.theta)
+        differ |= {f"plan.{f}" for f in p._fields
+                   if not torch.equal(getattr(p, f)[lo:hi], getattr(p_i, f))}
+        differ |= {f"state.{name}" for (name, a), (_, b) in zip(_state_leaves(after),
+                                                                _state_leaves(after_i))
+                   if not torch.equal(a[lo:hi], b)}
+    return sorted(differ)
+
+
+def _mux_inputs(device="cuda"):
+    """Each tenant's ticks (on the card) and labels (host): HAR rows, as the
+    fleet path draws them; the late tenant last."""
+    from repro_torch.data import har
+
+    data = har.generate(seed=SEED)
+    out = []
+    for i, n_ticks in enumerate(MUX_TICKS + (MUX_LATE_TICKS,)):
+        xs, ys = _fleet_ticks(data, n_ticks, MUX_STREAMS, n_ticks, device, SEED + 100 + i)
+        out.append((xs, ys.cpu().numpy()))
+    return out
+
+
+def _mux_tenant(i, xs, ys, cfg, device):
+    from repro_torch import engine
+    from repro_torch.engine import multiplex, stream
+
+    teacher = stream.LatencyTeacher(stream.array_labels(ys), **{**STREAM_TEACHER, "seed": SEED + i})
+    return multiplex.Tenant(
+        name=f"tenant{i:02d}", state=engine.init_fleet(cfg, MUX_STREAMS, device), ticks=iter(xs),
+        cfg=cfg, teacher=teacher, mode="train_phase", capacity=STREAM_CAPACITY,
+        backpressure=POLICIES[i % len(POLICIES)])
+
+
+def _run_mux(inputs, cfg, device, sched="rr", fuse=True):
+    """One multiplexed run of the 6f tenants, the last admitted after round 2:
+    (results, aggregate stats, graph captures and their host ms by runner,
+    kernel replays by runner, eager launches)."""
+    from repro_torch.engine import fleet, graphs, multiplex
+    from repro_torch.kernels import ops
+
+    def patch_calls():
+        info = fleet.runner_cache_info()["patch_learn_runner"]
+        return info["hits"] + info["misses"]
+
+    tenants = [_mux_tenant(i, xs, ys, cfg, device) for i, (xs, ys) in enumerate(inputs)]
+    _sync(device)
+    graphs.reset_replay_counts()
+    ops.reset_launch_counts()
+    patches = patch_calls()
+    mux = multiplex.Multiplexer(tenants[:-1], quantum=MUX_QUANTUM, sched=sched, fuse=fuse)
+    for _ in range(2):
+        mux.round()
+    mux.admit(tenants[-1])
+    results, agg = mux.run()
+    _sync(device)
+    tallies = {"captures": dict(graphs.capture_counts), "capture_ms": dict(graphs.capture_ms),
+               "replays": {k: dict(v) for k, v in graphs.runner_kernel_replays.items()},
+               "runner_replays": dict(graphs.replay_counts),
+               "launches": dict(ops.launch_counts), "patch_learns": patch_calls() - patches}
+    return results, agg, tallies
+
+
+def _result_differs(a, b):
+    """Names of the state leaves, outputs and counters in which two
+    ``(state, outputs, stats)`` results differ."""
+    import numpy as np
+    import torch
+
+    differ = [name for (name, x), (_, y) in zip(_state_leaves(a[0]), _state_leaves(b[0]))
+              if not torch.equal(x, y)]
+    differ += [f for f in a[1]._fields if not np.array_equal(getattr(a[1], f), getattr(b[1], f))]
+    differ += [k for k in COUNTERS if getattr(a[2], k) != getattr(b[2], k)]
+    if list(a[2].label_latency_ticks) != list(b[2].label_latency_ticks):
+        differ.append("label_latency_ticks")
+    return differ
+
+
+def _check_accounting(name, state, outs, stats, n_in):
+    """The identities a ``train_phase`` tenant must meet."""
+    check(stats.reconciled, f"{name}: the accounting identity does not hold: {stats.summary()}")
+    check(stats.queries_issued == int(outs.queried.sum()), f"{name}: queries_issued != queried")
+    check(int(state.elm.count.sum()) == stats.labels_applied == int(state.prune.queries.sum()),
+          f"{name}: heads trained on another number of labels than were applied")
+    check(float(state.meter.up_bytes.sum()) == 4.0 * n_in * stats.queries_issued,
+          f"{name}: up_bytes != n_in * 4 * queries")
+
+
+def _cohort_window(cfg, device="cuda", n_ticks=MUX_WINDOW, profiled=False, fused=True):
+    """16 tenants of 1024 streams with zero-latency teachers, ticks on the
+    card, fused in one ``CohortSession`` (or, not ``fused``, 16 sessions
+    advanced one tick each in turn): four ticks capture the graphs, then
+    ``n_ticks`` ticks of all 16 are timed (under ``torch.profiler`` when
+    ``profiled``).  Returns (wall ms per tick of all 16, kernel replays and
+    eager launches in the window, the profiler or None)."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import engine
+    from repro_torch.data import har
+    from repro_torch.engine import cohort, graphs, stream
+    from repro_torch.kernels import ops
+
+    n = FLEET_STREAMS // MUX_STREAMS
+    xs, ys = _fleet_ticks(har.generate(seed=SEED), n_ticks + 4, FLEET_STREAMS, n_ticks + 4,
+                          device, SEED + 6)
+    ys = ys.cpu().numpy()
+    rows = [(i * MUX_STREAMS, (i + 1) * MUX_STREAMS) for i in range(n)]
+    members = [stream.StreamSession(engine.init_fleet(cfg, MUX_STREAMS, device), cfg,
+                                    stream.LatencyTeacher(stream.array_labels(ys[:, lo:hi])),
+                                    mode="train_phase") for lo, hi in rows]
+    if fused:
+        coh = cohort.CohortSession(members)
+
+        def tick(t):
+            coh.tick([None if t is None else xs[t, lo:hi] for lo, hi in rows])
+    else:
+        for m, (lo, hi) in zip(members, rows):
+            m.start(xs[0, lo:hi])
+
+        def tick(t):
+            for m, (lo, hi) in zip(members, rows):
+                m.advance(None if t is None else xs[t, lo:hi])
+    for t in range(0 if fused else 1, 4):
+        tick(t)
+    _sync(device)
+    graphs.reset_replay_counts()
+    ops.reset_launch_counts()
+    window = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext())
+    with window as prof:
+        t0 = time.perf_counter()
+        for t in range(4, n_ticks + 4):
+            tick(t)
+        _sync(device)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n_ticks
+    replays, launches = dict(graphs.kernel_replays), dict(ops.launch_counts)
+    tick(None)
+    for m in members:
+        m.finish()
+    return wall_ms, replays, launches, prof
+
+
+def phase_multiplex(stream_prof, device="cuda"):
+    """6f: the multiplexer at the full width (see the module docstring).
+    ``stream_prof`` is phase 6e's result, for the single graphed session's
+    rate beside the multiplexer's."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import har_odl
+    from repro_torch.engine import stream
+
+    cfg = har_odl.full()
+    res = {"stacked_rows_differ": {}}
+    for w in MUX_WIDTHS:
+        differ = _stacked_rows_differ(cfg, w, 16, device, SEED + w)
+        res["stacked_rows_differ"][str(w)] = differ
+        check(not differ, f"16 stacked members of width {w}: rows differ from solo in {differ}")
+
+    inputs = _mux_inputs(device)
+    solo = []
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for i, (xs, ys) in enumerate(inputs):
+        t = _mux_tenant(i, xs, ys, cfg, device)
+        solo.append(stream.run(t.state, t.ticks, cfg, t.teacher, mode=t.mode, capacity=t.capacity,
+                               backpressure=t.backpressure))
+        _check_accounting(f"solo {t.name}", *solo[-1], cfg.elm.n_in)
+    runs = {}
+    for label, sched, fuse in (("fused_rr", "rr", True), ("fused_drr", "drr", True),
+                               ("unfused_rr", "rr", False)):
+        results, agg, tallies = _run_mux(inputs, cfg, device, sched, fuse)
+        for i, want in enumerate(solo):
+            r = results[f"tenant{i:02d}"]
+            differ = _result_differs(want, (r.state, r.outputs, r.stats))
+            check(not differ, f"{label} tenant{i:02d}: differs from solo in {differ}")
+            _check_accounting(f"{label} tenant{i:02d}", r.state, r.outputs, r.stats,
+                              cfg.elm.n_in)
+        check(agg.stream_steps == sum(st.stream_steps for _, _, st in solo),
+              f"{label}: stream steps do not add up")
+        cohort_caps = {k: n for k, n in tallies["captures"].items() if k.startswith("cohort.")}
+        runs[label] = {
+            "steps_per_s": agg.steps_per_s, "wall_s": agg.wall_s, "rounds": agg.rounds,
+            "cohort_captures": sum(cohort_caps.values()),
+            "session_captures": sum(tallies["captures"].values()) - sum(cohort_caps.values()),
+            "cohort_capture_ms": sum(ms for k, ms in tallies["capture_ms"].items()
+                                     if k.startswith("cohort.")),
+            "session_capture_ms": sum(ms for k, ms in tallies["capture_ms"].items()
+                                      if not k.startswith("cohort.")),
+            "cohort_replays": {k: sum(v.get(k, 0) for r, v in tallies["replays"].items()
+                                      if r.startswith("cohort.")) for k in tallies["launches"]},
+            "runner_replays": tallies["runner_replays"],
+            "eager_launches": tallies["launches"],
+            "patch_learns": tallies["patch_learns"],
+        }
+        check(not fuse or tallies["patch_learns"] > 0,
+              f"{label}: no straggler took the patch path (the late tenant did not join)")
+        del results
+    fused = runs["fused_rr"]
+    on_card = device == "cuda"
+    for name in PATH_KERNELS[:3]:
+        check(not on_card or fused["cohort_replays"][name] > 0,
+              f"fused rr: the cohort replayed no {name}")
+    check(runs["unfused_rr"]["cohort_captures"] == 0, "unfused rr: a cohort captured a graph")
+    res["runs"] = runs
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    del solo, inputs
+
+    window_ms, replays, launches, _ = _cohort_window(cfg, device)
+    for name in PATH_KERNELS[:3]:
+        check(not on_card or replays[name] == MUX_WINDOW,
+              f"cohort window: {name} replayed {replays[name]} times in {MUX_WINDOW} ticks")
+    check(not on_card or not any(launches.values()), f"cohort window: eager launches {launches}")
+    unfused_ms, unfused_replays, _, _ = _cohort_window(cfg, device, fused=False)
+    for name in PATH_KERNELS[:3]:
+        check(not on_card or unfused_replays[name] == MUX_WINDOW * FLEET_STREAMS // MUX_STREAMS,
+              f"unfused window: {name} replayed {unfused_replays[name]} times")
+    prof_ms, _, _, prof = _cohort_window(cfg, device, profiled=True)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / MUX_WINDOW
+    rows = sorted(((e.self_device_time_total / 1e3 / MUX_WINDOW, e.key) for e in dev),
+                  reverse=True)
+    res["window"] = {
+        "replays_per_tick": {k: replays[k] / MUX_WINDOW for k in PATH_KERNELS},
+        "ms_per_tick": window_ms, "stream_ticks_per_s": 1e3 * FLEET_STREAMS / window_ms,
+        "profiled_ms_per_tick": prof_ms, "device_ms_per_tick": busy,
+        "busy_share_unprofiled": busy / window_ms, "busy_share_profiled": busy / prof_ms,
+        "unfused_ms_per_tick": unfused_ms,
+        "unfused_stream_ticks_per_s": 1e3 * FLEET_STREAMS / unfused_ms,
+    }
+    res["single_session_stream_ticks_per_s"] = 1e3 * FLEET_STREAMS / stream_prof["unprofiled_ms"]
+    print(f"multiplexer (16 tenants x {MUX_STREAMS} streams + 1 late, train_phase, HAR rows, "
+          f"late lossy teachers): {json.dumps(res)}")
+    print(f"  fused rr {fused['steps_per_s'] / 1e6:.3f} M stream-ticks/s, fused drr "
+          f"{runs['fused_drr']['steps_per_s'] / 1e6:.3f} M, unfused rr "
+          f"{runs['unfused_rr']['steps_per_s'] / 1e6:.3f} M; steady fused window "
+          f"{res['window']['stream_ticks_per_s'] / 1e6:.3f} M ({window_ms:.3f} ms/tick, device "
+          f"{busy:.3f} ms, busy {100 * busy / window_ms:.1f} %); the same 16 unfused "
+          f"{res['window']['unfused_stream_ticks_per_s'] / 1e6:.3f} M ({unfused_ms:.3f} ms for "
+          f"all 16); single graphed session (6e) "
+          f"{res['single_session_stream_ticks_per_s'] / 1e6:.3f} M")
+    for ms, name in rows[:8]:
+        print(f"  device {ms:8.4f} ms/tick  {100 * ms / busy:5.1f} %  {name[:80]}")
+    return res
 
 
 def _device_ms(fn, reps=20, rounds=3):
@@ -816,7 +1160,7 @@ def phase_times(device="cuda"):
     import torch
 
     from repro_torch.core import xorshift
-    from repro_torch.kernels import ops, oselm_update, ref, xorshift_proj
+    from repro_torch.kernels import ops, oselm_update, plan_rows, ref, xorshift_proj
 
     rows = []
     b, n_in, n = K1_SHAPES[0]
@@ -885,9 +1229,37 @@ def phase_times(device="cuda"):
         bound_ms=bound_ms,
         bound_by=bound_by,
     ))
+    # The row kernels at the fleet shape: h and beta of a tick, and x.
+    s, n, m = READOUT_SHAPES[0]
+    gen = _gen(device, SEED + 8)
+    h = torch.sigmoid(torch.randn(s, n, generator=gen, device=device))
+    beta = 0.1 * torch.randn(s, n, m, generator=gen, device=device)
+    rows.append(dict(
+        name="readout",
+        ms=_device_ms(lambda: plan_rows.readout(h, beta)),
+        plain_ms=_device_ms(lambda: ref.readout_ref(h, beta)),
+        library_ms=_device_ms(lambda: torch.bmm(h[:, None, :], beta)),
+        library="torch.bmm (cuBLAS batched)",
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            flops=2.0 * s * n * m, nbytes=4.0 * (s * n + s * n * m + s * m)))),
+    ))
+    del h, beta
+    s, n = ROW_MEAN_SHAPES[0]
+    x = _cycling_x(device, s, n)
+    rows.append(dict(
+        name="row_abs_mean",
+        ms=_device_ms(lambda: plan_rows.row_abs_mean(x())),
+        plain_ms=_device_ms(lambda: ref.row_abs_mean_ref(x())),
+        library_ms=None,
+        library="none (no single call; the plain version is abs, then mean)",
+        **dict(zip(("bound_ms", "bound_by"), _bound(flops=2.0 * s * n,
+                                                     nbytes=4.0 * (s * n + s)))),
+    ))
+    del x
     for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms ({r['library']}), bound {r['bound_ms']:.4f} ms "
+              f"library {lib} ({r['library']}), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of it reached)")
     print(f"time the two-stage route at the fleet shape: {rows[1]['two_stage_ms']:.4f} ms")
     return rows
@@ -918,6 +1290,17 @@ def time_port(root: Path, device="cuda") -> dict:
         _stream_window(device, n_ticks=4)
         out["stream_stream_ticks_per_s"] = (
             1e3 * FLEET_STREAMS / _stream_window(device, n_ticks=TRAIN_TICKS)[0])
+    # The fused multiplexer of phase 6f (fused rr, the late tenant included),
+    # behind a warm-up run; null where the checkout has no multiplexer.
+    out["multiplex_fused_stream_ticks_per_s"] = None
+    if importlib.util.find_spec("repro_torch.engine.multiplex") is not None:
+        from repro_torch.configs import har_odl
+
+        cfg = har_odl.full()
+        inputs = _mux_inputs(device)
+        _run_mux([(xs[:4], ys[:4]) for xs, ys in inputs], cfg, device)
+        out["multiplex_fused_stream_ticks_per_s"] = _run_mux(inputs, cfg, device)[1].steps_per_s
+        del inputs
     wall_ms, events = _profile_window(device)
     kernels = {e.key[:80]: e.self_device_time_total / 1e3 / PROFILE_TICKS for e in events}
     out["profiled_tick_wall_ms"] = wall_ms
@@ -953,6 +1336,7 @@ def main(argv=None) -> int:
     phase_build()
     err1 = phase_kernel1()
     err2 = phase_kernel2()
+    err_rows = phase_kernel_rows()
     phase_paper()
     fleet, runs = phase_fleet()
     phase_cross_check()
@@ -960,10 +1344,12 @@ def main(argv=None) -> int:
     streamed = phase_stream(runs)
     del runs
     phase_stream_cross_check()
-    phase_stream_profile(eager, fleet)
+    stream_prof = phase_stream_profile(eager, fleet)
+    mux = phase_multiplex(stream_prof)
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
+    rows_src = "src/repro_torch/kernels/csrc/plan_rows.cu"
     meta = {
         "xorshift_projection": dict(
             source="src/repro_torch/kernels/csrc/xorshift_proj.cu",
@@ -982,6 +1368,16 @@ def main(argv=None) -> int:
             source=rls_src, replaces="src/repro/kernels/oselm_update.py:172",
             max_abs_err=err2["rls_two_stage"],
         ),
+        # Not ports of a Pallas kernel: the port's plan ops whose CUDA kernels
+        # split a row's sum by S (the reference computes them in XLA).
+        "readout": dict(
+            source=rows_src, replaces="src/repro/engine/fleet.py:133",
+            max_abs_err=err_rows["readout"],
+        ),
+        "row_abs_mean": dict(
+            source=rows_src, replaces="src/repro/core/drift.py:64",
+            max_abs_err=err_rows["row_abs_mean"],
+        ),
     }
     kernels = []
     for name, info in meta.items():
@@ -996,6 +1392,8 @@ def main(argv=None) -> int:
             # each graph's capture) and launches by graph replays.
             "stream_launches": streamed["launches"][name],
             "graph_replays": streamed["kernel_replays"][name],
+            # The multiplexer (phase 6f, fused rr): replays by the cohorts' graphs.
+            "cohort_replays": mux["runs"]["fused_rr"]["cohort_replays"].get(name, 0),
             "max_abs_err": info["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -9,6 +9,8 @@ values (``dataclasses.asdict`` of an ``EngineConfig`` from either package).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -61,6 +63,17 @@ def engine_state_from_numpy(
         for g, cls in _GROUPS.items()
     }
     return EngineState(**groups)
+
+
+def config_to_dict(cfg) -> dict:
+    """An ``EngineConfig`` of either package as the nested dict of its field
+    values, ``{"elm": {...}, "prune": {...}, "drift": {...}}`` (the JAX
+    package's ``snapshot.config_to_dict``; tuples stay tuples, as there)."""
+    return {
+        "elm": dataclasses.asdict(cfg.elm),
+        "prune": dataclasses.asdict(cfg.prune),
+        "drift": dataclasses.asdict(cfg.drift),
+    }
 
 
 def engine_config_from_dict(fields: dict) -> EngineConfig:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +61,7 @@ def score(x: torch.Tensor, outputs: torch.Tensor, cfg: DriftConfig) -> torch.Ten
     """Drift score; x: (..., n_in), outputs: (..., m) -> score (...,)."""
     parts = []
     if cfg.use_features:
-        parts.append(torch.mean(torch.abs(x.to(torch.float32)), dim=-1))
+        parts.append(ops.row_abs_mean(x))
     if cfg.use_confidence:
         top2 = torch.topk(outputs, 2, dim=-1).values
         parts.append(-(top2[..., 0] - top2[..., 1]))  # low confidence -> high score

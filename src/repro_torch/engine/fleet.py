@@ -8,7 +8,8 @@ Design rules, as in the JAX engine:
     (S,) tensors unchanged;
   * the device-heavy work is one (S, n_in) hidden projection per tick (the
     projection kernel) and one masked rank-1 RLS update per tick (the fused
-    RLS kernel), plus one (S, N) x (S, N, m) readout einsum;
+    RLS kernel), plus the per-stream readout (S, N) x (S, N, m) (the readout
+    kernel, one warp per stream, so a row's output does not depend on S);
   * one tick is split at the teacher round-trip: ``plan`` (predict, drift,
     query decision, comm metering) and ``learn`` (masked rank-1 RLS + the
     auto-theta controller observing answered queries).  ``fleet_step`` is
@@ -17,6 +18,7 @@ Design rules, as in the JAX engine:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -29,8 +31,10 @@ from repro_torch.engine.types import (
     EngineState,
     FleetStepOutput,
     init_state,
+    tree_leaves,
     tree_map,
 )
+from repro_torch.kernels import ops
 
 MODES = ("algo1", "train_phase", "serve")
 
@@ -58,6 +62,62 @@ def stream_slice(state: EngineState, s: int) -> EngineState:
     return tree_map(lambda a: a[s], state)
 
 
+# -- stacked-state helpers (cohort fusion, engine/cohort.py) ----------------
+#
+# A cohort stacks same-shaped tenants' EngineStates along the leading stream
+# axis, so one plan/learn dispatch advances all of them.  Every op of plan and
+# learn computes a row in an order that does not depend on S: the projection
+# has no split over n_in, the RLS kernel works on one stream per block, the
+# readout and the drift feature mean give a stream one warp, and their CPU
+# versions are made alike (``kernels/ops``).  So row r of a stacked dispatch
+# is bit for bit row r of the solo dispatch.
+
+
+def stack_streams(states: list[EngineState]) -> EngineState:
+    """Concatenate fleets along the leading stream axis (one ``torch.cat`` per leaf)."""
+    return tree_map(lambda *ls: torch.cat(ls, dim=0), *states)
+
+
+def slice_streams(state: EngineState, lo: int, hi: int) -> EngineState:
+    """The ``[lo:hi]`` stream window (one cohort member's rows), as views."""
+    return tree_map(lambda a: a[lo:hi], state)
+
+
+def remove_streams(state: EngineState, lo: int, hi: int) -> EngineState:
+    """Drop the ``[lo:hi]`` stream window (evict a member from a cohort)."""
+    return tree_map(lambda a: torch.cat([a[:lo], a[hi:]], dim=0), state)
+
+
+@functools.lru_cache(maxsize=RUNNER_CACHE_SIZE)
+def _patch_learn_runner(cfg: EngineConfig, lo: int, hi: int, donate: bool):
+    """Tick function that learns one member's ``[lo:hi]`` row window of a
+    stacked cohort state, in place:
+    ``fn(cur, spare, h, labels, pred, conf, mask, controller_on, theta)``.
+
+    ``cur`` is the cohort's current state and ``spare`` its other buffer
+    set (``engine/stream.py``'s ping-pong pair).  The member-width ``learn``
+    reads the window of ``cur``, the RLS kernel writes P' and beta' into the
+    window of ``spare`` (it must not write what it reads), and the window's
+    new rows are copied back into ``cur``.  A straggler reply (a ticket asked
+    before its tenant joined the cohort, or before a resize) so costs one
+    member-width update and two window copies, never a copy of the stacked
+    P; rows outside the window are untouched, so this is bit for bit the
+    solo ``learn`` on those rows.  ``donate`` is part of the key, as in the
+    JAX package."""
+    del donate
+
+    def run_patch(cur, spare, h, labels, pred, conf, mask, controller_on, theta):
+        sub = slice_streams(cur, lo, hi)
+        out = slice_streams(spare.elm, lo, hi)
+        new = learn(sub, h, labels, pred, conf, mask, controller_on, cfg, theta=theta,
+                    out=(out.P, out.beta))
+        for dst, src in zip(tree_leaves(sub), tree_leaves(new)):
+            if dst is not src:
+                dst.copy_(src)
+
+    return run_patch
+
+
 def _tree_where(cond: torch.Tensor, a, b):
     """Per-stream select between two states of (S,)-leading leaves."""
     return tree_map(
@@ -68,9 +128,9 @@ def _tree_where(cond: torch.Tensor, a, b):
 
 
 def _predict(state: EngineState, x: torch.Tensor, cfg: EngineConfig):
-    """Fleet predict: hidden projection once, per-stream readout via einsum."""
+    """Fleet predict: hidden projection once, then the per-stream readout."""
     h = oselm.hidden(x, cfg.elm)  # (S, N)
-    o = torch.einsum("sn,snm->sm", h, state.elm.beta)  # (S, m)
+    o = ops.readout(h, state.elm.beta)  # (S, m)
     return h, torch.argmax(o, dim=-1).to(torch.int32), o
 
 
@@ -252,9 +312,12 @@ def fleet_accuracy(
 
 def runner_cache_info() -> dict:
     """Hit/miss/size counters of this module's runner caches, for serving
-    stats (``engine.stream.cache_stats`` merges these with its own).  Empty:
-    ``run_fleet`` is an eager per-tick loop and caches no chunk runner."""
-    return {}
+    stats (``engine.stream.cache_stats`` merges these with its own): the
+    patch-learn runners.  ``run_fleet`` is an eager per-tick loop and caches
+    no chunk runner."""
+    info = _patch_learn_runner.cache_info()
+    return {"patch_learn_runner": {"hits": info.hits, "misses": info.misses,
+                                   "size": info.currsize, "maxsize": info.maxsize}}
 
 
 def run_fleet(

@@ -14,11 +14,16 @@ caller gives (one per set of ``fixed`` buffers); a failed capture raises, and
 there is no eager fallback.  A replay launches no Python, so it raises no
 ``kernels.ops.launch_counts``: each graph records which kernels it holds
 (``ops.captured_counts`` during its capture), and every replay adds to
-``replay_counts`` (by runner) and ``kernel_replays`` (by kernel).
+``replay_counts`` (by runner), ``kernel_replays`` (by kernel) and
+``runner_kernel_replays`` (by runner, then kernel).  Captures are counted in
+``capture_counts`` and their host time, warm-up included, in ``capture_ms``
+(both by runner).  Runner names are the callers': a cohort's graphs carry a
+``cohort.`` prefix, so its replays and captures read apart from a session's.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Sequence
 
 import torch
@@ -27,10 +32,15 @@ from repro_torch.kernels import ops
 
 replay_counts: dict[str, int] = {}
 kernel_replays = dict.fromkeys(ops.launch_counts, 0)
+runner_kernel_replays: dict[str, dict[str, int]] = {}
+capture_counts: dict[str, int] = {}
+capture_ms: dict[str, float] = {}
 
 
 def reset_replay_counts() -> None:
-    replay_counts.clear()
+    """Zero every tally of this module: replays and captures."""
+    for tally in (replay_counts, runner_kernel_replays, capture_counts, capture_ms):
+        tally.clear()
     for name in kernel_replays:
         kernel_replays[name] = 0
 
@@ -66,6 +76,7 @@ class TickGraph:
     """
 
     def __init__(self, name: str, fn: Callable, fixed: tuple, inputs: Sequence[torch.Tensor]):
+        t0 = time.perf_counter()
         self.name = name
         self._fixed = fixed  # the graph reads and writes these addresses
         self._inputs = [t.clone() for t in inputs]
@@ -80,6 +91,8 @@ class TickGraph:
         with torch.cuda.graph(self.graph):
             self._out = fn(*fixed, *self._inputs)
         self.kernels = {k: n - before[k] for k, n in ops.captured_counts.items() if n > before[k]}
+        capture_counts[name] = capture_counts.get(name, 0) + 1
+        capture_ms[name] = capture_ms.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
 
     def __call__(self, *inputs: torch.Tensor):
         for dst, src in zip(self._inputs, inputs, strict=True):
@@ -90,8 +103,10 @@ class TickGraph:
         copy_into(self._inputs, inputs)
         self.graph.replay()
         replay_counts[self.name] = replay_counts.get(self.name, 0) + 1
+        mine = runner_kernel_replays.setdefault(self.name, {})
         for k, n in self.kernels.items():
             kernel_replays[k] += n
+            mine[k] = mine.get(k, 0) + n
         return None if self._out is None else _fresh_copy(self._out)
 
 

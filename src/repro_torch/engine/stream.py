@@ -33,15 +33,17 @@ The per-tick runners (plan; learn; learn fused with the next plan; and the
 two with a ``teacher_available`` vector) are tick functions made by
 ``lru_cache`` factories keyed on ``(cfg, mode, donate)``.  On the card a
 session replays each as a CUDA graph (``engine/graphs.py``) over state
-buffers of its own: two sets, written in turn (ping-pong), because a graph
-replays fixed addresses and the RLS kernel writes P' out of place.  A runner
-reads one set and writes the other: P and beta flip when it learns, the
-small leaves (count, controllers, meter) on every runner.  Everything a
-session keeps past a replay (plan outputs in the ring, collected columns,
-shipped ticks) is a copy of its own.
+buffers of its own (``_StateBuffers``): two sets, written in turn
+(ping-pong), because a graph replays fixed addresses and the RLS kernel
+writes P' out of place.  A runner reads one set and writes the other: P and
+beta flip when it learns, the small leaves (count, controllers, meter) on
+every runner.  Everything a session keeps past a replay (plan outputs in the
+ring, collected columns, shipped ticks) is a copy of its own.  A cohort
+(``engine/cohort.py``) holds its stacked state the same way, and its members'
+plans as ``PlanSlice`` row views of its full-width plan.
 
 Not ported here: ``snapshot``/``restore`` (durability), the telemetry hooks,
-``PlanSlice`` (cohorts), and the sharded session.
+and the sharded session.
 """
 
 from __future__ import annotations
@@ -232,6 +234,37 @@ class PendingTicket(NamedTuple):
     queried: np.ndarray  # (S,) bool host copy of the asked mask
     plan: fleet.PlanOutput  # the session's own copy of the query-time plan
     x: object  # the tick's features as shipped
+
+
+class PlanSlice:
+    """Lazy row-window view of a cohort's full-width ``fleet.PlanOutput``.
+
+    Cohort fusion (``engine/cohort.py``) plans all members of a cohort in one
+    stacked dispatch; each member session's current plan and ring entries
+    then hold a ``PlanSlice`` instead of a solo-width ``PlanOutput``.  An
+    attribute reads the ``[lo:hi]`` rows of the full plan's field (a view on
+    its device), and ``_asdict`` follows the NamedTuple protocol, so the solo
+    drain and the patch-learn path treat it exactly like a ``PlanOutput``.
+    ``materialize()`` turns it into a solo-width ``PlanOutput`` of its own
+    (detaching from the cohort).
+    """
+
+    __slots__ = ("full", "lo", "hi")
+
+    def __init__(self, full: fleet.PlanOutput, lo: int, hi: int):
+        self.full = full
+        self.lo = lo
+        self.hi = hi
+
+    def __getattr__(self, name):
+        # Only reached for names not in __slots__, i.e. PlanOutput fields.
+        return getattr(self.full, name)[self.lo : self.hi]
+
+    def _asdict(self):
+        return {k: getattr(self.full, k)[self.lo : self.hi] for k in fleet.PlanOutput._fields}
+
+    def materialize(self) -> fleet.PlanOutput:
+        return fleet.PlanOutput(**{k: v.clone() for k, v in self._asdict().items()})
 
 
 class DeferredAsk(NamedTuple):
@@ -543,6 +576,65 @@ def _default_ship(device: torch.device) -> Callable:
     return lambda a: torch.as_tensor(a, device=device)
 
 
+class _StateBuffers:
+    """An ``EngineState`` held in two sets of buffers written in turn
+    (ping-pong), and the CUDA graphs of the tick functions run over them.
+
+    ``_pe`` says which set holds P and beta now, ``_pc`` which holds the
+    small leaves.  ``tick`` runs a runner from the current buffers into the
+    other ones (P and beta flip when it learns, the small leaves always) and
+    replays it as a graph on the card, captured on first use per runner and
+    parity pair (``graphs.run``).  ``prefix`` goes in front of the runner
+    names the graphs are tallied under.  The buffers never move while this
+    object lives, so its graphs stay valid; writing rows in (``write``)
+    copies into the current buffers.
+    """
+
+    def __init__(self, own: EngineState, prefix: str = ""):
+        self._bufs = (own, tree_map(torch.empty_like, own))
+        self._pe = self._pc = 0
+        self.graphs: dict = {}
+        self.prefix = prefix
+
+    @property
+    def state(self) -> EngineState:
+        """The current state (views of the buffers)."""
+        return self._compose(self._pe, self._pc)
+
+    @property
+    def spare(self) -> EngineState:
+        """The other buffer set, whose contents are scratch."""
+        return self._compose(1 - self._pe, 1 - self._pc)
+
+    def _compose(self, pe: int, pc: int) -> EngineState:
+        e, c = self._bufs[pe].elm, self._bufs[pc]
+        return c._replace(elm=c.elm._replace(beta=e.beta, P=e.P))
+
+    def tick(self, runner: tuple, learns: bool, inputs: tuple):
+        """Run one runner ``(name, tick function, extra fixed tensors)`` from
+        the current buffers into the other ones; returns its output."""
+        name, fn, extra = runner
+        pe, pc = self._pe, self._pc
+        src = self._compose(pe, pc)
+        dst = self._compose(1 - pe if learns else pe, 1 - pc)
+        out = graphs.run(self.graphs, (name, pe, pc), self.prefix + name, fn,
+                         (src, dst, *extra), inputs)
+        self._pc = 1 - pc
+        if learns:
+            self._pe = 1 - pe
+        return out
+
+    def write(self, state: EngineState) -> None:
+        """Copy ``state``'s leaves into the current buffers (shapes must match)."""
+        cur = tree_leaves(self.state)
+        new = tree_leaves(state)
+        for d, n in zip(cur, new, strict=True):
+            if d.shape != n.shape:
+                raise ValueError(f"state leaf {tuple(n.shape)} does not fit the session's "
+                                 f"{tuple(d.shape)}")
+        graphs.copy_into(cur, new)
+
+
 class StreamSession:
     """One stream's (one tenant's) async-teacher runtime as a state machine.
 
@@ -559,7 +651,9 @@ class StreamSession:
     (``BACKPRESSURE_POLICIES``).  The session copies ``state`` into buffers
     of its own once, whatever ``donate`` says, so the caller's state
     survives the run; on the card it captures its own graphs of the runners
-    (``engine/graphs.py``) over those buffers.
+    (``engine/graphs.py``) over those buffers.  Assigning ``state`` copies
+    the given rows into those buffers (a cohort writes a member's rows back
+    so), which keeps the graphs valid.
     """
 
     def __init__(
@@ -584,11 +678,8 @@ class StreamSession:
         if donate is None:
             donate = True
         own = tree_map(lambda a: a.clone(memory_format=torch.contiguous_format), state)
-        # Two buffer sets written in turn; ``_pe`` says which holds P and
-        # beta now, ``_pc`` which holds the small leaves.
-        self._bufs = (own, tree_map(torch.empty_like, own))
-        self._pe = self._pc = 0
-        self._graphs: dict = {}
+        self._buf = _StateBuffers(own)
+        self._donate = donate
         self.device = own.elm.P.device
         self.cfg = cfg
         self.teacher = teacher
@@ -635,23 +726,14 @@ class StreamSession:
     @property
     def state(self) -> EngineState:
         """The session's current state (views of its own buffers)."""
-        return self._compose(self._pe, self._pc)
+        return self._buf.state
 
-    def _compose(self, pe: int, pc: int) -> EngineState:
-        e, c = self._bufs[pe].elm, self._bufs[pc]
-        return c._replace(elm=c.elm._replace(beta=e.beta, P=e.P))
+    @state.setter
+    def state(self, state: EngineState) -> None:
+        self._buf.write(state)
 
     def _tick(self, runner: tuple, learns: bool, inputs: tuple):
-        """Run one runner from the current buffers into the other ones."""
-        name, fn, extra = runner
-        pe, pc = self._pe, self._pc
-        src = self._compose(pe, pc)
-        dst = self._compose(1 - pe if learns else pe, 1 - pc)
-        out = graphs.run(self._graphs, (name, pe, pc), name, fn, (src, dst, *extra), inputs)
-        self._pc = 1 - pc
-        if learns:
-            self._pe = 1 - pe
-        return out
+        return self._buf.tick(runner, learns, inputs)
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -19,7 +19,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("xorshift_proj", "oselm_update")
+SOURCES = ("xorshift_proj", "oselm_update", "plan_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

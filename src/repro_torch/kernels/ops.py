@@ -17,7 +17,14 @@ The keys of both:
 * ``xorshift_projection`` — the projection kernel;
 * ``oselm_rls_update_fleet`` — the single-pass RLS kernel, from the fleet entry;
 * ``oselm_rls_update`` — the same kernel, from the one-head entry;
-* ``rls_two_stage`` — the two-stage RLS route, from either entry.
+* ``rls_two_stage`` — the two-stage RLS route, from either entry;
+* ``readout`` — the per-stream readout of ``plan``;
+* ``row_abs_mean`` — the drift detector's feature mean (``algo1`` and
+  ``serve`` plans).
+
+Each wrapper's CPU path gives a row the same result whatever the number of
+rows beside it, as its kernel does on the card: a cohort's stacked dispatch
+must equal each member's own (``engine/cohort.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import oselm_update as _oselm_update
+from repro_torch.kernels import plan_rows as _plan_rows
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import xorshift_proj as _xorshift_proj
 
@@ -33,6 +41,8 @@ launch_counts = {
     "oselm_rls_update_fleet": 0,
     "oselm_rls_update": 0,
     "rls_two_stage": 0,
+    "readout": 0,
+    "row_abs_mean": 0,
 }
 captured_counts = dict.fromkeys(launch_counts, 0)
 
@@ -80,6 +90,27 @@ def xorshift_projection(
     return h.reshape(lead + (n_hidden,))
 
 
+def readout(h: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Per-stream readout o[s] = h[s] @ beta[s]: h (S, N), beta (S, N, m) -> (S, m)."""
+    if _on_cuda(h):
+        o = _plan_rows.readout(h.to(torch.float32).contiguous(), beta.contiguous())
+        _count("readout")
+        return o
+    return _ref.readout_ref(h, beta)
+
+
+def row_abs_mean(x: torch.Tensor) -> torch.Tensor:
+    """mean(|x|) over the last axis: (..., n) -> (...) f32."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if _on_cuda(x2):
+        a = _plan_rows.row_abs_mean(x2.to(torch.float32).contiguous())
+        _count("row_abs_mean")
+    else:
+        a = _ref.row_abs_mean_ref(x2)
+    return a.reshape(lead)
+
+
 def rls_route(n: int, k: int, m: int) -> str:
     """``"single"`` where the single-pass kernel takes (N, k, m), else
     ``"two_stage"`` (N > 256, k > 64, N not a multiple of 4, or a layout
@@ -89,7 +120,14 @@ def rls_route(n: int, k: int, m: int) -> str:
 
 def _rls(P, beta, H, Y, counter, out=None):
     if not _on_cuda(P):
-        new = _ref.rls_update_ref(P, beta, H, Y)
+        if P.shape[0] == 1:
+            # torch's CPU batched products hand a batch of one to matrix-vector
+            # routines that sum in another order: a lone stream is updated as
+            # the first of two, like a stream of any larger batch.
+            new = tuple(t[:1] for t in _ref.rls_update_ref(
+                *(torch.cat([t, t]) for t in (P, beta, H, Y))))
+        else:
+            new = _ref.rls_update_ref(P, beta, H, Y)
         if out is None:
             return new
         for dst, src in zip(out, new):

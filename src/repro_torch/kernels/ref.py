@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function here states the arithmetic the corresponding CUDA kernel
-(``csrc/xorshift_proj.cu``, ``csrc/oselm_update.cu``) computes.  The wrappers
+(``csrc/xorshift_proj.cu``, ``csrc/oselm_update.cu``, ``csrc/plan_rows.cu``)
+computes.  The wrappers
 in ``ops`` run them for CPU tensors; on the card they run only in tests and
 in ``chip_smoke.py``, which hold the kernels against them — apart from
 ``small_operands``, which is also the first stage of the two-stage RLS route.
@@ -42,10 +43,49 @@ def xorshift_projection_ref(
     tanh, as ``repro.core.oselm.hidden`` does.
     """
     n_in = x.shape[-1]
-    alpha = xorshift.alpha_hash(seed, n_in, n_hidden, device=x.device)
-    z = x.to(torch.float32) @ (alpha * scale)
+    alpha = xorshift.alpha_hash(seed, n_in, n_hidden, device=x.device) * scale
+    x2 = x.to(torch.float32).reshape(-1, n_in)
+    # One (1, n_in) x (n_in, N) product per row, as the kernel sums each row
+    # on its own: on the CPU a plain ``x @ alpha`` picks its routine by the
+    # number of rows (one to four rows at n_in = 561 sum in another order),
+    # and a cohort's stacked rows must equal each member's own.
+    z = torch.bmm(x2[:, None, :], alpha.expand(x2.shape[0], n_in, n_hidden))[:, 0]
     z = z / float(np.sqrt(np.float32(n_in)))
-    return activate(z, activation)
+    return activate_rows(z, activation).reshape(x.shape[:-1] + (n_hidden,))
+
+
+# Elements per call of ``activate_rows`` on the CPU: a multiple of every
+# SIMD width, and below the size at which torch splits a loop across threads.
+_CPU_SLAB = 16384
+
+
+def activate_rows(z: torch.Tensor, kind: str) -> torch.Tensor:
+    """``activate(z, kind)`` whose value at an element does not depend on how
+    many rows ``z`` has.  On the CPU torch finishes a tensor's tail in scalar
+    code whose exp rounds otherwise than its vector code (the sigmoid of one
+    16-wide row differs in the last bit from the same row inside a longer
+    tensor), so there the activation runs over zero-padded slabs that the
+    vector code covers whole.  On the card every element is computed alike."""
+    if z.device.type != "cpu":
+        return activate(z, kind)
+    flat = z.reshape(-1)
+    n = flat.numel()
+    pad = -n % 64
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    out = torch.cat([activate(flat[i:i + _CPU_SLAB], kind)
+                     for i in range(0, flat.numel(), _CPU_SLAB)])
+    return out[:n].reshape(z.shape)
+
+
+def readout_ref(h: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Per-stream readout o[s] = h[s] @ beta[s]: h (S, N), beta (S, N, m) -> (S, m)."""
+    return torch.einsum("sn,snm->sm", h, beta)
+
+
+def row_abs_mean_ref(x: torch.Tensor) -> torch.Tensor:
+    """The drift detector's feature term mean(|x[s]|): x (S, n) -> (S,) f32."""
+    return torch.mean(torch.abs(x.to(torch.float32)), dim=-1)
 
 
 def small_operands(
