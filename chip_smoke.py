@@ -42,6 +42,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    each member's own at member widths 1, 3 and 1024; after it, a window of
    fused cohort ticks must replay one projection and one RLS kernel per
    tick for the whole cohort (and a profiler window gives its busy share);
+6g. durability at the same width: each policy's 6c ``algo1`` run is
+   snapshotted at ticks 48 and 80 of 96 and restored into a fresh session
+   on the card, and must end bit for bit as 6c's uninterrupted run;
+   ``drop_oldest`` goes through the disk (a full and a delta save) and the
+   wire frame, which must keep every leaf; a teacher that cannot snapshot
+   re-asks or drops the in-flight ring with exact accounting.  Then 6f's
+   tenants: one extracted out of the fused cohort mid-run and admitted into
+   a second multiplexer, and ``run_supervised`` with cadence snapshots and
+   one injected crash (exactly one restart), every tenant bit for bit its
+   solo run; then ``python -m repro_torch.engine.durable --crash-smoke``
+   as a subprocess.  It prints the snapshot's size, the capture, publish,
+   load, restore and first-tick times and the frame's encode and decode
+   times, beside the card's name and power limit;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound.
 
@@ -63,6 +76,7 @@ turns on one card (A, B, B, A).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import subprocess
@@ -109,6 +123,15 @@ MUX_LATE_TICKS = 32
 MUX_QUANTUM = 8
 MUX_WIDTHS = (1, 3, 1024)  # member widths of the row-independence check, 16 members each
 MUX_WINDOW = 8  # fused cohort ticks per timed window
+# Phase 6g: the 6c algo1 runs are snapshotted at these ticks of 96 (before
+# the drift at 64: an idle ring; after it: tickets in flight), 6f's tenant00
+# is extracted once its tick reaches DURABLE_EXTRACT_TICK, and the supervised
+# run snapshots every DURABLE_SNAPSHOT_EVERY ticks with one crash injected at
+# DURABLE_CRASH_TICK (after the first snapshot).
+DURABLE_SNAP_TICKS = (48, 80)
+DURABLE_EXTRACT_TICK = 13
+DURABLE_SNAPSHOT_EVERY = 12
+DURABLE_CRASH_TICK = 20
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
             "tickets_dropped", "queries_dropped", "replies_orphaned", "tickets_lost",
             "queries_lost", "tickets_coalesced", "queries_coalesced", "asks_deferred",
@@ -623,7 +646,10 @@ def phase_stream(runs, device="cuda", n_streams=FLEET_STREAMS):
     """6c: the fleet through ``stream.run`` with graphed runners, ticks
     shipped from host memory.  Zero latency must equal the eager
     ``run_fleet`` runs of phase 6 (``runs``) bit for bit; then ``algo1``
-    with a late, lossy teacher under each backpressure policy."""
+    with a late, lossy teacher under each backpressure policy.  Returns
+    (the printed results, each policy's ``(state, outputs, stats)``, and
+    the ``algo1`` ticks and labels as host arrays): phase 6g resumes
+    snapshots of the same runs against them."""
     import numpy as np
     import torch
 
@@ -661,10 +687,12 @@ def phase_stream(runs, device="cuda", n_streams=FLEET_STREAMS):
         res[f"{mode}_tick_p95_ms"] = stats.tick_p95_ms
         del state, outs, f_state, f_outs
     n_ticks = ticks.shape[0]
+    policy_runs = {}
     for policy in POLICIES:
         state, outs, stats, secs = _run_stream_once(
             cfg, ticks, labels, "algo1", device, STREAM_TEACHER, capacity=STREAM_CAPACITY,
             backpressure=policy)
+        policy_runs[policy] = (state, outs, stats)
         check(stats.labels_applied > 0, f"stream algo1 {policy}: no label applied")
         summary = stats.summary()
         res[policy] = {k: summary[k] for k in (
@@ -683,7 +711,7 @@ def phase_stream(runs, device="cuda", n_streams=FLEET_STREAMS):
           "stream: the fleet shape took the two-stage route")
     print(f"stream path (S={n_streams}, graphed runners, ticks from host memory): "
           f"{json.dumps(res)}")
-    return res
+    return res, policy_runs, (ticks, labels)
 
 
 def phase_stream_cross_check(n_streams=STREAM_CHECK["n_streams"],
@@ -976,7 +1004,9 @@ def _cohort_window(cfg, device="cuda", n_ticks=MUX_WINDOW, profiled=False, fused
 def phase_multiplex(stream_prof, device="cuda"):
     """6f: the multiplexer at the full width (see the module docstring).
     ``stream_prof`` is phase 6e's result, for the single graphed session's
-    rate beside the multiplexer's."""
+    rate beside the multiplexer's.  Returns (the printed results, each
+    tenant's solo ``(state, outputs, stats)``, the tenants' inputs): phase
+    6g migrates and supervises the same tenants against them."""
     import torch
     from torch.autograd import DeviceType
 
@@ -1037,7 +1067,6 @@ def phase_multiplex(stream_prof, device="cuda"):
     check(runs["unfused_rr"]["cohort_captures"] == 0, "unfused rr: a cohort captured a graph")
     res["runs"] = runs
     res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
-    del solo, inputs
 
     window_ms, replays, launches, _ = _cohort_window(cfg, device)
     for name in PATH_KERNELS[:3]:
@@ -1075,6 +1104,324 @@ def phase_multiplex(stream_prof, device="cuda"):
           f"{res['single_session_stream_ticks_per_s'] / 1e6:.3f} M")
     for ms, name in rows[:8]:
         print(f"  device {ms:8.4f} ms/tick  {100 * ms / busy:5.1f} %  {name[:80]}")
+    return res, solo, inputs
+
+
+class _NoSnapshotTeacher:
+    """A teacher whose state cannot be snapshot (as a socket teacher's):
+    a ``LatencyTeacher`` without ``snapshot_state``/``restore_snapshot``."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def ask(self, feats, mask, tick):
+        return self.inner.ask(feats, mask, tick)
+
+    def poll(self, tick):
+        return self.inner.poll(tick)
+
+    def in_flight(self):
+        return self.inner.in_flight()
+
+
+class _CrashOnce:
+    """A ``LatencyTeacher`` that raises once, on its first ask at or after
+    ``tick``, standing in for a node failure; it snapshots like its inner
+    teacher."""
+
+    def __init__(self, inner, tick, state):
+        self.inner, self.tick, self.state = inner, tick, state
+
+    def ask(self, feats, mask, tick):
+        if self.state["armed"] and tick >= self.tick:
+            self.state["armed"] = False
+            self.state["fired"] += 1
+            raise RuntimeError("injected node failure")
+        return self.inner.ask(feats, mask, tick)
+
+    def poll(self, tick):
+        return self.inner.poll(tick)
+
+    def in_flight(self):
+        return self.inner.in_flight()
+
+    def snapshot_state(self):
+        return self.inner.snapshot_state()
+
+    def restore_snapshot(self, tree):
+        self.inner.restore_snapshot(tree)
+
+
+def _tree_bytes(tree):
+    """Bytes of a snapshot tree's leaves."""
+    from repro_torch.runtime import checkpoint
+
+    return sum(leaf.nbytes for _, leaf in checkpoint._flatten(tree))
+
+
+def _leaf_digests(tree):
+    """{leaf path: blake2b digest of dtype, shape and bytes}, as the
+    checkpoint manager's delta diff computes them (a 0-d leaf as the 1-d
+    array it writes)."""
+    import numpy as np
+
+    from repro_torch.runtime import checkpoint
+
+    return {"/".join(p): checkpoint._digest(np.ascontiguousarray(checkpoint.to_host(leaf)))
+            for p, leaf in checkpoint._flatten(tree)}
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir() if f.is_file())
+
+
+def _timed(fn, device="cuda"):
+    """(result, host ms) of ``fn()`` with the card synchronised on both sides."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _durable_streams(policy_runs, ticks, labels, tmp, device="cuda"):
+    """6g part 1: each policy's 6c ``algo1`` run, snapshotted at each tick of
+    ``DURABLE_SNAP_TICKS`` and restored into a fresh session on the card
+    (the second restore resumes a restored session), must end bit for bit as
+    6c's uninterrupted run.  ``drop_oldest`` publishes both snapshots
+    through a ``CheckpointManager(full_every=2)`` (a full save, then a
+    delta), restores the second from disk, and sends it through the wire
+    frame.  At the last snapshot tick a teacher that cannot snapshot takes
+    the in-flight ring under ``pending="reask"`` and ``"drop"``: the query
+    accounting must stay exact.  At most one snapshot tree lives on the
+    host at a time."""
+    from repro_torch import engine
+    from repro_torch.configs import har_odl
+    from repro_torch.engine import snapshot, stream
+    from repro_torch.runtime.checkpoint import CheckpointManager
+
+    cfg = har_odl.full()
+    n_ticks = ticks.shape[0]
+
+    def teacher():
+        return stream.LatencyTeacher(stream.array_labels(labels), **STREAM_TEACHER)
+
+    def drive(sess, stop):
+        while sess._p is not None and sess.t < stop:
+            sess.advance(ticks[sess.t + 1] if sess.t + 1 < n_ticks else None)
+        return sess
+
+    res = {}
+    for policy in POLICIES:
+        want = policy_runs[policy]
+        r = res[policy] = {"capture_ms": [], "restore_h2d_ms": [], "first_tick_ms": [],
+                           "ring_entries": [], "snapshot_bytes": []}
+        sess = stream.StreamSession(engine.init_fleet(cfg, ticks.shape[1], device), cfg,
+                                    teacher(), mode="algo1", capacity=STREAM_CAPACITY,
+                                    backpressure=policy)
+        sess.start(ticks[0])
+        mgr = CheckpointManager(str(tmp / policy), keep=3, full_every=2)
+        for hop, stop in enumerate(DURABLE_SNAP_TICKS):
+            drive(sess, stop)
+            tree, ms = _timed(sess.snapshot, device)
+            del sess
+            check(snapshot.ticks_consumed(tree) == stop + 1, f"{policy}: cursor at {stop}")
+            r["capture_ms"].append(ms)
+            r["ring_entries"].append(len(tree["ring"]))
+            r["snapshot_bytes"].append(_tree_bytes(tree))
+            last = hop == len(DURABLE_SNAP_TICKS) - 1
+            if policy == "drop_oldest":
+                t0 = time.perf_counter()
+                mgr.save_async(stop, tree)
+                r.setdefault("save_async_return_ms", []).append(1e3 * (time.perf_counter() - t0))
+                mgr.wait()
+                r.setdefault("publish_ms", []).append(1e3 * (time.perf_counter() - t0))
+                step_dir = tmp / policy / f"step_{stop:09d}"
+                r.setdefault("kinds", []).append(mgr._manifest(stop)["kind"])
+                r.setdefault("bytes_written", []).append(_dir_bytes(step_dir))
+                written = [f.name for f in step_dir.iterdir() if f.suffix == ".npy"]
+                r.setdefault("leaves_written", []).append(len(written))
+                r.setdefault("P_written", []).append("state__elm__P.npy" in written)
+            if last:
+                # A teacher that cannot snapshot: re-ask or drop the ring.
+                in_flight = len(tree["ring"])
+                for pending in ("reask", "drop"):
+                    other = stream.StreamSession.restore(
+                        tree, _NoSnapshotTeacher(teacher()), cfg=cfg, pending=pending,
+                        device=device)
+                    _, _, st = drive(other, n_ticks).finish()
+                    check(st.reconciled, f"{policy} pending={pending}: accounting broken: "
+                                         f"{st.summary()}")
+                    check(st.tickets_reasked == (in_flight if pending == "reask" else 0),
+                          f"{policy} pending={pending}: {st.tickets_reasked} re-asks for "
+                          f"{in_flight} in flight")
+                    r[f"{pending}_tickets_reasked"] = st.tickets_reasked
+                    r[f"{pending}_queries_lost"] = st.queries_lost
+                    del other
+            if last and policy == "drop_oldest":
+                digests = dict(mgr._published_digests)
+                frame, r["encode_ms"] = _timed(lambda: snapshot.encode_snapshot(tree), device)
+                del tree
+                r["frame_bytes"] = len(frame)
+                decoded, r["decode_ms"] = _timed(lambda: snapshot.decode_snapshot(frame), device)
+                del frame
+                check(_leaf_digests(decoded) == digests,
+                      f"{policy}: the wire frame changed a leaf")
+                del decoded
+                (step, tree), r["load_ms"] = _timed(mgr.restore, device)
+                check(step == stop and _leaf_digests(tree) == digests,
+                      f"{policy}: the disk round trip (full + delta) changed a leaf")
+            sess, ms = _timed(lambda: stream.StreamSession.restore(tree, teacher(), cfg=cfg,
+                                                                   device=device), device)
+            r["restore_h2d_ms"].append(ms)
+            del tree
+            check(sess.device.type == device, f"{policy}: restored onto {sess.device}")
+            _, ms = _timed(lambda: sess.advance(ticks[sess.t + 1]), device)
+            r["first_tick_ms"].append(ms)
+        got = drive(sess, n_ticks).finish()
+        del sess
+        differ = _result_differs(want, got)
+        check(not differ, f"{policy}: resumed run differs from 6c's uninterrupted run in {differ}")
+        check(got[2].tickets_reasked == 0, f"{policy}: the teacher state did not travel")
+        del got
+    check(any(r["ring_entries"][-1] for r in res.values()),
+          f"no policy had a ticket in flight at tick {DURABLE_SNAP_TICKS[-1]}: nothing re-asked")
+    return res
+
+
+def _durable_mux(solo, inputs, tmp, device="cuda"):
+    """6g part 2, on 6f's 16 tenants of 1024 streams: extract tenant00 out of
+    the fused cohort mid-run and admit it, positioned, into a second
+    multiplexer beside 6f's late tenant (it must land in a cohort slot);
+    then ``run_supervised`` with cadence snapshots and one injected crash.
+    Every tenant must equal its solo run of 6f bit for bit, and the
+    supervisor must restart exactly as often as crashes were injected."""
+    from repro_torch.configs import har_odl
+    from repro_torch.engine import multiplex, snapshot, stream
+
+    cfg = har_odl.full()
+    n = len(MUX_TICKS)
+    res = {}
+
+    def compare(results, names, what):
+        for i in names:
+            got = results[f"tenant{i:02d}"]
+            differ = _result_differs(solo[i], (got.state, got.outputs, got.stats))
+            check(not differ, f"{what} tenant{i:02d}: differs from its solo run in {differ}")
+            _check_accounting(f"{what} tenant{i:02d}", got.state, got.outputs, got.stats,
+                              cfg.elm.n_in)
+
+    mux_a = multiplex.Multiplexer([_mux_tenant(i, *inputs[i], cfg, device) for i in range(n)],
+                                  quantum=MUX_QUANTUM)
+    while mux_a.round():
+        if mux_a.session("tenant00").t >= DURABLE_EXTRACT_TICK:
+            break
+    check(mux_a._slot("tenant00").unit is not None, "tenant00 is not fused when extracted")
+    (tree, rest), res["extract_ms"] = _timed(lambda: mux_a.extract("tenant00"), device)
+    res["extract_t"] = snapshot.ticks_consumed(tree) - 1
+    res["extract_bytes"] = _tree_bytes(tree)
+    results_a, _ = mux_a.run()
+    del mux_a
+    compare(results_a, range(1, n), "stay-behind")
+    del results_a
+    late = _mux_tenant(n, *inputs[n], cfg, device)
+    mux_b = multiplex.Multiplexer([late], quantum=MUX_QUANTUM)
+    migrated = _mux_tenant(0, *inputs[0], cfg, device)
+    migrated = dataclasses.replace(migrated, state=None, ticks=rest, device=device)
+    _, res["admit_ms"] = _timed(lambda: mux_b.admit(migrated, snapshot=tree, positioned=True),
+                                device)
+    del tree
+    mux_b.round()
+    check(mux_b._slot("tenant00").unit is not None, "the migrated tenant joined no cohort")
+    results_b, _ = mux_b.run()
+    compare(results_b, (0, n), "migrated")
+    del results_b, mux_b
+
+    crash = {"armed": True, "fired": 0}
+    attempts = []
+
+    def make_tenants():
+        attempts.append(len(attempts))
+        out = []
+        for i in range(n):
+            xs, ys = inputs[i]
+            t = dataclasses.replace(_mux_tenant(i, xs, ys, cfg, device),
+                                    ticks=snapshot.array_ticks(xs))
+            if i == 0:
+                t.teacher = _CrashOnce(t.teacher, DURABLE_CRASH_TICK, crash)
+            out.append(t)
+        return out
+
+    t0 = time.perf_counter()
+    results, agg = multiplex.run_supervised(
+        make_tenants, snapshot_dir=str(tmp / "supervised"),
+        snapshot_every=DURABLE_SNAPSHOT_EVERY, max_restarts=2, quantum=MUX_QUANTUM)
+    _sync(device)
+    res["supervised_s"] = time.perf_counter() - t0
+    res["crashes_injected"] = crash["fired"]
+    res["restarts"] = len(attempts) - 1
+    res["snapshots_after_restart"] = agg.snapshots
+    check(crash["fired"] == 1, f"{crash['fired']} crashes fired, 1 injected")
+    check(res["restarts"] == crash["fired"],
+          f"run_supervised restarted {res['restarts']} times for {crash['fired']} crash")
+    check(agg.snapshots > 0, "the resumed attempt took no cadence snapshot")
+    compare(results, range(n), "supervised")
+    return res
+
+
+def _crash_smoke_subprocess():
+    """6g part 3: ``python -m repro_torch.engine.durable --crash-smoke`` as a
+    subprocess on the card (its child, SIGKILLed mid-stream, too)."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.engine.durable", "--crash-smoke"],
+                          env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] + proc.stderr.strip().splitlines()[-5:]
+    check(proc.returncode == 0, f"crash smoke exited {proc.returncode}: {tail}")
+    return {"rc": proc.returncode, "secs": secs, "last_line": proc.stdout.strip().splitlines()[-1]}
+
+
+def phase_durable(policy_runs, ticks, labels, mux_solo, mux_inputs, device="cuda"):
+    """6g: durability at the fleet width (see the module docstring).
+    Snapshots go under a ``tempfile.mkdtemp()`` directory, removed after."""
+    import shutil
+    import tempfile
+
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import ops
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_durable_"))
+    try:
+        _sync(device)
+        graphs.reset_replay_counts()
+        ops.reset_launch_counts()
+        res = {"streams": _durable_streams(policy_runs, ticks, labels, tmp, device)}
+        res["mux"] = _durable_mux(mux_solo, mux_inputs, tmp, device)
+        _sync(device)
+        res["kernel_replays"] = dict(graphs.kernel_replays)
+        res["launches"] = dict(ops.launch_counts)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in PATH_KERNELS:
+        check(device != "cuda" or res["kernel_replays"][name] > 0,
+              f"durability: restored sessions replayed no {name}")
+    res["crash_smoke"] = _crash_smoke_subprocess()
+    d = res["streams"]["drop_oldest"]
+    print(f"durability (6g, S={ticks.shape[1]}, algo1, snapshots at ticks "
+          f"{list(DURABLE_SNAP_TICKS)}) on {_card()}: {json.dumps(res)}")
+    print(f"  drop_oldest: snapshot {d['snapshot_bytes']} bytes; capture "
+          f"{[round(x, 3) for x in d['capture_ms']]} ms (device to host copies the tree "
+          f"owns); save_async returned in {[round(x, 3) for x in d['save_async_return_ms']]} ms, "
+          f"published in {[round(x, 3) for x in d['publish_ms']]} ms ({d['kinds']}, "
+          f"{d['bytes_written']} bytes written); load {d['load_ms']:.3f} ms; restore (host to "
+          f"device) {[round(x, 3) for x in d['restore_h2d_ms']]} ms; first restored tick "
+          f"{[round(x, 3) for x in d['first_tick_ms']]} ms (graph captures included); frame "
+          f"{d['frame_bytes']} bytes, encode {d['encode_ms']:.3f} ms, decode "
+          f"{d['decode_ms']:.3f} ms")
     return res
 
 
@@ -1341,11 +1688,13 @@ def main(argv=None) -> int:
     fleet, runs = phase_fleet()
     phase_cross_check()
     eager = phase_profile()
-    streamed = phase_stream(runs)
+    streamed, policy_runs, (ticks, labels) = phase_stream(runs)
     del runs
     phase_stream_cross_check()
     stream_prof = phase_stream_profile(eager, fleet)
-    mux = phase_multiplex(stream_prof)
+    mux, mux_solo, mux_inputs = phase_multiplex(stream_prof)
+    durable = phase_durable(policy_runs, ticks, labels, mux_solo, mux_inputs)
+    del policy_runs, ticks, labels, mux_solo, mux_inputs
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -1394,6 +1743,10 @@ def main(argv=None) -> int:
             "graph_replays": streamed["kernel_replays"][name],
             # The multiplexer (phase 6f, fused rr): replays by the cohorts' graphs.
             "cohort_replays": mux["runs"]["fused_rr"]["cohort_replays"].get(name, 0),
+            # Durability (phase 6g): graph replays and eager launches of the
+            # restored, migrated and supervised sessions and cohorts.
+            "durable_replays": durable["kernel_replays"].get(name, 0),
+            "durable_launches": durable["launches"].get(name, 0),
             "max_abs_err": info["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -3,8 +3,11 @@
 PyTorch counterpart of ``repro.engine``: the fleet engine, its S=1 view,
 the streaming async-teacher runtime (``stream.py``, whose per-tick runners
 replay as CUDA graphs on the card through ``graphs.py``), cohort fusion
-(``cohort.py``) and the multi-tenant multiplexer (``multiplex.py``).
-Durability, RPC and sharding are not ported yet.
+(``cohort.py``), the multi-tenant multiplexer (``multiplex.py``) and
+durability (``snapshot.py``: snapshot/restore of a live session and its wire
+frame; ``durable.py``: the single-session durable runner and the
+kill-and-resume smoke, ``python -m repro_torch.engine.durable
+--crash-smoke``).  RPC and sharding are not ported yet.
 
 ``EngineState`` (``types.py``) carries a leading stream axis S on every leaf::
 
@@ -60,5 +63,7 @@ from .scalar import (  # noqa: F401,E402
     train_phase_step,
 )
 
-# The runtime's modules, as in the JAX package (fleet imports first).
-from repro_torch.engine import cohort, multiplex, stream  # noqa: E402,F401
+# The runtime's modules, as in the JAX package (fleet imports first;
+# ``durable`` is a leaf with a CLI, kept out of the package import so
+# ``python -m repro_torch.engine.durable`` stays clean).
+from repro_torch.engine import cohort, multiplex, snapshot, stream  # noqa: E402,F401

@@ -33,37 +33,57 @@ interleaves around it, so a multiplexed tenant reproduces its solo
 whose tick source is exhausted are drained in bounded slices and finished;
 the multiplexer ends when every tenant has finished.
 
+Durability (``engine/snapshot.py``): pass ``snapshot_dir`` and
+``snapshot_every`` and each tenant's session is captured every
+``snapshot_every`` ticks into ``<snapshot_dir>/<tenant>/step_*`` through
+``runtime.checkpoint.CheckpointManager`` (atomic publish, keep-k, crashed
+``.tmp`` fallback; ``snapshot_full_every`` > 1 makes all but every k-th save
+a delta).  A fused member's rows are written back into its session first.
+``resume=True`` restores each tenant from its latest published snapshot and
+seeks its (seekable) tick source to the recorded cursor.
+``run_supervised`` wraps the whole thing in
+``runtime.fault.run_with_restarts``: crash, restore, continue, bounded.
+
+Live migration: ``Multiplexer.extract(name)`` releases a tenant from its
+cohort (its rows and pending plan written back into its session), quiesces
+it unless its teacher can snapshot, snapshots it and removes it from this
+scheduler; ``admit(tenant, snapshot=...)`` (or the ``snapshots=``
+constructor argument) restores it into another multiplexer, where it may
+join a cohort at the next round.  In-flight tickets that did not drain are
+re-asked through the new teacher and metered (``tickets_reasked``), so the
+query-accounting identity reconciles across the move.
+
 Usage::
 
     results, agg = multiplex.run([
         multiplex.Tenant("edge-a", state_a, ticks_a, cfg_a, teacher_a),
         multiplex.Tenant("edge-b", state_b, ticks_b, cfg_b, teacher_b,
                          backpressure="coalesce"),
-    ], sched="drr")
+    ], sched="drr", snapshot_dir="/var/ckpt", snapshot_every=1000)
 
-Not ported here, and absent from the signatures: durability
-(``snapshot_dir``, ``snapshot_every``, ``snapshot_full_every``, ``resume``,
-``snapshots``, ``admit(snapshot=..., positioned=...)``, cadence snapshots,
-``extract`` with the cohort's ``release``, ``run_supervised``), the shared
-RPC teacher connections (``shared_rpc_teachers``), and telemetry
-(``sync_telemetry``, the ``cohort.pack`` / ``cohort.dissolve`` events and
-the scheduler's meters).  ``Multiplexer.round`` holds the body of the JAX
-package's ``_round``: the wrapper around it there only settles snapshot
-writes.
+Not ported here, and absent from the signatures: the shared RPC teacher
+connections (``shared_rpc_teachers``), and telemetry (``sync_telemetry``,
+the ``cohort.pack`` / ``cohort.dissolve`` events, the ``migrate.extract`` /
+``migrate.admit`` spans and the scheduler's meters).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
+import os
 import time
 from typing import Iterable, NamedTuple, Optional
 
 from repro_torch import convert
 from repro_torch.engine import cohort as cohort_mod
+from repro_torch.engine import snapshot as snapshot_mod
 from repro_torch.engine import stream
 from repro_torch.engine.types import EngineConfig, EngineState, FleetStepOutput
+from repro_torch.runtime import fault
+from repro_torch.runtime.checkpoint import CheckpointManager
 
 SCHEDULERS = ("rr", "drr")
 DEFAULT_QUANTUM = 8
@@ -94,19 +114,23 @@ class Tenant:
     ``name`` keys the result dict (must be unique).  Everything else is
     exactly what ``stream.run`` takes, per tenant: its own config, state,
     tick source, teacher, ring capacity and backpressure policy
-    (``stream.BACKPRESSURE_POLICIES``).
+    (``stream.BACKPRESSURE_POLICIES``).  ``state`` may be None when the
+    tenant is admitted from a snapshot (the snapshot carries the state).
+    A restored session lives on ``device``; when that is None, on the
+    device of ``state`` if one is given, else on CUDA.
     """
 
     name: str
-    state: EngineState
+    state: Optional[EngineState]
     ticks: Iterable  # yields (S, n_in) feature arrays or tensors, one per tick
-    cfg: EngineConfig
+    cfg: Optional[EngineConfig]
     teacher: stream.Teacher
     mode: str = "algo1"
     capacity: int = 64
     backpressure: str = "drop_oldest"
     collect: bool = True
     donate: Optional[bool] = None
+    device: Optional[str] = None
 
 
 class TenantResult(NamedTuple):
@@ -130,6 +154,7 @@ class MultiplexStats:
     rounds: int = 0
     stream_steps: int = 0
     ticks: int = 0
+    snapshots: int = 0
     wall_s: float = 0.0
 
     @property
@@ -142,6 +167,7 @@ class MultiplexStats:
             "rounds": self.rounds,
             "ticks": self.ticks,
             "stream_steps": self.stream_steps,
+            "snapshots": self.snapshots,
             "steps_per_s": self.steps_per_s,
             "wall_s": self.wall_s,
             "caches": stream.cache_stats(),
@@ -158,23 +184,70 @@ class _Slot:
     DRAIN_TICKS_PER_SLICE = 64
     DRAIN_IDLE_SLEEP_S = 50e-6
 
-    def __init__(self, tenant: Tenant):
+    def __init__(
+        self,
+        tenant: Tenant,
+        manager: Optional[CheckpointManager] = None,
+        snapshot_every: int = 0,
+        resume: bool = False,
+        snapshot_tree: Optional[dict] = None,
+        pending: str = "auto",
+        positioned: bool = False,
+    ):
         self.tenant = tenant
-        self.session = stream.StreamSession(
-            tenant.state,
-            tenant.cfg,
-            tenant.teacher,
-            mode=tenant.mode,
-            capacity=tenant.capacity,
-            backpressure=tenant.backpressure,
-            collect=tenant.collect,
-            donate=tenant.donate,
-        )
+        self.manager = manager
+        self.snapshot_every = snapshot_every
+        from_manager = False
+        if snapshot_tree is None and resume and manager is not None:
+            if manager.latest_step() is not None:
+                _, snapshot_tree = manager.restore()
+                from_manager = True
+        if snapshot_tree is not None:
+            device = tenant.device
+            if device is None and tenant.state is not None:
+                device = tenant.state.elm.P.device
+            self.session = stream.StreamSession.restore(
+                snapshot_tree, tenant.teacher, cfg=tenant.cfg, pending=pending, device=device
+            )
+            consumed = snapshot_mod.ticks_consumed(snapshot_tree)
+            if from_manager or getattr(tenant.ticks, "seek", None) is not None:
+                # Crash-restart: the fresh source is at tick 0 and MUST be
+                # seekable (seek_ticks raises otherwise; replaying ticks
+                # 0..k-1 into a t=k session would corrupt training).
+                snapshot_mod.seek_ticks(tenant.ticks, consumed)
+            elif not positioned:
+                # A migration snapshot may hand over the partially consumed
+                # iterator itself (what ``extract`` returns), but only with
+                # an explicit opt-in: a fresh tick-0 iterator taken as
+                # positioned at tick k would replay ticks into the session.
+                raise ValueError(
+                    f"tenant {tenant.name!r}: restoring a snapshot needs a "
+                    "seekable tick source (snapshot.ResumableTicks), or "
+                    "pass positioned=True when handing over the "
+                    "partially-consumed iterator returned by extract()"
+                )
+        else:
+            if tenant.state is None or tenant.cfg is None:
+                raise ValueError(
+                    f"tenant {tenant.name!r} has no state/cfg and no snapshot to restore from"
+                )
+            self.session = stream.StreamSession(
+                tenant.state,
+                tenant.cfg,
+                tenant.teacher,
+                mode=tenant.mode,
+                capacity=tenant.capacity,
+                backpressure=tenant.backpressure,
+                collect=tenant.collect,
+                donate=tenant.donate,
+            )
         # Tick cost for the deficit scheduler = this tenant's stream count.
         self.s = int(self.session.state.elm.count.shape[0])
         self.deficit = 0.0
         self.last_ticks = 0  # real ticks advanced in the last step() call
         self.unit: Optional["_CohortUnit"] = None  # set while fused
+        self.snapshots_taken = 0
+        self._last_snap_t = self.session.t
         self.draining = False
         self._drain_ticks = 0  # cumulative, capped at stream.MAX_DRAIN_TICKS
         self.result: Optional[TenantResult] = None
@@ -195,12 +268,18 @@ class _Slot:
                         break
                     sess.start(x0)
                     continue
+                if sess._p is None:
+                    # Restored from a snapshot taken after its stream
+                    # ended: nothing left to plan, only the drain.
+                    self.draining = True
+                    break
                 nxt = next(self.it, None)
                 sess.advance(nxt)
                 self.last_ticks += 1
                 if nxt is None:
                     self.draining = True
                     break
+            self.maybe_snapshot()
             if not self.draining:
                 return True
             if not drain:
@@ -225,7 +304,28 @@ class _Slot:
             self._it = iter(self.tenant.ticks)
         return self._it
 
+    def maybe_snapshot(self, force: bool = False) -> bool:
+        """Cadence snapshot: capture now (host copies the tree owns), write
+        on the manager's background thread (atomic publish: a crash
+        mid-write falls back to the previous good step)."""
+        if self.manager is None or self.result is not None:
+            return False
+        due = self.snapshot_every > 0 and self.session.t - self._last_snap_t >= self.snapshot_every
+        if not (due or force) or not self.session.started():
+            return False
+        if self.unit is not None:
+            # Fused member: its session state is stale while the cohort
+            # holds the authoritative stacked rows; write them back first.
+            self.unit.cohort.refresh(self.session)
+        self.manager.save_async(self.session.t, self.session.snapshot())
+        self._last_snap_t = self.session.t
+        self.snapshots_taken += 1
+        return True
+
     def _finish(self) -> None:
+        # Any draining already happened incrementally in step().
+        if self.manager is not None:
+            self.manager.wait()  # never finish with a snapshot mid-write
         state, outs, stats = self.session.finish(drain=False)
         self.result = TenantResult(name=self.tenant.name, state=state, outputs=outs, stats=stats)
 
@@ -254,6 +354,21 @@ class _CohortUnit:
         self.slots.append(slot)
         slot.unit = self
 
+    def release(self, slot: _Slot) -> list[_Slot]:
+        """Detach one member (live migration out).  Returns the slots freed
+        as a side effect: when one member remains the cohort dissolves and
+        that member continues solo."""
+        self.cohort.detach(slot.session)
+        self.slots.remove(slot)
+        slot.unit = None
+        freed = []
+        if len(self.slots) == 1:
+            last = self.slots.pop()
+            self.cohort.detach(last.session)
+            last.unit = None
+            freed.append(last)
+        return freed
+
     def step(self, drain: bool, n_ticks: int) -> tuple[bool, list[_Slot]]:
         """Advance the cohort by up to ``n_ticks`` fused ticks.  Returns
         ``(live, released)``: live is False once the cohort dissolved;
@@ -274,7 +389,10 @@ class _CohortUnit:
                 self.slots.remove(slot)
                 slot.unit = None
                 slot.draining = True
+                slot.maybe_snapshot()
                 released.append(slot)
+        for slot in self.slots:
+            slot.maybe_snapshot()
         if len(self.slots) == 1:
             # A cohort of one is pure overhead: dissolve, continue solo.
             last = self.slots.pop()
@@ -285,11 +403,12 @@ class _CohortUnit:
 
 
 class Multiplexer:
-    """The scheduler: drives N tenant sessions round robin (or DRR).
+    """The scheduler: drives N tenant sessions round robin (or DRR), with
+    optional per-tenant durability (see the module docstring).
 
     ``round()`` runs one scheduler round and returns True while any tenant
-    is live: drive it by hand to interleave control (admitting tenants
-    mid-run), or call ``run()`` to completion.
+    is live: drive it by hand to interleave control (admitting or
+    extracting tenants mid-run), or call ``run()`` to completion.
     """
 
     def __init__(
@@ -298,12 +417,23 @@ class Multiplexer:
         drain: bool = True,
         quantum: int = DEFAULT_QUANTUM,
         sched: str = "rr",
+        snapshot_dir: Optional[str] = None,
+        snapshot_every: int = 0,
+        snapshot_full_every: int = 1,
+        resume: bool = False,
+        snapshots: Optional[dict] = None,
+        pending: str = "auto",
         fuse: bool = True,
     ):
         if quantum < 1:
             raise ValueError(f"quantum must be >= 1, got {quantum}")
         if sched not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {sched!r}; choose {SCHEDULERS}")
+        if resume and snapshot_dir is None:
+            raise ValueError(
+                "resume=True needs snapshot_dir: without it every tenant "
+                "would silently start afresh"
+            )
         names = [t.name for t in tenants]
         if len(set(names)) != len(names):
             raise ValueError(f"tenant names must be unique, got {names}")
@@ -312,22 +442,50 @@ class Multiplexer:
         self.sched = sched
         self.fuse = fuse
         self._cohorts: dict = {}  # fuse key -> live _CohortUnit
+        self.snapshot_dir = snapshot_dir
+        self.snapshot_every = snapshot_every
+        # Cadence saves ship only changed leaves, with a full snapshot every
+        # k-th save (runtime/checkpoint.py); 1 = every save full.
+        self.snapshot_full_every = snapshot_full_every
+        self._resume = resume
+        self._pending = pending
         self.agg = MultiplexStats(n_tenants=len(tenants))
         self._slots: list[_Slot] = []
         # Scheduling units: solo _Slots and fused _CohortUnits (fuse=True).
         self._live: list = []
         self._t0: Optional[float] = None
         for t in tenants:
-            self.admit(t)
+            self.admit(t, snapshot=(snapshots or {}).get(t.name))
+        self.agg.n_tenants = len(self._slots)
 
     # -- tenant management -------------------------------------------------
 
-    def admit(self, tenant: Tenant) -> None:
-        """Add a tenant, before the run or while it runs: a fused multiplexer
-        packs it into a matching cohort at the next round."""
+    def _manager_for(self, name: str) -> Optional[CheckpointManager]:
+        if self.snapshot_dir is None:
+            return None
+        return CheckpointManager(
+            os.path.join(self.snapshot_dir, name), full_every=self.snapshot_full_every
+        )
+
+    def admit(self, tenant: Tenant, snapshot: Optional[dict] = None,
+              positioned: bool = False) -> None:
+        """Add a tenant, before the run or while it runs (a fused multiplexer
+        packs it into a matching cohort at the next round): fresh, resumed
+        from its snapshot directory, or restored from an explicit
+        ``snapshot`` tree (live migration).  ``positioned=True`` asserts
+        that a non-seekable ``tenant.ticks`` is already at the snapshot's
+        cursor (the iterator ``extract`` returned, not a fresh source)."""
         if any(s.tenant.name == tenant.name for s in self._slots):
             raise ValueError(f"tenant name {tenant.name!r} already admitted")
-        slot = _Slot(tenant)
+        slot = _Slot(
+            tenant,
+            manager=self._manager_for(tenant.name),
+            snapshot_every=self.snapshot_every,
+            resume=self._resume,
+            snapshot_tree=snapshot,
+            pending=self._pending,
+            positioned=positioned,
+        )
         self._slots.append(slot)
         self._live.append(slot)
         self.agg.n_tenants = len(self._slots)
@@ -381,7 +539,69 @@ class Multiplexer:
             })
         return out
 
+    def extract(self, name: str, quiesce_ticks: int = 4096):
+        """Live-migrate a tenant out: snapshot its session and remove it from
+        this scheduler.
+
+        A fused member is released from its cohort first (its stacked rows
+        and pending plan are written back into its session).  When the
+        teacher cannot snapshot its own state, the session then quiesces
+        (bounded drain of in-flight replies, salvaging answers that would
+        die with the connection; unanswered tickets travel in the snapshot
+        and are re-asked on restore).  A snapshot-capable teacher skips the
+        quiesce: its undelivered inbox rides the snapshot, so the restored
+        run replays every reply at its original due tick.  Draining early
+        would apply labels before the plans they interleave with in the
+        uninterrupted run, which can flip query decisions.
+
+        Returns ``(snapshot_tree, ticks)``: the serialized session and the
+        tenant's partially consumed tick iterator (positioned at the next
+        unread tick).  Hand both to another multiplexer's ``admit`` (with
+        ``positioned=True`` for a non-seekable source), or persist the tree
+        through a ``CheckpointManager`` and reopen a seekable source at
+        ``snapshot.ticks_consumed(tree)``.
+        """
+        slot = self._slot(name)
+        if slot.result is not None:
+            raise ValueError(f"tenant {name!r} already finished; nothing to migrate")
+        if slot.unit is not None:
+            unit = slot.unit
+            freed = unit.release(slot)
+            if not unit.slots and unit in self._live:
+                idx = self._live.index(unit)
+                self._live[idx : idx + 1] = freed
+            else:
+                self._live.extend(freed)
+            self._cohorts = {k: u for k, u in self._cohorts.items() if u.slots}
+        snapshot_capable = getattr(slot.session.teacher, "snapshot_state", None) is not None
+        if quiesce_ticks > 0 and not snapshot_capable:
+            slot.session.quiesce(max_ticks=quiesce_ticks, idle_sleep_s=slot.DRAIN_IDLE_SLEEP_S)
+        tree = slot.session.snapshot()
+        if slot.manager is not None:
+            slot.manager.wait()
+            slot.manager.save(slot.session.t, tree)
+        self._slots.remove(slot)
+        if slot in self._live:
+            self._live.remove(slot)
+        self.agg.n_tenants = len(self._slots)
+        return tree, slot.it
+
     # -- scheduling --------------------------------------------------------
+
+    def round(self) -> bool:
+        """One scheduler round over all live tenants.  Returns True while any
+        tenant still wants scheduling."""
+        try:
+            return self._round()
+        except BaseException:
+            # Settle in-flight background snapshot writes before the crash
+            # propagates: a supervised restart in this process must never
+            # race an orphaned writer thread for the same step directory.
+            for s in self._slots:
+                if s.manager is not None:
+                    with contextlib.suppress(Exception):
+                        s.manager.wait()
+            raise
 
     def _form_cohorts(self) -> None:
         """Pack fusable live slots into cohorts by ``(cfg, mode, donate, S)``.
@@ -397,6 +617,8 @@ class Multiplexer:
             if not isinstance(u, _Slot) or u.unit is not None or u.draining:
                 continue
             sess = u.session
+            if sess.started() and sess._p is None:
+                continue  # restored after its stream ended: drain only
             key = (sess.cfg, sess.mode, sess._donate, u.s)
             groups.setdefault(key, []).append(u)
         for key, slots in groups.items():
@@ -437,9 +659,7 @@ class Multiplexer:
             out.append(u)
         return out
 
-    def round(self) -> bool:
-        """One scheduler round over all live tenants.  Returns True while any
-        tenant still wants scheduling."""
+    def _round(self) -> bool:
         if self._t0 is None:
             self._t0 = time.perf_counter()
         if not self._live:
@@ -482,6 +702,9 @@ class Multiplexer:
             self.agg.wall_s = time.perf_counter() - self._t0
         self.agg.stream_steps = sum(s.result.stats.stream_steps for s in self._slots)
         self.agg.ticks = sum(s.result.stats.ticks for s in self._slots)
+        # Snapshots *taken* this run (keep-k GC prunes the directories, so
+        # counting surviving step dirs would undercount).
+        self.agg.snapshots = sum(s.snapshots_taken for s in self._slots)
         return {s.tenant.name: s.result for s in self._slots}, self.agg
 
 
@@ -490,6 +713,9 @@ def run(
     drain: bool = True,
     quantum: int = DEFAULT_QUANTUM,
     sched: str = "rr",
+    snapshot_dir: Optional[str] = None,
+    snapshot_every: int = 0,
+    resume: bool = False,
     fuse: bool = True,
 ) -> tuple[dict[str, TenantResult], MultiplexStats]:
     """Multiplex every tenant's stream over this process to completion.
@@ -503,13 +729,78 @@ def run(
     is bit for bit the same for every quantum, scheduler and ``fuse``: only
     the dispatch count and the wall-clock interleaving change.
 
+    ``snapshot_dir`` + ``snapshot_every`` enable per-tenant durability;
+    ``resume=True`` restores tenants from their latest published snapshot
+    (tick sources must then be seekable: ``snapshot.ResumableTicks``).
+
     Returns ``(results, agg)``: ``results[name]`` is that tenant's ``(state,
     outputs, stats)``, identical to what a solo ``stream.run`` over the same
     inputs returns, and ``agg`` the aggregate ``MultiplexStats``.
     """
     if not tenants:
         raise ValueError("multiplex.run needs at least one tenant")
-    return Multiplexer(tenants, drain=drain, quantum=quantum, sched=sched, fuse=fuse).run()
+    return Multiplexer(
+        tenants,
+        drain=drain,
+        quantum=quantum,
+        sched=sched,
+        snapshot_dir=snapshot_dir,
+        snapshot_every=snapshot_every,
+        resume=resume,
+        fuse=fuse,
+    ).run()
+
+
+def run_supervised(
+    make_tenants,
+    snapshot_dir: str,
+    snapshot_every: int = 1000,
+    max_restarts: int = 3,
+    **kw,
+):
+    """Crash-restart supervision around a durable multiplexed run.
+
+    ``make_tenants()`` must build a *fresh* tenant list (fresh teachers,
+    seekable tick sources) on every attempt: the previous attempt's objects
+    died with it.  Each attempt resumes every tenant from its latest
+    published snapshot under ``snapshot_dir`` (or afresh when none
+    exists yet); ``runtime.fault.run_with_restarts`` bounds the retries.
+    It catches every exception, so a caller that must tell a crash it
+    injected from a real failure counts the attempts (``make_tenants``
+    calls) against the crashes it injected.
+    """
+
+    class _DirView:
+        """The per-tenant snapshot directories viewed as one checkpointed
+        unit for the supervisor (restore is a no-op: each tenant restores
+        itself from its own subdirectory)."""
+
+        def latest_step(self):
+            names = os.listdir(snapshot_dir) if os.path.isdir(snapshot_dir) else []
+            steps = [
+                s
+                for name in names
+                if os.path.isdir(os.path.join(snapshot_dir, name))
+                for s in [CheckpointManager(os.path.join(snapshot_dir, name)).latest_step()]
+                if s is not None
+            ]
+            return max(steps) if steps else None
+
+        def restore(self):
+            return self.latest_step(), None
+
+    def run_attempt(state, start_step):
+        del state, start_step  # per-tenant restore happens inside run()
+        return run(
+            make_tenants(),
+            snapshot_dir=snapshot_dir,
+            snapshot_every=snapshot_every,
+            resume=True,
+            **kw,
+        )
+
+    return fault.run_with_restarts(lambda: None, run_attempt, _DirView(),
+                                   max_restarts=max_restarts)
 
 
 # Runner sharing is observable here: tenant configs that hash equal hit the

@@ -42,8 +42,11 @@ ring, collected columns, shipped ticks) is a copy of its own.  A cohort
 (``engine/cohort.py``) holds its stacked state the same way, and its members'
 plans as ``PlanSlice`` row views of its full-width plan.
 
-Not ported here: ``snapshot``/``restore`` (durability), the telemetry hooks,
-and the sharded session.
+Durability: ``StreamSession.snapshot`` / ``StreamSession.restore``
+(``engine/snapshot.py``) capture a live session into host memory the
+snapshot owns and rebuild it on a device of the caller's choosing.
+
+Not ported here: the telemetry hooks and the sharded session.
 """
 
 from __future__ import annotations
@@ -894,6 +897,41 @@ class StreamSession:
                 mode_training=np.stack(self._cols["mode_training"]),
             )
         return self.state, outs, self.stats
+
+    # -- durability (engine/snapshot.py) -----------------------------------
+
+    def snapshot(self) -> dict:
+        """Full-fidelity serialization of this session: state, ring contents
+        with their plan-time context, deferred asks, stats, the in-flight
+        tick, the tick-source cursor and, when the teacher supports it, the
+        teacher's own state.  Every leaf is a host numpy array the tree owns
+        (copied after the replay that wrote it), plus one JSON meta leaf:
+        hand it to ``runtime.checkpoint.CheckpointManager`` for atomic keep-k
+        publication.  The session keeps running."""
+        from repro_torch.engine import snapshot as snapshot_mod
+
+        return snapshot_mod.capture(self)
+
+    @classmethod
+    def restore(
+        cls,
+        tree: dict,
+        teacher: Teacher,
+        cfg=None,
+        ship: Optional[Callable] = None,
+        pending: str = "auto",
+        device=None,
+    ) -> "StreamSession":
+        """Rebuild a session from ``snapshot()``'s tree (either package's) on
+        ``device``, CUDA unless named (``engine.snapshot.restore`` has the
+        pending-ticket policies).  The caller repositions the tick source at
+        ``engine.snapshot.ticks_consumed(tree)`` and resumes driving
+        ``advance``; under a deterministic snapshot-capable teacher the
+        resumed run is bit for bit the uninterrupted one."""
+        from repro_torch.engine import snapshot as snapshot_mod
+
+        return snapshot_mod.restore(tree, teacher, cfg=cfg, ship=ship, pending=pending,
+                                    device=device)
 
     # -- internals ---------------------------------------------------------
 

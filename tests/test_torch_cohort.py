@@ -21,7 +21,8 @@ einsum RLS path, the port follows the Pallas numerics (no symmetrisation,
 beta from P'·W).
 
 The migration test of ``tests/test_cohort.py`` (extract out of a fused
-cohort, restore into a cohort slot) waits for the port of durability.
+cohort, restore into a cohort slot) holds the port against itself: every
+tenant bit for bit its solo run.
 
 Tests marked ``cuda`` replay the cohort's runners as CUDA graphs on the card
 and skip elsewhere; they need no JAX:
@@ -51,7 +52,7 @@ from repro_torch import engine as t_engine  # noqa: E402
 from repro_torch.core import drift as t_drift  # noqa: E402
 from repro_torch.core import oselm as t_oselm  # noqa: E402
 from repro_torch.core import pruning as t_pruning  # noqa: E402
-from repro_torch.engine import cohort, fleet, graphs, multiplex, stream  # noqa: E402
+from repro_torch.engine import cohort, fleet, graphs, multiplex, snapshot, stream  # noqa: E402
 from repro_torch.engine.types import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -258,9 +259,74 @@ def test_patch_learn_runner_is_bitwise_solo_learn_on_the_slice():
     for side in ((0, lo), (hi, total)):
         _assert_state_equal(fleet.slice_streams(state, *side),
                             fleet.slice_streams(buf.state, *side), f"rows {side}")
-    # Only the spare set's window was used as scratch.
+    # Only the spare set's window was written.  The spare set is
+    # uninitialized memory, which may hold NaN bit patterns: float rows are
+    # compared by their bits.
     for a, b in zip(spare_before, tree_leaves(buf.spare)):
-        assert torch.equal(torch.cat([a[:lo], a[hi:]]), torch.cat([b[:lo], b[hi:]]))
+        a, b = torch.cat([a[:lo], a[hi:]]), torch.cat([b[:lo], b[hi:]])
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def test_migrate_out_of_fused_cohort_and_restore_into_cohort_slot():
+    """Mid-stream, extract a tenant out of a live fused cohort (quiesce
+    disabled: its pending ring travels with the snapshot), restore it into a
+    second fused multiplexer where it lands in a cohort slot (its restored
+    solo-width plans ride the patch path), and finish.  The migrated tenant
+    and every stay-behind are bit for bit their uninterrupted solo runs,
+    with exact accounting."""
+    cfg = _tcfg(min_trained=1_000_000)
+    t_len, s_len = 30, 3
+    datas = [_data(t_len, s_len, seed=90 + i) for i in range(3)]
+    xs_d, ys_d = _data(t_len, s_len, seed=94)  # mux_b companion
+
+    def teacher(i):
+        return stream.LatencyTeacher(stream.array_labels(datas[i][1] if i < 3 else ys_d),
+                                     latency=2, jitter=2, loss_prob=0.2, seed=60 + i)
+
+    solo = [_solo(cfg, datas[i][0], teacher(i), capacity=4, collect=False) for i in range(3)]
+    solo_d = _solo(cfg, xs_d, teacher(3), capacity=4, collect=False)
+
+    mux = multiplex.Multiplexer([
+        multiplex.Tenant(name=f"t{i}", state=t_engine.init_fleet(cfg, s_len, "cpu"),
+                         ticks=snapshot.array_ticks(datas[i][0]), cfg=cfg, teacher=teacher(i),
+                         mode="train_phase", capacity=4, collect=False)
+        for i in range(3)
+    ], fuse=True)
+    while mux.round():
+        if mux.session("t0").t >= 13:
+            break
+    assert mux._slot("t0").unit is not None, "t0 must be fused when extracted"
+    tree, rest = mux.extract("t0", quiesce_ticks=0)
+    assert any(isinstance(e["plan"]["h"], np.ndarray) for e in tree["ring"])
+    results_a, _ = mux.run()  # t1/t2 keep going (re-fused as a pair)
+
+    mux_b = multiplex.Multiplexer([
+        multiplex.Tenant(name="d", state=t_engine.init_fleet(cfg, s_len, "cpu"),
+                         ticks=iter(xs_d), cfg=cfg, teacher=teacher(3), mode="train_phase",
+                         capacity=4, collect=False)
+    ], fuse=True)
+    mux_b.admit(
+        multiplex.Tenant(name="t0", state=None, ticks=rest, cfg=cfg, teacher=teacher(0),
+                         mode="train_phase", capacity=4, collect=False, device="cpu"),
+        snapshot=tree,
+        positioned=True,  # rest is extract()'s live iterator
+    )
+    assert mux_b.round()
+    assert mux_b._slot("t0").unit is not None, "the restored tenant must land in a cohort slot"
+    results_b, _ = mux_b.run()
+
+    _assert_state_equal(solo[0][0], results_b["t0"].state, msg="migrated t0")
+    _assert_stats_equal(solo[0][2], results_b["t0"].stats, msg="migrated t0")
+    assert results_b["t0"].stats.tickets_reasked == 0  # the teacher state travelled
+    assert results_b["t0"].stats.reconciled, results_b["t0"].stats.summary()
+    _assert_state_equal(solo_d[0], results_b["d"].state, msg="companion d")
+    _assert_stats_equal(solo_d[2], results_b["d"].stats, msg="companion d")
+    for i in (1, 2):
+        _assert_state_equal(solo[i][0], results_a[f"t{i}"].state, msg=f"t{i}")
+        _assert_stats_equal(solo[i][2], results_a[f"t{i}"].stats, msg=f"t{i}")
+        assert results_a[f"t{i}"].stats.reconciled
 
 
 def test_cohort_rejects_mismatched_members():

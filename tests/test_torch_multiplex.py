@@ -11,8 +11,9 @@ ROADMAP tolerance for runs where P starts at I/ridge (rtol and atol 2e-3):
 the JAX engine runs its einsum RLS path, the port follows the Pallas
 numerics (no symmetrisation, beta from P'·W).
 
-The durability cases of ``tests/test_multiplex.py`` (cadence snapshots,
-resume, ``extract``) and the RPC teachers wait for their own ports.
+The multiplexer's durability (cadence snapshots, resume, ``extract``,
+``run_supervised``) is held in ``tests/test_torch_snapshot.py``; the RPC
+teachers wait for their own port.
 
 Tests marked ``cuda`` run on the card and skip elsewhere:
 
@@ -330,9 +331,9 @@ def test_matches_jax_multiplexer_per_tenant(sched, fuse):
 
 @pytest.mark.usefixtures("jax_ref")
 def test_summary_keys_match_jax_without_durability():
-    """``MultiplexStats.summary()`` carries the JAX keys, less the snapshot
-    count (durability is not ported), and the same runner cache names."""
-    want = set(j_multiplex.MultiplexStats().summary()) - {"snapshots"}
+    """``MultiplexStats.summary()`` carries the JAX keys (the snapshot count
+    too, now that durability is ported), and the same runner cache names."""
+    want = set(j_multiplex.MultiplexStats().summary())
     assert set(multiplex.MultiplexStats().summary()) == want
     assert multiplex.SCHEDULERS == j_multiplex.SCHEDULERS
     assert multiplex.DEFAULT_QUANTUM == j_multiplex.DEFAULT_QUANTUM
