@@ -16,6 +16,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    one-head entry) and the two-stage route; masked streams exact;
 5. the paper path: S=1, N=128, ``run_training_phase`` with theta=1 and the
    auto ladder, held to ``tests/test_odl_system.py``'s claims;
+5b. the paper's tables: ``repro_torch.benchmarks.paper_tables`` on the card,
+   one trial per drift row (18 trials, 10 distinct, of 1008 one-stream
+   ticks: one repeat runs again, the other seven are served from the first
+   run), Tables 2-3 at N=128 and N=256 for ODLBase and ODLHash.  Every row
+   is printed beside the paper's value; Tables 1 and 4 and Fig 4's mW must
+   equal the port's models, Tables 2-3 and Fig 3 must meet
+   ``tests/test_odl_system.py``'s claims, the trial run twice must give the
+   same result, two trials must agree with the CPU (accuracy within 1 pt,
+   comm within 2 pts), and the projection, the readout and the single-pass
+   RLS (one per tick) must have launched at both widths.  Before it, the
+   kernels are held against their plain versions at the path's own shapes
+   (one stream a tick; the boot's and the accuracy sets' batches);
 6. the fleet path: ``har_odl.full()`` at S=16,384 streams, ``train_phase``
    for 32 ticks and ``algo1`` for 96, through ``run_fleet``; the launch
    counts show both kernels ran, and the accounting identities hold;
@@ -56,7 +68,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    load, restore and first-tick times and the frame's encode and decode
    times, beside the card's name and power limit;
 7. times of each kernel and route, its plain version and its library
-   yardstick, and its bound.
+   yardstick, and its bound; the projection and the RLS update also at
+   N=256 (S=16,384, P 4 GiB).
 
 The line before the last is the ``kernels`` JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
 of the repository, it exits non-zero and prints no result.
@@ -100,8 +113,19 @@ STREAM_CAPACITY = 8
 POLICIES = ("drop_oldest", "drop_newest", "block", "coalesce")
 STREAM_CHECK = dict(n_streams=256, n_ticks=48, latency=3, jitter=2, capacity=4)
 K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 128),
-             (130, 100, 72), (1, 16, 16)]
-K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6)]
+             (130, 100, 72), (1, 16, 16), (FLEET_STREAMS, 561, 256)]
+K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
+             (FLEET_STREAMS, 256, 1, 6)]
+# Phase 7 also times the projection and the RLS update at N=256 (the
+# paper's Tables 2-3 width), at the fleet's S: the last shape of each list.
+K1_N256, K2_N256 = K1_SHAPES[-1], K2_SHAPES[-1]
+# Phase 5b, the paper's tables on the card: one trial per drift row (the
+# reference runs 3 for Table 2 and Fig 4, 5 for Table 3 and Fig 3), so 18
+# trials of 1008 one-stream ticks; two of them run on the CPU as well.
+PAPER_TRIALS = 1
+PAPER_CROSS = (("hash", 256), ("base", 128))
+PAPER_WIDTHS = (128, 256)
+PAPER_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet", "readout")
 # Shapes the single pass does not take go to the two-stage route.
 K2_EXTRA_SHAPES = [(64, 384, 1, 6), (4, 64, 64, 3)]
 K3_SHAPE = (128, 16, 6)  # one head: N, k, m
@@ -377,6 +401,178 @@ def phase_paper(device="cuda", n_hidden=128):
     check(res["comm_auto"] < 0.70, "auto comm volume >= 0.70")
     check(res["acc_auto"] > res["acc_full"] - 0.02, "auto accuracy < full - 2 pts")
     return res
+
+
+def _paper_kernels_vs_plain(batches, device="cuda"):
+    """The paper path's kernel calls at its own shapes against their plain
+    versions on the card: the projection at every batch it is given (the
+    boot's training set, the two accuracy sets and one row a tick), and the
+    RLS update and the readout at one stream a tick."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    g = _gen(device, SEED + 5)
+    errs = {"xorshift_projection": 0.0, "oselm_rls_update_fleet": 0.0, "readout": 0.0}
+    for n in PAPER_WIDTHS:
+        for b in batches:
+            x = 0.3 * torch.randn(b, 561, generator=g, device=device)
+            got = ops.xorshift_projection(x, 77, n)
+            err = (got - ref.xorshift_projection_ref(x, 77, n)).abs().max().item()
+            check(err <= 1e-5, f"paper projection {b}x561x{n}: err {err} > 1e-5")
+            errs["xorshift_projection"] = max(errs["xorshift_projection"], err)
+        P, beta, H, Y = _rls_inputs(1, n, 1, 6, device, SEED + 5 + n)
+        check(ops.rls_route(n, 1, 6) == "single", f"paper RLS N={n} is not a single-pass shape")
+        p_got, b_got = ops.oselm_rls_update_fleet(P, beta, H, Y)
+        p_want, b_want = ref.rls_update_ref(P, beta, H, Y)
+        ep = (p_got - p_want).abs().max().item()
+        eb = (b_got - b_want).abs().max().item()
+        check(ep <= 2e-5 and eb <= 2e-4, f"paper RLS S=1 N={n}: P err {ep}, beta err {eb}")
+        errs["oselm_rls_update_fleet"] = max(errs["oselm_rls_update_fleet"], ep, eb)
+        h = torch.sigmoid(torch.randn(1, n, generator=g, device=device))
+        err = (ops.readout(h, b_want) - ref.readout_ref(h, b_want)).abs().max().item()
+        check(err <= 1e-5, f"paper readout 1x{n}x6: err {err} > 1e-5")
+        errs["readout"] = max(errs["readout"], err)
+    return errs
+
+
+def phase_paper_tables(device="cuda"):
+    """Phase 5b: ``repro_torch.benchmarks.paper_tables`` on the card with
+    ``PAPER_TRIALS`` per drift row, Tables 2-3 at N=128 and N=256.  Every
+    row is printed beside the paper's value; the analytic rows must equal
+    the port's models, the drift rows must meet ``tests/test_odl_system.py``'s
+    claims, a trial run twice must give the same result, two trials must
+    agree with the same trials on the CPU, and the projection, the readout
+    and the single-pass RLS must have launched at both widths.  Returns the
+    launches and the kernels' errors at the path's shapes."""
+    from repro_torch.benchmarks import common, paper_tables
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core import power_model as pm
+    from repro_torch.data import har
+    from repro_torch.kernels import ops
+
+    splits = har.generate(seed=0)
+    ox, _, _, tx = har.odl_split(splits, 0.6, 0)
+    n_ticks = len(ox)
+    errs = _paper_kernels_vs_plain(
+        sorted({1, len(splits.train_x), len(splits.test0_x), len(tx)}), device)
+    trial = common.drift_trial
+    runs: dict[tuple, list] = {}  # (variant, N, theta) -> results, in call order
+    per_n = {n: dict.fromkeys(ops.launch_counts, 0) for n in PAPER_WIDTHS}
+    trial_secs = []
+
+    done: dict[tuple, dict] = {}  # trial arguments -> result
+    served = []  # repeats answered from ``done``
+
+    def counted(run_seed, theta, n_hidden=128, variant="hash", dataset_seed=0, device=None):
+        # The tables ask for 10 distinct trials 18 times: the first repeat runs
+        # again (for the determinism check below), the later ones are served.
+        key = (run_seed, theta, n_hidden, variant, dataset_seed, device)
+        if key in done and len(trial_secs) > len(done):
+            served.append(key)
+            return dict(done[key])
+        before = dict(ops.launch_counts)
+        t0 = time.perf_counter()
+        r = trial(run_seed, theta, n_hidden, variant, dataset_seed, device)
+        trial_secs.append(time.perf_counter() - t0)
+        for k, v in ops.launch_counts.items():
+            per_n[n_hidden][k] += v - before[k]
+        runs.setdefault((variant, n_hidden, theta), []).append(r)
+        done.setdefault(key, r)
+        return dict(r)
+
+    t_start = time.perf_counter()
+    ops.reset_launch_counts()
+    common.drift_trial = counted
+    try:
+        rows = (paper_tables.table1_memory() + paper_tables.table4_core()
+                + paper_tables.table2_params(PAPER_TRIALS, device)
+                + paper_tables.table3_drift(PAPER_TRIALS, device)
+                + paper_tables.fig3_pruning(PAPER_TRIALS, device)
+                + paper_tables.fig4_power(PAPER_TRIALS, device))
+    finally:
+        common.drift_trial = trial
+    launches = dict(ops.launch_counts)
+    secs = time.perf_counter() - t_start
+    print(f"paper tables on {device} ({PAPER_TRIALS} trial per drift row, {len(trial_secs)} "
+          f"trials of {n_ticks} ticks run and {len(served)} repeats served from them, "
+          f"{secs:.1f} s; a trial {min(trial_secs):.2f}-{max(trial_secs):.2f} s):")
+    for name, value, derived in rows:
+        print(f"  {name},{value},{derived}")
+    got = {name: value for name, value, _ in rows}
+
+    # Tables 1 and 4, Table 2's counts and Fig 4's mW: the port's models.
+    for var in ("noodl", "base", "hash"):
+        for n in mm.PAPER_TABLE1["hidden"]:
+            check(got[f"table1/{var}/N{n}_kB"] == mm.memory_kb(var, mm.CoreShape(N=n)),
+                  f"table1 {var} N={n}")
+    s = mm.CoreShape()
+    t4 = {"predict_ms": pm.predict_time_ms(s), "train_ms": pm.train_time_ms(s),
+          "predict_mw": pm.P_PRED_MW, "train_mw": pm.P_TRAIN_MW, "idle_mw": pm.P_IDLE_MW,
+          "sleep_mw": pm.P_SLEEP_MW}
+    for n in (64, 256):
+        t4[f"predict_ms_N{n}"] = pm.predict_time_ms(mm.CoreShape(N=n))
+        t4[f"train_ms_N{n}"] = pm.train_time_ms(mm.CoreShape(N=n))
+    for k, v in t4.items():
+        check(got[f"table4/{k}"] == v, f"table4 {k}")
+    for n in PAPER_WIDTHS:
+        check(got[f"table2/N{n}/params"] == mm.odl_param_count(mm.CoreShape(N=n)),
+              f"table2 N={n} params")
+    for theta in (1.0, 0.32, 0.16, 0.08, "auto"):
+        comm = runs[("hash", 128, theta)][-1]["comm"]
+        for period in (1.0, 5.0, 10.0):
+            check(got[f"fig4/{theta}/{int(period)}s_mw"] == pm.avg_power_mw(comm, period),
+                  f"fig4 theta={theta} {period}s: mW off the power model")
+
+    # The drift rows: tests/test_odl_system.py's claims on the card.
+    for n in PAPER_WIDTHS:
+        for variant in ("base", "hash"):
+            r = runs[(variant, n, 1.0)][-1]
+            check(r["before"] > 0.90, f"table3 {variant} N={n}: accuracy before drift "
+                                      f"{r['before']:.4f} <= 0.90")
+            check(r["after"] > r["noodl_after"] + 0.025,
+                  f"table3 {variant} N={n}: ODL after drift {r['after']:.4f} <= NoODL "
+                  f"{r['noodl_after']:.4f} + 2.5 pts")
+            check(r["queries"] + r["skips"] == n_ticks and r["comm"] == 1.0,
+                  f"table3 {variant} N={n}: accounting")
+    comm = {t: runs[("hash", 128, t)][-1]["comm"] for t in (1.0, 0.32, 0.08, "auto")}
+    check(comm[1.0] > comm[0.32] > comm[0.08], f"fig3: comm not monotone in theta {comm}")
+    check(comm["auto"] < 0.70, f"fig3: auto comm {comm['auto']:.4f} >= 0.70")
+    auto_after, full_after = (runs[("hash", 128, t)][-1]["after"] for t in ("auto", 1.0))
+    check(auto_after > full_after - 0.02,
+          f"fig3: auto accuracy {auto_after:.4f} < theta=1 {full_after:.4f} - 2 pts")
+    # The one trial run twice gives the same result.
+    repeats = {k: v for k, v in runs.items() if len(v) > 1}
+    check(len(repeats) == 1, f"{len(repeats)} trials ran twice, not one")
+    for key, rs in repeats.items():
+        check(all(r == rs[0] for r in rs), f"trial {key} differs between its runs: {rs}")
+
+    # The card against the CPU (the plain versions) on two of the trials.
+    cross = {}
+    for variant, n in PAPER_CROSS:
+        card = runs[(variant, n, 1.0)][-1]
+        t0 = time.perf_counter()
+        cpu = trial(0, 1.0, n, variant, device="cpu")
+        cross[f"{variant}/N{n}"] = dict(card=card, cpu=cpu, cpu_secs=time.perf_counter() - t0)
+        for key in ("before", "after", "noodl_after"):
+            check(abs(card[key] - cpu[key]) <= 0.01,
+                  f"card vs cpu {variant} N={n} {key}: {card[key]:.4f} vs {cpu[key]:.4f}")
+        check(abs(card["comm"] - cpu["comm"]) <= 0.02, f"card vs cpu {variant} N={n}: comm")
+    print(f"  card vs cpu: {json.dumps(cross)}")
+
+    # The paper path went through the kernels at both widths.
+    for n in PAPER_WIDTHS:
+        for name in PAPER_KERNELS:
+            check(per_n[n][name] > 0, f"paper path N={n}: {name} never launched")
+        n_rls = sum(r["queries"] + r["skips"] for (_, w, _), rs in runs.items() if w == n
+                    for r in rs)
+        check(per_n[n]["oselm_rls_update_fleet"] == n_rls,
+              f"paper path N={n}: {per_n[n]['oselm_rls_update_fleet']} RLS launches, "
+              f"not one per tick ({n_rls})")
+        check(per_n[n]["rls_two_stage"] == 0, f"paper path N={n}: two-stage route taken")
+    print(f"  launches by width: {json.dumps(per_n)}; kernels vs plain at the path's shapes: "
+          f"{json.dumps(errs)}")
+    return dict(launches=launches, errs=errs)
 
 
 def _fleet_ticks(data, n_ticks, n_streams, shift_at, device, seed):
@@ -1465,6 +1661,31 @@ def _device_ms(fn, reps=20, rounds=3):
     return times[len(times) // 2]
 
 
+def _call_ms(fn, reps=5):
+    """Device time of one call of ``fn`` where the call makes the host wait
+    for the card, so that ``_device_ms``'s sleep cannot hide the host: CUDA
+    events around each call from an idle card, the median of ``reps``.  The
+    card's idle gaps inside a call count, as they do for the caller.  (At
+    N=256 torch's batched ``lu_solve`` inside the plain RLS update
+    synchronises the stream, so the N=256 RLS kernel is timed this way too:
+    its row compares one measure.  The profiler does not list that kernel,
+    which is launched on a cluster.)"""
+    import torch
+
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
 def _bound(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
     """The least time the card could take: (ms, what bounds it)."""
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
@@ -1528,6 +1749,20 @@ def phase_times(device="cuda"):
         bound_by=bound_by,
     ))
     del x, alpha
+    # The same at N=256 (Tables 2-3's width), on the same fleet of x.
+    b, n_in, n = K1_N256
+    x = _cycling_x(device, b, n_in)
+    alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
+    rows[-1]["n256"] = dict(
+        shape=list(K1_N256),
+        ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
+        plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
+        library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
+            peak_flops=PEAK_TF32_FLOPS))),
+    )
+    del x, alpha
 
     s, n, k, m = K2_SHAPES[0]
     P, beta, H, Y = _rls_inputs(s, n, k, m, device, SEED)
@@ -1541,6 +1776,24 @@ def phase_times(device="cuda"):
             P, beta, *oselm_update.small_operands(P, beta, H, Y)), reps=PLAIN_REPS),
         **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))),
     ))
+    del P, beta, H, Y
+    # N=256: P is 4 GiB, and the single pass runs with clusters sharing
+    # distributed shared memory.
+    s, n, k, m = K2_N256
+    check(ops.rls_route(n, k, m) == "single", f"{K2_N256} is not a single-pass shape")
+    P, beta, H, Y = _rls_inputs(s, n, k, m, device, SEED + 9)
+    rows[-1]["n256"] = dict(
+        shape=list(K2_N256),
+        plan=list(oselm_update.single_pass_plan(n, k, m)),
+        ms=_call_ms(lambda: oselm_update.rls_single(P, beta, H, Y)),
+        plain_ms=_call_ms(lambda: ref.rls_update_ref(P, beta, H, Y)),
+        library_ms=_call_ms(lambda: _rls_composite(P, beta, H, Y)),
+        batched_ms=_device_ms(lambda: oselm_update.rls_single(P, beta, H, Y)),
+        timed="all three by CUDA events around single calls (the plain and library "
+              "versions' batched lu_solve makes the host wait at N=256); batched_ms is "
+              "the kernel by _device_ms",
+        **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))),
+    )
     del P, beta, H, Y
 
     n, k, m = K3_SHAPE
@@ -1609,6 +1862,13 @@ def phase_times(device="cuda"):
               f"library {lib} ({r['library']}), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of it reached)")
     print(f"time the two-stage route at the fleet shape: {rows[1]['two_stage_ms']:.4f} ms")
+    for r in rows[:2]:
+        w = r["n256"]
+        events = f" (batched {w['batched_ms']:.4f} ms)" if "batched_ms" in w else ""
+        print(f"time {r['name']} at N=256 {w['shape']}: kernel {w['ms']:.4f} ms{events}, plain "
+              f"{w['plain_ms']:.4f} ms, library {w['library_ms']:.4f} ms ({r['library']}), "
+              f"bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
+              f"{100 * w['bound_ms'] / w['ms']:.1f} % of it reached)")
     return rows
 
 
@@ -1685,6 +1945,7 @@ def main(argv=None) -> int:
     err2 = phase_kernel2()
     err_rows = phase_kernel_rows()
     phase_paper()
+    paper = phase_paper_tables()
     fleet, runs = phase_fleet()
     phase_cross_check()
     eager = phase_profile()
@@ -1747,6 +2008,9 @@ def main(argv=None) -> int:
             # restored, migrated and supervised sessions and cohorts.
             "durable_replays": durable["kernel_replays"].get(name, 0),
             "durable_launches": durable["launches"].get(name, 0),
+            # The paper's tables (phase 5b): eager launches, both widths.
+            "paper_launches": paper["launches"].get(name, 0),
+            "paper_max_abs_err": paper["errs"].get(name),
             "max_abs_err": info["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1754,6 +2018,8 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "library": t["library"],
+            # Phase 7 at N=256 (the paper's Tables 2-3 width), where timed.
+            "n256": t.get("n256"),
             "ok": True,
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s")

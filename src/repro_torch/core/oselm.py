@@ -11,9 +11,8 @@ Woodbury update of the inverse Gram matrix ``P``):
     beta' = beta + P' H^T (Y - H beta)                  (N, m)
 
 Variants (paper §2.3):
-  * ``base`` — alpha stored dense (ODLBase).  The caller passes alpha (made
-    with numpy, or carried across from the JAX package): the port does not
-    reproduce JAX's threefry bits.
+  * ``base`` — alpha stored dense (ODLBase): ``make_alpha`` builds it with
+    the JAX package's bits (``xorshift.alpha_dense``), once per device.
   * ``hash`` — alpha regenerated on the fly from Xorshift16 (ODLHash),
     through the projection kernel (``kernels/ops.xorshift_projection``).
 
@@ -63,6 +62,39 @@ class OSELMState(NamedTuple):
     count: torch.Tensor  # () int32 — samples trained so far
 
 
+# ODLBase alphas by (seed, n_in, N, scale, device): hashed on the host and
+# copied to the device once, never inside a CUDA-graph capture.
+_ALPHAS: dict[tuple, torch.Tensor] = {}
+
+
+def make_alpha(
+    cfg: OSELMConfig, device: str | torch.device | None = None
+) -> Optional[torch.Tensor]:
+    """Materialized alpha for 'base' (scaled by ``cfg.alpha_scale``, on
+    ``device``, CUDA unless named); None for 'hash' (regenerated per call).
+
+    The tensor is cached and shared: callers must not write to it.  The
+    first call for a device must come before any CUDA-graph capture that
+    projects (a host-to-device copy cannot be captured); the stream
+    session makes it when it is built.
+    """
+    if cfg.variant != "base":
+        return None
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (cfg.seed, cfg.n_in, cfg.n_hidden, cfg.alpha_scale, device)
+    alpha = _ALPHAS.get(key)
+    if alpha is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "ODLBase alpha first needed inside a CUDA-graph capture; build it "
+                "before (oselm.make_alpha)")
+        alpha = _ALPHAS[key] = xorshift.alpha_dense(
+            cfg.seed, cfg.n_in, cfg.n_hidden, cfg.alpha_scale, device=device)
+    return alpha
+
+
 def hidden(
     x: torch.Tensor, cfg: OSELMConfig, alpha: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -70,7 +102,8 @@ def hidden(
 
     ``hash`` goes through the projection kernel, which scales and activates
     in its epilogue (with ``cfg.activation``); nothing is applied twice.
-    ``base`` needs ``alpha`` (n_in, N), already scaled.
+    ``base`` takes ``alpha`` (n_in, N), already scaled, or builds it
+    (``make_alpha``), as the JAX package does.
     """
     if cfg.variant == "hash":
         return ops.xorshift_projection(
@@ -79,7 +112,7 @@ def hidden(
     if cfg.variant != "base":
         raise ValueError(f"unknown ODL variant: {cfg.variant!r}")
     if alpha is None:
-        raise ValueError("variant 'base' needs its stored alpha (n_in, n_hidden)")
+        alpha = make_alpha(cfg, x.device)
     inv_sqrt_n = float(np.float32(1.0) / np.sqrt(np.float32(cfg.n_in)))
     z = torch.matmul(x.to(torch.float32), alpha.to(x.device, torch.float32))
     return activate(z * inv_sqrt_n, cfg.activation)

@@ -10,6 +10,10 @@ PyTorch counterpart of ``repro/core/xorshift.py``.  Two semantics:
   of the matrix can be generated on its own (what the projection kernel
   does, ``kernels/csrc/xorshift_proj.cu``).
 
+``alpha_dense`` is ODLBase's stored matrix: the JAX package draws it with
+``jax.random.uniform``, and the port reproduces those bits with its own
+numpy threefry2x32, so both packages hold the same alpha.
+
 PyTorch has no full uint16 arithmetic, so the u16 values live in int64
 lanes masked with ``& 0xFFFF`` after every shift and multiply, the way the
 Pallas kernel's ``_mix16_u32`` does it on uint32 lanes.  The result is bit
@@ -106,3 +110,75 @@ def alpha_hash(
     x = ((seed & 0xFFFFFFFF) ^ ctr) & MASK16
     x = torch.where(x == 0, torch.full_like(x, 0x9E37), x)  # avoid the zero fixed point
     return u16_to_unit(mix16(x, rounds))
+
+
+# ---------------------------------------------------------------------------
+# ODLBase: a stored dense alpha, the same bits as the JAX package's.
+# ---------------------------------------------------------------------------
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+
+
+def _rotl32(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def threefry2x32(k1: int, k2: int, x0: np.ndarray, x1: np.ndarray):
+    """Threefry-2x32 (20 rounds) of the counter pairs ``(x0, x1)`` under the
+    key ``(k1, k2)``, on numpy uint32 lanes (additions wrap mod 2^32)."""
+    k1, k2 = np.uint32(k1), np.uint32(k2)
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(_THREEFRY_PARITY))
+    x0, x1 = x0 + ks[0], x1 + ks[1]
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def alpha_dense(
+    seed: int,
+    n_in: int,
+    n_hidden: int,
+    scale: float = 1.0,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """ODLBase weights: stored dense random alpha ~ U[-1, 1), made on the
+    host and copied to ``device`` (CUDA unless named).  Bit-identical to
+    ``repro.core.xorshift.alpha_dense``, i.e. to ``jax.random.uniform(
+    PRNGKey(seed), (n_in, n_hidden), minval=-1, maxval=1) * scale``.
+
+    JAX's default PRNG is threefry2x32 with partitionable counters: entry i
+    (row-major) is hashed from the counter pair (hi, lo) of i under the key
+    (0, seed mod 2^32), and its 32 random bits are the xor of the two
+    output words.  The top 23 bits become a float in [1, 2); minus 1, times
+    2, minus 1, floored at -1, gives U[-1, 1).
+    """
+    seed = int(seed)
+    if not -(2**31) <= seed < 2**32:
+        raise ValueError(f"alpha seed {seed} is outside the 32-bit range JAX keys take")
+    idx = np.arange(n_in * n_hidden, dtype=np.uint64)
+    b1, b2 = threefry2x32(0, seed & 0xFFFFFFFF, (idx >> np.uint64(32)).astype(np.uint32),
+                          (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    unit = ((b1 ^ b2) >> np.uint32(9) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    u = np.maximum(np.float32(-1), unit * np.float32(2) + np.float32(-1))
+    alpha = u.reshape(n_in, n_hidden) * np.float32(scale)
+    return torch.from_numpy(alpha).to(resolve_device(device))
+
+
+def alpha_for_variant(
+    variant: str,
+    seed: int,
+    n_in: int,
+    n_hidden: int,
+    device: str | torch.device | None = None,
+) -> torch.Tensor | None:
+    """Materialized alpha for 'base', or None for 'hash' (generated on the fly)."""
+    if variant == "base":
+        return alpha_dense(seed, n_in, n_hidden, device=device)
+    if variant == "hash":
+        return None
+    raise ValueError(f"unknown ODL variant: {variant!r}")

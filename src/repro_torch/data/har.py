@@ -152,3 +152,50 @@ def odl_split(splits: HARSplits, frac: float = 0.6, seed: int = 0, bout_len: int
 
     return tx[order], ty[order], splits.test1_x[te], splits.test1_y[te]
 
+
+def drift_tick_stream(
+    splits: HARSplits,
+    n_streams: int = 1,
+    frac: float = 0.6,
+    seed: int = 0,
+    bout_len: int = 70,
+    calm: int = 0,
+    severities=None,
+):
+    """Tick-iterator view of the drifted ODL stream for the streaming
+    runtime (``repro_torch.engine.stream.run``): one ``(S, n_in)`` float32 tick at
+    a time, never materializing the full ``(T, S, n_in)`` array.
+
+    The stream is an optional ``calm``-tick prefix of known-subject (test0)
+    data followed by the §3 retraining stream of the held-out subjects,
+    with a per-stream drift ``severities`` multiplier applied at shift time
+    (``x -> clip(x * sev + 0.4 * sev, -3, 3)`` — S users hitting the same
+    drift at different strengths).  Defaults to severity 1.0 (no extra
+    scaling) for every stream.
+
+    Returns ``(ticks, labels)``: ``ticks`` is a generator of (S, n_in)
+    ticks and ``labels`` the matching (T, S) int32 ground-truth array for
+    the teacher side (labels are 1 byte/tick/stream — the paper's protocol
+    has ground truth play the teacher; it is the features that must not
+    materialize).
+    """
+    ox, oy, _, _ = odl_split(splits, frac, seed, bout_len)
+    if severities is None:
+        severities = np.ones(n_streams, np.float32)
+    severities = np.asarray(severities, np.float32)
+    if severities.shape != (n_streams,):
+        raise ValueError(f"severities must be ({n_streams},), got {severities.shape}")
+    calm_x, calm_y = splits.test0_x[:calm], splits.test0_y[:calm]
+    if len(calm_x) < calm:
+        raise ValueError(f"calm prefix {calm} exceeds test0 size {len(splits.test0_x)}")
+    labels = np.concatenate([calm_y, oy]).astype(np.int32)
+    labels = np.broadcast_to(labels[:, None], (len(labels), n_streams))
+
+    def ticks():
+        for row in calm_x:
+            yield np.broadcast_to(row, (n_streams, N_FEATURES)).astype(np.float32)
+        scale = severities[:, None]
+        for row in ox:
+            yield np.clip(row[None, :] * scale + 0.4 * scale, -3, 3).astype(np.float32)
+
+    return ticks(), labels

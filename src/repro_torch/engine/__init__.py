@@ -41,6 +41,7 @@ from repro_torch.engine.fleet import (  # noqa: F401
     plan,
     remove_streams,
     run_fleet,
+    runner_cache_info,
     slice_streams,
     stack_streams,
     stream_slice,

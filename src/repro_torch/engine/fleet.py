@@ -312,12 +312,16 @@ def fleet_accuracy(
 
 def runner_cache_info() -> dict:
     """Hit/miss/size counters of this module's runner caches, for serving
-    stats (``engine.stream.cache_stats`` merges these with its own): the
-    patch-learn runners.  ``run_fleet`` is an eager per-tick loop and caches
-    no chunk runner."""
+    stats (``engine.stream.cache_stats`` merges these with its own), under
+    the JAX package's keys.  ``run_fleet`` is an eager per-tick loop and
+    caches no chunk runner, so ``chunk_runner`` is a zero entry; the
+    patch-learn runners are cached."""
     info = _patch_learn_runner.cache_info()
-    return {"patch_learn_runner": {"hits": info.hits, "misses": info.misses,
-                                   "size": info.currsize, "maxsize": info.maxsize}}
+    return {
+        "chunk_runner": {"hits": 0, "misses": 0, "size": 0, "maxsize": 0},
+        "patch_learn_runner": {"hits": info.hits, "misses": info.misses,
+                               "size": info.currsize, "maxsize": info.maxsize},
+    }
 
 
 def run_fleet(

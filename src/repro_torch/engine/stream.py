@@ -61,6 +61,7 @@ from typing import Callable, Iterable, NamedTuple, Optional, Protocol
 import numpy as np
 import torch
 
+from repro_torch.core import oselm
 from repro_torch.engine import fleet, graphs
 from repro_torch.engine.types import (
     EngineConfig,
@@ -509,7 +510,9 @@ def _learn_plan_avail_runner(cfg: EngineConfig, mode: str, donate: bool):
 
 
 def cache_stats() -> dict:
-    """Hit/miss counters of every runner cache in the engine."""
+    """Hit/miss counters of every runner cache in the engine, under the JAX
+    package's keys (``chunk_runner`` is always empty: ``run_fleet`` is
+    eager and caches no chunk runner)."""
     out = dict(fleet.runner_cache_info())
     for name, fn in (
         ("plan_runner", _plan_runner),
@@ -684,6 +687,8 @@ class StreamSession:
         self._buf = _StateBuffers(own)
         self._donate = donate
         self.device = own.elm.P.device
+        # ODLBase's alpha is copied to the card here, never inside a capture.
+        oselm.make_alpha(cfg.elm, self.device)
         self.cfg = cfg
         self.teacher = teacher
         self.mode = mode

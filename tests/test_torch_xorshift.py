@@ -59,3 +59,61 @@ def test_sequential_stream_matches():
 def test_constants_match():
     for name in ("SHIFT_A", "SHIFT_B", "SHIFT_C", "DEFAULT_ROUNDS", "DEFAULT_SEED", "MIX_CONSTANTS"):
         assert getattr(tx, name) == getattr(jx, name), name
+
+
+# ---------------------------------------------------------------------------
+# ODLBase: the stored dense alpha (JAX's threefry2x32 uniform), bit-exact.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,n_in,n_hidden", [
+    (77, 561, 128),  # Table 3's ODLBase boot at N=128 (run seed 0)
+    (78, 561, 256),  # ... at N=256 (run seed 1)
+    (0, 24, 16),
+    (123456, 48, 32),
+])
+@pytest.mark.parametrize("scale", [1.0, 0.37])
+def test_alpha_dense_bit_exact(seed, n_in, n_hidden, scale):
+    want = np.asarray(jx.alpha_dense(seed, n_in, n_hidden, scale))
+    got = tx.alpha_dense(seed, n_in, n_hidden, scale, device="cpu").numpy()
+    assert got.dtype == np.float32 and got.shape == (n_in, n_hidden)
+    assert got.tobytes() == want.tobytes()
+    assert got.min() >= -scale and got.max() < scale
+
+
+def test_alpha_for_variant_bit_exact():
+    got = tx.alpha_for_variant("base", 9, 24, 16, device="cpu").numpy()
+    assert got.tobytes() == np.asarray(jx.alpha_for_variant("base", 9, 24, 16)).tobytes()
+    assert tx.alpha_for_variant("hash", 9, 24, 16, device="cpu") is None
+    with pytest.raises(ValueError, match="unknown ODL variant"):
+        tx.alpha_for_variant("dense", 9, 24, 16, device="cpu")
+
+
+def test_threefry2x32_known_answer():
+    """The Random123 known-answer vector for Threefry-2x32-20 (key and
+    counter all ones; the JAX package's threefry tests use it too)."""
+    ones = np.array([0xFFFFFFFF], dtype=np.uint32)
+    b1, b2 = tx.threefry2x32(0xFFFFFFFF, 0xFFFFFFFF, ones, ones)
+    assert (int(b1[0]), int(b2[0])) == (0x1CB996FC, 0xBB002BE7)
+
+
+def test_hidden_base_builds_alpha_like_the_reference():
+    """``hidden(variant="base")`` with no alpha builds the reference's alpha
+    (once per device, then cached) and matches the reference's H."""
+    from repro.core import oselm as j_oselm
+    from repro_torch.core import oselm as t_oselm
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((9, 48)).astype(np.float32)
+    for act, scale in (("sigmoid", 1.0), ("tanh", 2.5)):
+        jcfg = j_oselm.OSELMConfig(n_in=48, n_hidden=32, n_out=4, variant="base", seed=123456,
+                                   activation=act, alpha_scale=scale)
+        tcfg = t_oselm.OSELMConfig(n_in=48, n_hidden=32, n_out=4, variant="base", seed=123456,
+                                   activation=act, alpha_scale=scale)
+        want = np.asarray(j_oselm.hidden(jnp.asarray(x), jcfg))
+        got = t_oselm.hidden(torch.as_tensor(x), tcfg).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        alpha = t_oselm.make_alpha(tcfg, "cpu")
+        assert t_oselm.make_alpha(tcfg, "cpu") is alpha  # cached, not rebuilt
+        assert alpha.numpy().tobytes() == np.asarray(j_oselm.make_alpha(jcfg)).tobytes()
+    assert t_oselm.make_alpha(tcfg.replace(variant="hash"), "cpu") is None
