@@ -67,6 +67,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    as a subprocess.  It prints the snapshot's size, the capture, publish,
    load, restore and first-tick times and the frame's encode and decode
    times, beside the card's name and power limit;
+6h. the teacher over a real loopback socket (``engine/rpc.py``, the label
+   server a ``python -m repro_torch.engine.rpc`` subprocess): the graphed
+   session at the fleet width taught by a v2 ``RpcTeacher`` behind the sync
+   wrapper must equal the same session taught by ``LatencyTeacher(latency=0)``
+   with the server's label rule bit for bit, in ``train_phase`` (16 ticks)
+   and in ``algo1`` through the drift (``rpc_bit_for_bit``), with the ask
+   frame's bytes and the per-ask D2H, encode and round-trip ms; the same 16
+   ticks unwrapped (stream·ticks/s); a faults run (server loss and jitter,
+   client deadline, telemetry on) whose accounting reconciles with queries
+   lost, the scraped identity holding mid-run and at the end, and the
+   server's wire-scraped counters agreeing with the client's; 4 tenants of
+   4096 streams, fused, over a shared batched connection, per-tenant v2
+   connections and the shared connection with zlib, every label checked;
+   the port's ``rpc_bench`` at the reference bench's shape (v1 included;
+   its launches and replays counted apart); and telemetry's overhead on
+   6e's window, off and on in turns.  Every shape 6h calls a kernel at must
+   be one phases 2-4 held against the plain version;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
    N=256 (S=16,384, P 4 GiB).
@@ -80,8 +97,8 @@ instead times the port of the checkout at PATH (``.`` for this one) with
 this script's timing code and prints one JSON line: the card, the device
 time of the projection and of the whole RLS update at the fleet shape,
 fleet ``train_phase`` stream-ticks per second after a warm-up, the same
-for the graphed stream path and for the fused multiplexer of phase 6f (each
-null for a checkout without it), and the profiled tick (wall, device time
+for the graphed stream path, for the fused multiplexer of phase 6f and for
+6h's unwrapped session over the wire (each null for a checkout without it), and the profiled tick (wall, device time
 per kernel, busy share).  To compare two checkouts, run it for both in
 turns on one card (A, B, B, A).
 """
@@ -92,6 +109,7 @@ import argparse
 import dataclasses
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -112,10 +130,14 @@ STREAM_TEACHER = dict(latency=2, jitter=2, loss_prob=0.02, partial_prob=0.05, se
 STREAM_CAPACITY = 8
 POLICIES = ("drop_oldest", "drop_newest", "block", "coalesce")
 STREAM_CHECK = dict(n_streams=256, n_ticks=48, latency=3, jitter=2, capacity=4)
+# Phase 6h's shapes are here too: its multiplexer's member (4,096 rows) and
+# rpc_bench's tenant (64) and fused cohort (256) at n_in=N=64; 6h fails if
+# its path calls a kernel at a shape these lists do not hold.
 K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 128),
-             (130, 100, 72), (1, 16, 16), (FLEET_STREAMS, 561, 256)]
+             (130, 100, 72), (1, 16, 16), (4096, 561, 128), (64, 64, 64), (256, 64, 64),
+             (FLEET_STREAMS, 561, 256)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
-             (FLEET_STREAMS, 256, 1, 6)]
+             (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (FLEET_STREAMS, 256, 1, 6)]
 # Phase 7 also times the projection and the RLS update at N=256 (the
 # paper's Tables 2-3 width), at the fleet's S: the last shape of each list.
 K1_N256, K2_N256 = K1_SHAPES[-1], K2_SHAPES[-1]
@@ -136,7 +158,8 @@ PATH_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet", "readout", "row
 MODE_KERNELS = {"train_phase": PATH_KERNELS[:3], "algo1": PATH_KERNELS}
 # The per-stream row kernels against their plain versions: (S, N, m) of the
 # readout, (S, n) of the feature mean; the first of each is the fleet's.
-READOUT_SHAPES = [(FLEET_STREAMS, 128, 6), (1, 128, 6), (3, 16, 4), (1024, 100, 1), (130, 33, 7)]
+READOUT_SHAPES = [(FLEET_STREAMS, 128, 6), (1, 128, 6), (3, 16, 4), (1024, 100, 1), (130, 33, 7),
+                  (4096, 128, 6), (64, 64, 6), (256, 64, 6)]
 ROW_MEAN_SHAPES = [(FLEET_STREAMS, 561), (1, 561), (3, 24), (130, 100)]
 # Phase 6f, the multiplexer: 16 tenants of 1024 streams stack to the fleet's
 # 16,384; 12 run 32 ticks and 4 run 24, and one more of 32 ticks is admitted
@@ -156,6 +179,25 @@ DURABLE_SNAP_TICKS = (48, 80)
 DURABLE_EXTRACT_TICK = 13
 DURABLE_SNAPSHOT_EVERY = 12
 DURABLE_CRASH_TICK = 20
+# Phase 6h, the teacher over the wire: 6c's algo1 ticks, the first
+# RPC_TRAIN_TICKS in train_phase (every stream asks, so every tick is one
+# ask frame of S rows); the faults run's server loses RPC_FAULTS["loss_prob"]
+# of the asks (its per-connection draw is seeded: with 16 asks on the first
+# connection it loses two) and jitters replies, under a client deadline; the
+# multiplexer runs RPC_MUX_TENANTS tenants, each a block of the fleet's rows,
+# for RPC_MUX_TICKS ticks; the port's rpc_bench runs at
+# the reference bench's own shape (the only place the v1 wire runs);
+# telemetry's overhead is timed on 6e's window, blocks of ticks off and on in
+# turns, against the reference's 2 % budget.
+RPC_TRAIN_TICKS = 16
+RPC_FAULTS = dict(loss_prob=0.05, jitter_s=0.005)
+RPC_FAULT_TIMEOUT_S = 3.0
+RPC_MUX_TENANTS = 4
+RPC_BENCH = dict(tenant_counts=(4,), s=64, t=200, iters=1)
+RPC_MUX_TICKS = 8
+RPC_OVERHEAD_BLOCKS = 16
+RPC_OVERHEAD_BLOCK_TICKS = 4
+TELEMETRY_BUDGET_PCT = 2.0
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
             "tickets_dropped", "queries_dropped", "replies_orphaned", "tickets_lost",
             "queries_lost", "tickets_coalesced", "queries_coalesced", "asks_deferred",
@@ -1621,6 +1663,429 @@ def phase_durable(policy_runs, ticks, labels, mux_solo, mux_inputs, device="cuda
     return res
 
 
+class _LabelCheck:
+    """A teacher wrapper that holds every reply it hands on to the rule the
+    label server answers by (``rpc.expected_labels`` of the ticket's tick)
+    on the streams it answered, and counts the labels it checked."""
+
+    def __init__(self, inner, n_out):
+        self.inner = inner
+        self.n_out = n_out
+        self.ticks = {}
+        self.checked = 0
+
+    def ask(self, feats, mask, tick):
+        ticket = self.inner.ask(feats, mask, tick)
+        self.ticks[ticket] = tick
+        return ticket
+
+    def poll(self, tick):
+        from repro_torch.engine import rpc
+
+        replies = self.inner.poll(tick)
+        for r in replies:
+            want = rpc.expected_labels(self.ticks[r.ticket], len(r.labels), self.n_out)
+            check(bool((r.labels[r.answered] == want[r.answered]).all()),
+                  f"rpc: ticket {r.ticket} carried a label the server's rule does not give")
+            self.checked += int(r.answered.sum())
+        return replies
+
+    def in_flight(self):
+        return self.inner.in_flight()
+
+
+class _MeasuredSync:
+    """The sync wrapper of ``tests/test_rpc.py`` (each ask waits out its
+    reply, so the application schedule is the zero-latency teacher's), which
+    also times, per ask: the device-to-host copy of the features as the
+    client makes it (``rpc._host_feats``), the v2 encoding of that copy, and
+    the round trip (the real ask, its own copy and encoding included, until
+    its reply is in)."""
+
+    def __init__(self, inner, timeout=120.0):
+        self.inner = inner
+        self.timeout = timeout
+        self.d2h_ms, self.encode_ms, self.round_trip_ms, self.frame_bytes = [], [], [], []
+
+    def ask(self, feats, mask, tick):
+        from repro_torch.engine import rpc, wire
+
+        t0 = time.perf_counter()
+        host = rpc._host_feats(feats)
+        t1 = time.perf_counter()
+        frame = wire.encode_asks([(0, tick, mask, host)])
+        t2 = time.perf_counter()
+        self.d2h_ms.append(1e3 * (t1 - t0))
+        self.encode_ms.append(1e3 * (t2 - t1))
+        self.frame_bytes.append(len(frame))
+        del host, frame
+        t3 = time.perf_counter()
+        ticket = self.inner.ask(feats, mask, tick)
+        deadline = time.monotonic() + self.timeout
+        while self.inner.in_flight() > 0 and time.monotonic() < deadline:
+            time.sleep(2e-4)
+        check(self.inner.in_flight() == 0, f"rpc: ask at tick {tick} unanswered")
+        self.round_trip_ms.append(1e3 * (time.perf_counter() - t3))
+        return ticket
+
+    def poll(self, tick):
+        return self.inner.poll(tick)
+
+    def in_flight(self):
+        return self.inner.in_flight()
+
+
+def _pcts(xs):
+    import numpy as np
+
+    return {"p50": float(np.percentile(xs, 50)), "p95": float(np.percentile(xs, 95)),
+            "n": len(xs)} if xs else None
+
+
+def _rpc_teacher_runs(cfg, ticks, device, n_out):
+    """6h part 1: the graphed session over the wire (v2, sync wrapper) against
+    the same session taught by ``LatencyTeacher(latency=0)`` with the server's
+    rule, in ``train_phase`` (the first ``RPC_TRAIN_TICKS`` ticks) and
+    ``algo1`` (every tick, through the drift); then the ``train_phase`` run
+    without the wrapper, timed.  Returns the printed results."""
+    from repro_torch import engine
+    from repro_torch.engine import graphs, rpc, stream
+    from repro_torch.kernels import ops
+
+    n_streams = ticks.shape[1]
+    runs = (("train_phase", ticks[:RPC_TRAIN_TICKS]), ("algo1", ticks))
+    expected = {}
+    for mode, xs in runs:
+        teacher = stream.LatencyTeacher(lambda t, _f: rpc.expected_labels(t, n_streams, n_out))
+        expected[mode] = stream.run(engine.init_fleet(cfg, n_streams, device), iter(xs), cfg,
+                                    teacher, mode=mode)
+    res = {}
+    with rpc.loopback_server(n_out=n_out) as (host, port):
+        # 6h's path starts here: its launch and replay counts from 0.
+        graphs.reset_replay_counts()
+        ops.reset_launch_counts()
+        for mode, xs in runs:
+            with rpc.RpcTeacher(host, port, timeout_s=120.0) as inner:
+                teacher = _MeasuredSync(inner)
+                got = stream.run(engine.init_fleet(cfg, n_streams, device), iter(xs), cfg,
+                                 teacher, mode=mode)
+            differ = _result_differs(expected[mode], got)
+            check(not differ, f"rpc {mode}: differs from the zero-latency teacher in {differ}")
+            check(got[2].labels_applied > 0 and got[2].reconciled,
+                  f"rpc {mode}: {got[2].summary()}")
+            res[mode] = {"bit_for_bit": not differ, "asks": len(teacher.round_trip_ms),
+                         "labels_applied": got[2].labels_applied,
+                         "ask_frame_bytes": teacher.frame_bytes[0] if teacher.frame_bytes else 0,
+                         "wire_bytes": inner.wire_bytes, "wire_messages": inner.wire_messages,
+                         "d2h_ms": _pcts(teacher.d2h_ms), "encode_ms": _pcts(teacher.encode_ms),
+                         "round_trip_ms": _pcts(teacher.round_trip_ms)}
+            del got
+        del expected
+        # The same train_phase ticks without the wrapper: replies land when
+        # they land, so only the accounting and the labels are checked.
+        xs = ticks[:RPC_TRAIN_TICKS]
+        with rpc.RpcTeacher(host, port, timeout_s=120.0) as inner:
+            teacher = _LabelCheck(inner, n_out)
+            state = engine.init_fleet(cfg, n_streams, device)
+            _sync(device)
+            t0 = time.perf_counter()
+            state, outs, stats = stream.run(state, iter(xs), cfg, teacher, mode="train_phase")
+            _sync(device)
+            secs = time.perf_counter() - t0
+        check(stats.reconciled and stats.labels_applied == teacher.checked > 0,
+              f"rpc unwrapped: {stats.summary()}")
+        res["unwrapped"] = {"stream_ticks_per_s": n_streams * len(xs) / secs,
+                            "tick_p50_ms": stats.tick_p50_ms, "tick_p95_ms": stats.tick_p95_ms,
+                            "label_latency_p50": stats.label_latency_p50,
+                            "label_latency_p95": stats.label_latency_p95,
+                            "labels_applied": stats.labels_applied}
+    return res
+
+
+def _rpc_faults(cfg, ticks, device, n_out):
+    """6h part 2: the same session without the wrapper against a server that
+    loses asks and jitters replies, under a client deadline, with telemetry
+    on: the accounting reconciles exactly with queries lost, every applied
+    label is the server's rule, the scraped identity holds mid-run and at the
+    end, and the server's counters (scraped over the wire) agree with the
+    client's meters."""
+    from repro_torch import engine
+    from repro_torch.engine import rpc, stream
+    from repro_torch.runtime import telemetry
+
+    xs = ticks[:RPC_TRAIN_TICKS]
+    n_streams = xs.shape[1]
+    tel = telemetry.enable()
+    tel.registry.clear()
+    scrapes = {}
+
+    def scrape(when, sess, inner):
+        sess.sync_telemetry()
+        inner.sync_telemetry(tenant="faults")
+        parsed = telemetry.parse_prometheus(tel.registry.prometheus_text())
+        ident = telemetry.check_stream_identity(parsed)
+        check(ident and all(ident.values()), f"rpc faults: scraped identity fails {when}: {ident}")
+        key = (("tenant", "faults"),)
+        scrapes[when] = {"queries_issued": parsed[("odl_stream_queries_issued", key)],
+                         "queries_pending": parsed[("odl_stream_queries_pending", key)],
+                         "identity": True}
+
+    try:
+        with rpc.loopback_server(n_out=n_out, **RPC_FAULTS) as (host, port):
+            with rpc.RpcTeacher(host, port, timeout_s=RPC_FAULT_TIMEOUT_S) as inner:
+                teacher = _LabelCheck(inner, n_out)
+                sess = stream.StreamSession(engine.init_fleet(cfg, n_streams, device), cfg,
+                                            teacher, mode="train_phase")
+                sess.telemetry_labels = {"tenant": "faults"}
+                sess.start(xs[0])
+                for t in range(1, len(xs)):
+                    sess.advance(xs[t])
+                    if t == len(xs) // 2:
+                        scrape("mid-run", sess, inner)
+                sess.advance(None)
+                _, _, stats = sess.finish()
+                scrape("end", sess, inner)
+                server = rpc.server_stats(host, port)
+                meters = {"wire_messages": inner.wire_messages, "wire_bytes": inner.wire_bytes,
+                          "timed_out": inner.timed_out}
+    finally:
+        telemetry.disable()
+    check(stats.reconciled and stats.queries_lost > 0,
+          f"rpc faults: want exact accounting with losses: {stats.summary()}")
+    check(stats.labels_applied == teacher.checked > 0, "rpc faults: unchecked labels applied")
+    check(server["frames_v2"] == meters["wire_messages"] == stats.tickets_issued
+          and server["asks_served"] == stats.tickets_issued and server["frame_errors"] == 0,
+          f"rpc faults: server {server} against client {meters} and {stats.summary()}")
+    return {k: getattr(stats, k) for k in ("queries_issued", "labels_applied", "queries_lost",
+                                           "tickets_lost", "queries_dropped")} | {
+        "scrapes": scrapes, "server": {k: server[k] for k in ("frames_v2", "asks_served",
+                                                              "frame_errors", "loss_prob",
+                                                              "jitter_s")},
+        "client": meters, "spans": len(tel.tracer.spans())}
+
+
+def _rpc_mux(cfg, ticks, device, n_out, n_tenants=RPC_MUX_TENANTS):
+    """6h part 3: ``n_tenants`` tenants, each a block of the fleet's rows
+    (4,096 at S=16,384), fused ``rr``, ``train_phase``, through
+    ``rpc_bench.run_once`` against a subprocess server, over each transport:
+    one shared batched connection, one v2 connection per tenant, and the
+    shared connection with zlib envelopes.  Every tenant reconciles and
+    every applied label is checked."""
+    from repro_torch.benchmarks import rpc_bench
+    from repro_torch.engine import rpc
+
+    width = ticks.shape[1] // n_tenants
+    data = [ticks[:RPC_MUX_TICKS, i * width:(i + 1) * width] for i in range(n_tenants)]
+    res = {}
+    for name, transport, compress in (("batched", "batched", False),
+                                      ("per_tenant", "per_tenant", False),
+                                      ("batched_zlib", "batched", True)):
+        checks = []
+
+        def wrap(inner, checks=checks):
+            checks.append(_LabelCheck(inner, n_out))
+            return checks[-1]
+
+        secs, results, msgs, nbytes, server = rpc_bench.run_once(
+            transport, cfg, data, device, timeout_s=120.0,
+            window_s=rpc.DEFAULT_BATCH_WINDOW_S, batch_max=rpc.DEFAULT_BATCH_MAX,
+            compress=compress, wrap=wrap, subprocess_server=True)
+        for tenant, r in results.items():
+            check(r.stats.labels_applied > 0, f"rpc mux {name} {tenant}: {r.stats.summary()}")
+        labels = sum(r.stats.labels_applied for r in results.values())
+        queries = sum(r.stats.queries_issued for r in results.values())
+        check(labels == sum(c.checked for c in checks), f"rpc mux {name}: unchecked labels")
+        check(server["asks_served"] == sum(r.stats.tickets_issued for r in results.values()),
+              f"rpc mux {name}: {server}")
+        res[name] = {
+            "wire_messages": msgs, "wire_bytes": nbytes, "bytes_per_query": nbytes / queries,
+            "messages_per_label": msgs / labels, "labels_applied": labels,
+            "raw_bytes_in": server["raw_bytes_in"],
+            "compressed_bytes_in": server["compressed_bytes_in"],
+            "frames_compressed": server["frames_compressed"],
+            "stream_ticks_per_s": n_tenants * width * RPC_MUX_TICKS / secs}
+    return res
+
+
+class _ShapeLog:
+    """While active, notes the shape of every call of the path kernels'
+    wrappers in ``kernels.ops`` (eager launches and graph captures alike),
+    keyed as phases 2-4 key their cases; ``missing`` names those phases
+    2-4 did not hold against the plain versions."""
+
+    KEYS = {
+        "xorshift_projection": lambda a, out: (math.prod(a[0].shape[:-1]), a[0].shape[-1],
+                                               out.shape[-1]),
+        "oselm_rls_update_fleet": lambda a, out: (a[0].shape[0], a[0].shape[1], a[2].shape[1],
+                                                  a[1].shape[2]),
+        "readout": lambda a, out: tuple(a[1].shape),
+        "row_abs_mean": lambda a, out: (math.prod(a[0].shape[:-1]), a[0].shape[-1]),
+    }
+    HELD = {"xorshift_projection": K1_SHAPES, "oselm_rls_update_fleet": K2_SHAPES,
+            "readout": READOUT_SHAPES, "row_abs_mean": ROW_MEAN_SHAPES}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.shapes = {name: set() for name in self.KEYS}
+        self._saved = {name: getattr(ops, name) for name in self.KEYS}
+        for name, key in self.KEYS.items():
+            setattr(ops, name, self._logged(self._saved[name], key, self.shapes[name]))
+        return self
+
+    @staticmethod
+    def _logged(fn, key, into):
+        def logged(*a, **kw):
+            out = fn(*a, **kw)
+            into.add(key(a, out))
+            return out
+        return logged
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for name, fn in self._saved.items():
+            setattr(ops, name, fn)
+
+    def missing(self):
+        return {name: sorted(got - set(self.HELD[name]))
+                for name, got in self.shapes.items() if got - set(self.HELD[name])}
+
+
+def _telemetry_overhead(device="cuda", n_streams=FLEET_STREAMS, blocks=RPC_OVERHEAD_BLOCKS,
+                        block_ticks=RPC_OVERHEAD_BLOCK_TICKS):
+    """6h part 4: 6e's graphed zero-latency window (ticks on the card, three
+    ticks capture the graphs first), its timed ticks in ``blocks`` blocks of
+    ``block_ticks`` with telemetry off and on in turns (off, on, off, ...),
+    so both halves share one session, its graphs and its card.  Returns the
+    ms per tick of every block and the median and best of each half."""
+    import statistics
+
+    from repro_torch import engine
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+    from repro_torch.engine import stream
+    from repro_torch.runtime import telemetry
+
+    cfg = har_odl.full()
+    n_ticks = blocks * block_ticks
+    xs, ys = _fleet_ticks(har.generate(seed=SEED), n_ticks + 4, n_streams, n_ticks + 4, device,
+                          SEED + 5)
+    teacher = stream.LatencyTeacher(stream.array_labels(ys.cpu().numpy()))
+    sess = stream.StreamSession(engine.init_fleet(cfg, n_streams, device), cfg, teacher,
+                                mode="train_phase")
+    off, on = [], []
+    spans = 0
+    try:
+        telemetry.disable()
+        sess.start(xs[0])
+        for t in range(1, 4):
+            sess.advance(xs[t])
+        t = 4
+        for b in range(blocks):
+            tel = telemetry.enable() if b % 2 else None
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(block_ticks):
+                sess.advance(xs[t])
+                t += 1
+            _sync(device)
+            (on if tel is not None else off).append(1e3 * (time.perf_counter() - t0) / block_ticks)
+            if tel is not None:
+                spans += sum(1 for s in tel.tracer.spans() if s[0] == "stream.tick")
+                telemetry.disable()
+        sess.advance(None)
+        sess.finish()
+    finally:
+        telemetry.disable()
+    check(spans == len(on) * block_ticks, f"telemetry: {spans} stream.tick spans in "
+                                          f"{len(on) * block_ticks} instrumented ticks")
+    # The host cost of one tick's instrumentation alone (the span ``advance``
+    # records), which the windows above cannot resolve under their spread.
+    tracer = telemetry.SpanTracer()
+    n = 100_000
+    t0 = time.perf_counter()
+    for i in range(n):
+        tok = tracer.begin("stream.tick")
+        tracer.end(tok, t=i, queries=n_streams)
+    span_us = 1e6 * (time.perf_counter() - t0) / n
+    med_off, med_on = statistics.median(off), statistics.median(on)
+    return {"off_ms": off, "on_ms": on, "median_off_ms": med_off, "median_on_ms": med_on,
+            "best_off_ms": min(off), "best_on_ms": min(on), "overhead_ms": med_on - med_off,
+            "overhead_pct": 100.0 * (med_on - med_off) / med_off,
+            "best_overhead_pct": 100.0 * (min(on) - min(off)) / min(off),
+            "span_us": span_us, "span_pct": 100.0 * span_us / 1e3 / med_off,
+            "budget_pct": TELEMETRY_BUDGET_PCT}
+
+
+def phase_rpc(ticks, device="cuda", cfg=None):
+    """6h: the teacher over a real loopback socket (see the module
+    docstring).  ``ticks`` are 6c's ``algo1`` ticks, host arrays."""
+    from repro_torch.benchmarks import rpc_bench
+    from repro_torch.configs import har_odl
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import ops
+
+    cfg = cfg or har_odl.full()
+    n_out = cfg.elm.n_out
+    card = _card() if device == "cuda" else "cpu"
+    lines = []
+    with _ShapeLog() as shapes:
+        res = {"streams": _rpc_teacher_runs(cfg, ticks, device, n_out)}
+        res["faults"] = _rpc_faults(cfg, ticks, device, n_out)
+        res["mux"] = _rpc_mux(cfg, ticks, device, n_out)
+        _sync(device)
+        res["launches"] = dict(ops.launch_counts)
+        res["kernel_replays"] = dict(graphs.kernel_replays)
+        # The bench's launches and replays, counted from 0 on their own.
+        graphs.reset_replay_counts()
+        ops.reset_launch_counts()
+        res["bench"] = rpc_bench.bench(device, log=lines.append, **RPC_BENCH)
+        _sync(device)
+        res["bench_launches"] = dict(ops.launch_counts)
+        res["bench_replays"] = dict(graphs.kernel_replays)
+        n_streams = ticks.shape[1]
+        res["telemetry_overhead"] = _telemetry_overhead(device, n_streams)
+    for name in PAPER_KERNELS:
+        for what, launches, replays in (("path", "launches", "kernel_replays"),
+                                         ("bench", "bench_launches", "bench_replays")):
+            check(device != "cuda" or res[launches][name] + res[replays][name] > 0,
+                  f"rpc {what}: {name} ran neither eagerly nor by a replay")
+    res["shapes"] = {name: sorted(got) for name, got in shapes.shapes.items()}
+    check(not shapes.missing(), f"rpc: kernels called at shapes phases 2-4 did not hold: "
+                                f"{shapes.missing()}")
+    s = res["streams"]
+    print(f"rpc (6h, S={n_streams}, n_in={cfg.elm.n_in}, N={cfg.elm.n_hidden}, v2 over loopback) "
+          f"on {card}: {json.dumps(res)}")
+    print(f"  rpc_bit_for_bit: {str(s['train_phase']['bit_for_bit'] and s['algo1']['bit_for_bit']).lower()}"
+          f" (train_phase {s['train_phase']['asks']} asks, algo1 {s['algo1']['asks']} asks); "
+          f"ask frame {s['train_phase']['ask_frame_bytes']} bytes; per ask (train_phase): "
+          f"D2H {s['train_phase']['d2h_ms']} ms, encode {s['train_phase']['encode_ms']} ms, "
+          f"round trip {s['train_phase']['round_trip_ms']} ms; unwrapped "
+          f"{s['unwrapped']['stream_ticks_per_s']:.1f} stream·ticks/s ({card})")
+    f = res["faults"]
+    print(f"  faults: issued {f['queries_issued']} = applied {f['labels_applied']} + lost "
+          f"{f['queries_lost']} + dropped {f['queries_dropped']}; identity at "
+          f"{sorted(f['scrapes'])}; server frames {f['server']['frames_v2']} = client messages "
+          f"{f['client']['wire_messages']} ({card})")
+    for transport, m in res["mux"].items():
+        print(f"  mux {transport:>12}: {m['wire_messages']} msgs, {m['bytes_per_query']:.1f} "
+              f"B/query, {m['messages_per_label']:.6f} msg/label, raw/compressed in "
+              f"{m['raw_bytes_in']}/{m['compressed_bytes_in']}, "
+              f"{m['stream_ticks_per_s']:.1f} stream·ticks/s ({card})")
+    for line in lines:
+        print(f"  bench {line} ({card})")
+    print(f"  kernel shapes on 6h's path, each held in phases 2-4: {res['shapes']}")
+    o = res["telemetry_overhead"]
+    print(f"  telemetry overhead: {o['overhead_ms']:.4f} ms per tick "
+          f"({o['overhead_pct']:.2f} % against a {o['budget_pct']} % budget; median off "
+          f"{o['median_off_ms']:.4f} ms, on {o['median_on_ms']:.4f} ms over "
+          f"{len(o['off_ms'])} blocks each of {RPC_OVERHEAD_BLOCK_TICKS} ticks, in turns; best "
+          f"{o['best_off_ms']:.4f} against {o['best_on_ms']:.4f} ms); one tick's span alone "
+          f"{o['span_us']:.3f} us on the host ({o['span_pct']:.4f} % of a tick) ({card})")
+    return res
+
+
 def _device_ms(fn, reps=20, rounds=3):
     """Device time of one call of ``fn``: CUDA events around a batch of
     calls, the median of ``rounds`` batches.  A sleep kernel keeps the card
@@ -1872,6 +2337,31 @@ def phase_times(device="cuda"):
     return rows
 
 
+def _rpc_unwrapped_rate(device="cuda"):
+    """``--time-port``: stream·ticks/s of 6h's unwrapped run (the fleet's
+    16 train_phase ticks over a loopback socket), behind a warm-up run."""
+    from repro_torch import engine
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+    from repro_torch.engine import rpc, stream
+
+    cfg = har_odl.full()
+    xs, _ = _fleet_ticks(har.generate(seed=SEED), RPC_TRAIN_TICKS, FLEET_STREAMS, ALGO1_SHIFT_AT,
+                         "cpu", SEED + ALGO1_TICKS)
+    xs = xs.numpy()
+    rate = None
+    with rpc.loopback_server(n_out=cfg.elm.n_out) as (host, port):
+        for n in (4, len(xs)):
+            with rpc.RpcTeacher(host, port, timeout_s=120.0) as teacher:
+                state = engine.init_fleet(cfg, FLEET_STREAMS, device)
+                _sync(device)
+                t0 = time.perf_counter()
+                stream.run(state, iter(xs[:n]), cfg, teacher, mode="train_phase")
+                _sync(device)
+                rate = FLEET_STREAMS * n / (time.perf_counter() - t0)
+    return rate
+
+
 def time_port(root: Path, device="cuda") -> dict:
     """``--time-port``: the same measurements for the port at ``root``,
     through its public entry points, so that two checkouts are timed by one
@@ -1908,6 +2398,12 @@ def time_port(root: Path, device="cuda") -> dict:
         _run_mux([(xs[:4], ys[:4]) for xs, ys in inputs], cfg, device)
         out["multiplex_fused_stream_ticks_per_s"] = _run_mux(inputs, cfg, device)[1].steps_per_s
         del inputs
+    # Phase 6h's first run without the sync wrapper: 16 train_phase ticks of
+    # the fleet taught over a loopback socket; null where the checkout has no
+    # teacher transport.
+    out["rpc_stream_ticks_per_s"] = None
+    if importlib.util.find_spec("repro_torch.engine.rpc") is not None:
+        out["rpc_stream_ticks_per_s"] = _rpc_unwrapped_rate(device)
     wall_ms, events = _profile_window(device)
     kernels = {e.key[:80]: e.self_device_time_total / 1e3 / PROFILE_TICKS for e in events}
     out["profiled_tick_wall_ms"] = wall_ms
@@ -1955,7 +2451,9 @@ def main(argv=None) -> int:
     stream_prof = phase_stream_profile(eager, fleet)
     mux, mux_solo, mux_inputs = phase_multiplex(stream_prof)
     durable = phase_durable(policy_runs, ticks, labels, mux_solo, mux_inputs)
-    del policy_runs, ticks, labels, mux_solo, mux_inputs
+    del policy_runs, labels, mux_solo, mux_inputs
+    rpc_res = phase_rpc(ticks)
+    del ticks
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -2008,6 +2506,13 @@ def main(argv=None) -> int:
             # restored, migrated and supervised sessions and cohorts.
             "durable_replays": durable["kernel_replays"].get(name, 0),
             "durable_launches": durable["launches"].get(name, 0),
+            # The teacher over the wire (phase 6h): eager launches and graph
+            # replays of the RPC-taught sessions and cohorts.
+            "rpc_launches": rpc_res["launches"].get(name, 0),
+            "rpc_replays": rpc_res["kernel_replays"].get(name, 0),
+            # 6h's rpc_bench at the reference's shape, counted on its own.
+            "rpc_bench_launches": rpc_res["bench_launches"].get(name, 0),
+            "rpc_bench_replays": rpc_res["bench_replays"].get(name, 0),
             # The paper's tables (phase 5b): eager launches, both widths.
             "paper_launches": paper["launches"].get(name, 0),
             "paper_max_abs_err": paper["errs"].get(name),

@@ -7,7 +7,21 @@ replay as CUDA graphs on the card through ``graphs.py``), cohort fusion
 durability (``snapshot.py``: snapshot/restore of a live session and its wire
 frame; ``durable.py``: the single-session durable runner and the
 kill-and-resume smoke, ``python -m repro_torch.engine.durable
---crash-smoke``).  RPC and sharding are not ported yet.
+--crash-smoke``) and the teacher transport (``rpc.py`` on ``wire.py``).
+Sharding is not ported yet.
+
+Teachers over the wire: ``engine.rpc.RpcTeacher`` speaks the
+``stream.Teacher`` protocol over a real TCP socket with timeout -> loss;
+``engine.rpc.BatchedRpcClient`` shares one such connection across all
+tenants of a teacher host, coalescing asks that land within a flush window
+into single length-prefixed binary frames (v2; v1 newline JSON and the zlib
+envelope stay supported) and demuxing replies to per-tenant
+``BatchedRpcTeacher`` handles; ``multiplex.shared_rpc_teachers`` dedups
+endpoints into shared clients.  ``engine.rpc.LabelServer`` is the bundled
+label server (``python -m repro_torch.engine.rpc``).  The wire is the JAX
+package's byte for byte, so clients and servers of the two packages talk
+to each other.  ``rpc`` and ``durable`` are leaves with a CLI, kept out of
+the package import so ``python -m`` runs them cleanly.
 
 ``EngineState`` (``types.py``) carries a leading stream axis S on every leaf::
 
@@ -65,6 +79,6 @@ from .scalar import (  # noqa: F401,E402
 )
 
 # The runtime's modules, as in the JAX package (fleet imports first;
-# ``durable`` is a leaf with a CLI, kept out of the package import so
-# ``python -m repro_torch.engine.durable`` stays clean).
+# ``durable`` and ``rpc`` are leaves with a CLI, kept out of the package
+# import so ``python -m repro_torch.engine.<leaf>`` stays clean).
 from repro_torch.engine import cohort, multiplex, snapshot, stream  # noqa: E402,F401

@@ -42,8 +42,9 @@ buffers, so they drop the cohort's graphs and the next tick captures new
 ones.  A member keeps its own session buffers and graphs while fused; its
 ``session.state`` is stale then, and ``detach`` / ``refresh`` copy its rows
 back into the session's current buffers, so the session's graphs stay
-valid.  The ``cohort.tick`` telemetry span is not ported (telemetry waits
-for the port of the runtime's telemetry).
+valid.  Each ``tick`` is one ``cohort.tick`` telemetry span (``members=``,
+``s=``, ``detached=``), begun and ended on the host around the stacked
+replays, never inside a capture.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine import fleet, stream
+from repro_torch.runtime import telemetry as _telemetry
 
 _COL_KEYS = ("pred", "outputs", "queried", "theta", "confidence", "mode_training")
 
@@ -181,6 +183,8 @@ class CohortSession:
         actually advanced a tick (False for the all-start first tick).
         """
         t0 = time.perf_counter()
+        tel = _telemetry.TELEMETRY
+        tok = tel.tracer.begin("cohort.tick") if tel is not None else None
         members = list(self.members)
         if len(nxts) != len(members):
             raise ValueError(f"{len(nxts)} next ticks for {len(members)} members")
@@ -318,6 +322,8 @@ class CohortSession:
                 st.tick_rate_ema = (
                     rate if st.tick_rate_ema == 0.0
                     else st.tick_rate_ema + stream.TICK_RATE_EMA_ALPHA * (rate - st.tick_rate_ema))
+        if tok is not None:
+            tel.tracer.end(tok, members=len(members), s=self.total, detached=len(detached))
         return detached, bool(ticking)
 
     # -- internals ---------------------------------------------------------

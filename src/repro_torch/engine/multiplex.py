@@ -61,10 +61,16 @@ Usage::
                          backpressure="coalesce"),
     ], sched="drr", snapshot_dir="/var/ckpt", snapshot_every=1000)
 
-Not ported here, and absent from the signatures: the shared RPC teacher
-connections (``shared_rpc_teachers``), and telemetry (``sync_telemetry``,
-the ``cohort.pack`` / ``cohort.dissolve`` events, the ``migrate.extract`` /
-``migrate.admit`` spans and the scheduler's meters).
+Teachers over the wire: ``shared_rpc_teachers`` gives each tenant a
+``stream.Teacher`` handle on one shared ``rpc.BatchedRpcClient`` per teacher
+endpoint (``engine/rpc.py``), so tenants of one host share one socket, one
+handshake and batched frames.
+
+Telemetry (``runtime/telemetry.py``): ``admit`` and ``extract`` are the
+``migrate.admit`` / ``migrate.extract`` spans, forming and dissolving a
+cohort the ``cohort.pack`` / ``cohort.dissolve`` events, each round counts
+``odl_mux_rounds`` and its stream-step debits, and ``sync_telemetry``
+mirrors every tenant's ``StreamStats`` (labelled by tenant name) at scrapes.
 """
 
 from __future__ import annotations
@@ -83,6 +89,7 @@ from repro_torch.engine import snapshot as snapshot_mod
 from repro_torch.engine import stream
 from repro_torch.engine.types import EngineConfig, EngineState, FleetStepOutput
 from repro_torch.runtime import fault
+from repro_torch.runtime import telemetry as _telemetry
 from repro_torch.runtime.checkpoint import CheckpointManager
 
 SCHEDULERS = ("rr", "drr")
@@ -131,6 +138,56 @@ class Tenant:
     collect: bool = True
     donate: Optional[bool] = None
     device: Optional[str] = None
+
+
+def shared_rpc_teachers(
+    endpoints,
+    timeout_s: float = 5.0,
+    connect_timeout_s: float = 5.0,
+    secret: Optional[str] = None,
+    batch_window_s: Optional[float] = None,
+    batch_max: Optional[int] = None,
+    compress: bool = False,
+):
+    """Per-tenant teachers over shared batched RPC connections.
+
+    ``endpoints[i]`` is tenant i's ``(host, port)``; tenants with the same
+    endpoint share one ``rpc.BatchedRpcClient``: one socket per teacher
+    host, one HMAC handshake per connection (not per tenant), and every
+    tenant's asks coalesced into batched frames within the flush window.
+    Returns ``(teachers, clients)``: ``teachers[i]`` is tenant i's
+    ``stream.Teacher`` handle, ``clients`` the deduplicated connections
+    (close them, not the handles, when the run is done).  If a later
+    endpoint cannot be dialled, the clients already built are closed before
+    the error propagates.
+    """
+    from repro_torch.engine import rpc  # deferred: keep `python -m ...engine.rpc` clean
+
+    if batch_window_s is None:
+        batch_window_s = rpc.DEFAULT_BATCH_WINDOW_S
+    if batch_max is None:
+        batch_max = rpc.DEFAULT_BATCH_MAX
+    clients: dict = {}
+    teachers = []
+    try:
+        for i, (host, port) in enumerate(endpoints):
+            key = (host, int(port))
+            client = clients.get(key)
+            if client is None:
+                client = clients[key] = rpc.BatchedRpcClient(
+                    host, int(port), timeout_s=timeout_s, connect_timeout_s=connect_timeout_s,
+                    secret=secret, batch_window_s=batch_window_s, batch_max=batch_max,
+                    compress=compress,
+                )
+            teachers.append(client.tenant(name=f"tenant{i}"))
+    except BaseException:
+        # The clients already built own sockets and reader/flusher threads
+        # that would otherwise outlive the call.
+        for client in clients.values():
+            with contextlib.suppress(Exception):
+                client.close()
+        raise
+    return teachers, list(clients.values())
 
 
 class TenantResult(NamedTuple):
@@ -241,6 +298,8 @@ class _Slot:
                 collect=tenant.collect,
                 donate=tenant.donate,
             )
+        # Telemetry series for this tenant key on its name.
+        self.session.telemetry_labels = {"tenant": tenant.name}
         # Tick cost for the deficit scheduler = this tenant's stream count.
         self.s = int(self.session.state.elm.count.shape[0])
         self.deficit = 0.0
@@ -477,6 +536,8 @@ class Multiplexer:
         cursor (the iterator ``extract`` returned, not a fresh source)."""
         if any(s.tenant.name == tenant.name for s in self._slots):
             raise ValueError(f"tenant name {tenant.name!r} already admitted")
+        tel = _telemetry.TELEMETRY
+        tok = tel.tracer.begin("migrate.admit") if tel is not None else None
         slot = _Slot(
             tenant,
             manager=self._manager_for(tenant.name),
@@ -489,6 +550,9 @@ class Multiplexer:
         self._slots.append(slot)
         self._live.append(slot)
         self.agg.n_tenants = len(self._slots)
+        if tok is not None:
+            tel.tracer.end(tok, tenant=tenant.name, restored=snapshot is not None)
+            tel.registry.count("odl_mux_admits")
 
     def _slot(self, name: str) -> _Slot:
         for s in self._slots:
@@ -539,6 +603,22 @@ class Multiplexer:
             })
         return out
 
+    def sync_telemetry(self) -> None:
+        """Mirror every tenant's ``StreamStats`` (live sessions and finished
+        results alike) into the enabled registry, and the tenant count.
+        Called by live scrapes and end-of-run reports; no-op when telemetry
+        is off, never on the per-tick path."""
+        tel = _telemetry.TELEMETRY
+        if tel is None:
+            return
+        for slot in self._slots:
+            if slot.result is not None:
+                _telemetry.sync_stream_stats(tel.registry, slot.result.stats, pending=0,
+                                             tenant=slot.tenant.name)
+            else:
+                slot.session.sync_telemetry()
+        tel.registry.gauge("odl_mux_tenants", len(self._slots))
+
     def extract(self, name: str, quiesce_ticks: int = 4096):
         """Live-migrate a tenant out: snapshot its session and remove it from
         this scheduler.
@@ -561,6 +641,8 @@ class Multiplexer:
         through a ``CheckpointManager`` and reopen a seekable source at
         ``snapshot.ticks_consumed(tree)``.
         """
+        tel = _telemetry.TELEMETRY
+        tok = tel.tracer.begin("migrate.extract") if tel is not None else None
         slot = self._slot(name)
         if slot.result is not None:
             raise ValueError(f"tenant {name!r} already finished; nothing to migrate")
@@ -584,6 +666,9 @@ class Multiplexer:
         if slot in self._live:
             self._live.remove(slot)
         self.agg.n_tenants = len(self._slots)
+        if tok is not None:
+            tel.tracer.end(tok, tenant=name, t=slot.session.t)
+            tel.registry.count("odl_mux_extracts")
         return tree, slot.it
 
     # -- scheduling --------------------------------------------------------
@@ -636,6 +721,11 @@ class Multiplexer:
                     self._live.remove(s)
                 self._live.insert(idx, unit)
                 self._cohorts[key] = unit
+                tel = _telemetry.TELEMETRY
+                if tel is not None:
+                    tel.tracer.event("cohort.pack", members=len(slots), s=unit.s,
+                                     tenants=",".join(s.tenant.name for s in slots))
+                    tel.registry.count("odl_mux_cohorts_packed")
 
     def _step_unit(self, u, n_ticks: int) -> list:
         """Step one scheduler unit; returns the units live after it (the unit
@@ -649,6 +739,10 @@ class Multiplexer:
                 out.append(u)
             else:
                 self._cohorts = {k: un for k, un in self._cohorts.items() if un is not u}
+                tel = _telemetry.TELEMETRY
+                if tel is not None:
+                    tel.tracer.event("cohort.dissolve", released=len(released))
+                    tel.registry.count("odl_mux_cohorts_dissolved")
             for r in released:
                 r.deficit = 0.0
                 if r.draining and not self.drain:
@@ -667,6 +761,7 @@ class Multiplexer:
         self.agg.rounds += 1
         if self.fuse:
             self._form_cohorts()
+        units = list(self._live)  # the round's units, for the debit meter below
         nxt = []
         if self.sched == "drr":
             # Credit is sized by the smallest ticking tenant: a tenant that is
@@ -687,6 +782,14 @@ class Multiplexer:
             for u in self._live:
                 nxt.extend(self._step_unit(u, self.quantum))
         self._live = nxt
+        tel = _telemetry.TELEMETRY
+        if tel is not None:
+            # Scheduler meters: rounds, and the stream-step debits this round
+            # charged (ticks × each unit's S: the DRR deficit currency; under
+            # rr the same product measures the round's device work).
+            tel.registry.count("odl_mux_rounds")
+            tel.registry.count("odl_mux_quantum_debits", sum(u.last_ticks * u.s for u in units))
+            tel.registry.gauge("odl_mux_live_units", len(self._live))
         return bool(self._live)
 
     def run(self) -> tuple[dict[str, TenantResult], MultiplexStats]:

@@ -53,8 +53,10 @@ holds either way.
 Published atomically through ``runtime/checkpoint.py``.
 ``engine/durable.py`` drives a single durable session; the multiplexer
 (``engine/multiplex.py``) wires per-tenant snapshots, resume and live
-migration on top.  The ``snapshot.save`` / ``snapshot.restore`` telemetry
-spans are not ported (telemetry waits for its own port).
+migration on top.  ``capture`` is one ``snapshot.save`` telemetry span and
+``restore`` one ``snapshot.restore`` span (``runtime/telemetry.py``).  The
+load signals (``tick_rate_ema``, ``ring_occupancy_hwm``) ride the snapshot;
+the registry and the trace ring are process-local and never do.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from repro_torch import convert, resolve_device
 from repro_torch.engine import fleet, stream, wire
 from repro_torch.engine.types import EngineConfig, EngineState
 from repro_torch.runtime import checkpoint as ckpt_mod
+from repro_torch.runtime import telemetry as _telemetry
 from repro_torch.runtime.checkpoint import to_host
 
 SNAPSHOT_VERSION = 1
@@ -213,6 +216,8 @@ def capture(sess: "stream.StreamSession") -> dict:
     if sess.live is not None:
         raise ValueError("a session with dead padding rows (live < S) cannot be snapshot: "
                          "the snapshot format does not carry live")
+    tel = _telemetry.TELEMETRY
+    tok = tel.tracer.begin("snapshot.save") if tel is not None else None
     stats = sess.stats
     wall_s = stats.wall_s
     if sess._t_start is not None:
@@ -257,6 +262,8 @@ def capture(sess: "stream.StreamSession") -> dict:
     if sess.collect and sess._cols["pred"]:
         tree["collected"] = {k: np.stack(v) for k, v in sess._cols.items()}
         tree["collected"]["trained"] = np.stack(sess._trained_rows)
+    if tok is not None:
+        tel.tracer.end(tok, t=sess.t, ring=len(tree["ring"]), **sess.telemetry_labels)
     return tree
 
 
@@ -298,6 +305,8 @@ def restore(
     if meta["version"] != SNAPSHOT_VERSION:
         raise ValueError(f"snapshot version {meta['version']} != supported {SNAPSHOT_VERSION}")
     device = resolve_device(device)
+    tel = _telemetry.TELEMETRY
+    tok = tel.tracer.begin("snapshot.restore") if tel is not None else None
     if cfg is None:
         cfg = convert.engine_config_from_dict(meta["cfg"])
     sess = stream.StreamSession(
@@ -373,6 +382,8 @@ def restore(
         for k in sess._cols:
             sess._cols[k] = [np.array(row) for row in np.asarray(col[k])]
         sess._trained_rows = [np.array(row) for row in np.asarray(col["trained"])]
+    if tok is not None:
+        tel.tracer.end(tok, t=sess.t, ring=len(entries), pending=pending)
     return sess
 
 

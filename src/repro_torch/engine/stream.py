@@ -46,7 +46,11 @@ Durability: ``StreamSession.snapshot`` / ``StreamSession.restore``
 (``engine/snapshot.py``) capture a live session into host memory the
 snapshot owns and rebuild it on a device of the caller's choosing.
 
-Not ported here: the telemetry hooks and the sharded session.
+Telemetry (``runtime/telemetry.py``): ``advance`` is one ``stream.tick``
+span (``t=``, ``queries=``) begun and ended on the host, outside any graph
+capture; a ring eviction is a ``ring.evict`` event; ``sync_telemetry``
+mirrors ``StreamStats`` into the registry at ``finish()`` and at live
+scrapes, from host integers only.  Not ported here: the sharded session.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from repro_torch.engine.types import (
     tree_leaves,
     tree_map,
 )
+from repro_torch.runtime import telemetry as _telemetry
 
 # Safety bound on drain polling: a broken Teacher that reports in-flight
 # tickets forever must not hang the runtime.
@@ -762,6 +767,8 @@ class StreamSession:
         assert p is not None, "advance() before start()"
         t = self.t
         t0 = time.perf_counter()
+        tel = _telemetry.TELEMETRY
+        tok = tel.tracer.begin("stream.tick") if tel is not None else None
         if nxt is not None:
             nxt = self.ship(nxt)
         queried_host = p.queried.cpu().numpy()  # the host waits for tick t here
@@ -807,6 +814,8 @@ class StreamSession:
             )
         self.t += 1
         self._x, self._p = nxt, p_next
+        if tok is not None:
+            tel.tracer.end(tok, t=t, queries=n_q, **self.telemetry_labels)
 
     def drain_replies(
         self,
@@ -861,6 +870,15 @@ class StreamSession:
         n += sum(int(d.queried.sum()) for d in self._deferred)
         return n
 
+    def sync_telemetry(self) -> None:
+        """Mirror this session's ``StreamStats`` into the enabled registry
+        (no-op when telemetry is off).  Called at ``finish()`` and by live
+        scrapes, never on the per-tick path; reads host integers only."""
+        tel = _telemetry.TELEMETRY
+        if tel is not None:
+            _telemetry.sync_stream_stats(tel.registry, self.stats, pending=self.pending_queries(),
+                                         **self.telemetry_labels)
+
     def _poll_and_apply(self) -> list[TeacherReply]:
         replies = self.teacher.poll(self.t)
         for reply in replies:
@@ -890,6 +908,7 @@ class StreamSession:
         self._deferred.clear()
         if self._t_start is not None:
             self.stats.wall_s += time.perf_counter() - self._t_start
+        self.sync_telemetry()
         outs = None
         if self.collect and self._cols["pred"]:
             outs = FleetStepOutput(
@@ -949,6 +968,10 @@ class StreamSession:
         if dropped is not None:
             self.stats.tickets_dropped += 1
             self.stats.queries_dropped += int(dropped.queried.sum())
+            tel = _telemetry.TELEMETRY
+            if tel is not None:
+                tel.tracer.event("ring.evict", t=t, evicted_tick=dropped.tick,
+                                 queries=int(dropped.queried.sum()), **self.telemetry_labels)
 
     def _submit(self, x, queried: np.ndarray, p, t: int) -> None:
         """Route one tick's decided queries through the backpressure policy."""
