@@ -13,7 +13,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the card, including the generated alpha itself;
 4. the RLS update against its plain version on the card, through both
    routes: the single pass (kernels 2 and 3: the fleet entry and the
-   one-head entry) and the two-stage route; masked streams exact;
+   one-head entry) and the two-stage route; masked streams exact; then the
+   plan's per-stream pass (``csrc/plan_rows.cu``) against
+   ``ref.plan_rows_ref`` fed the kernel's own readout and feature mean, bit
+   for bit in every output and leaf, in ``algo1``, ``serve`` and
+   ``train_phase`` at every ``PLAN_SHAPES`` entry, and its reduced instances
+   alone (the readout, the feature mean) within 1e-5;
 5. the paper path: S=1, N=128, ``run_training_phase`` with theta=1 and the
    auto ladder, held to ``tests/test_odl_system.py``'s claims;
 5b. the paper's tables: ``repro_torch.benchmarks.paper_tables`` on the card,
@@ -24,8 +29,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal the port's models, Tables 2-3 and Fig 3 must meet
    ``tests/test_odl_system.py``'s claims, the trial run twice must give the
    same result, two trials must agree with the CPU (accuracy within 1 pt,
-   comm within 2 pts), and the projection, the readout and the single-pass
-   RLS (one per tick) must have launched at both widths.  Before it, the
+   comm within 2 pts), and the projection, the plan's pass and the
+   single-pass RLS (one per tick) must have launched at both widths.  Before it, the
    kernels are held against their plain versions at the path's own shapes
    (one stream a tick; the boot's and the accuracy sets' batches);
 6. the fleet path: ``har_odl.full()`` at S=16,384 streams, ``train_phase``
@@ -33,7 +38,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    counts show both kernels ran, and the accounting identities hold;
    then a small fleet run on the card and on the CPU must agree, and a
    profiler window shows where a tick's device time goes (the RLS update
-   must be one kernel per tick there);
+   must be one kernel per tick there); 6b also lists the CUDA kernels of
+   one eager ``plan`` per mode, which must be the projection and the
+   plan's pass and nothing else;
 6c. the stream path: the same fleet through ``stream.run`` with the runners
    replayed as CUDA graphs and ticks shipped from host memory; with a
    zero-latency teacher it must equal ``run_fleet`` bit for bit, then
@@ -41,8 +48,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    keep the query accounting exact;
 6d. a small stream run with latency on the card and on the CPU must agree
    (decisions and counters equal);
-6e. a profiler window over graphed stream ticks: one projection and one RLS
-   kernel per tick, and where the tick's device and host time go;
+6e. a profiler window over graphed stream ticks: one projection, one RLS
+   kernel and one plan pass per tick, and where the tick's device and host
+   time go;
 6f. the multiplexer: 16 tenants of 1024 streams (the fleet's 16,384 when
    stacked) through ``multiplex.run``, ``train_phase`` on HAR rows, a late,
    lossy teacher per tenant, the four policies four tenants each, 12
@@ -51,7 +59,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``drr``, unfused ``rr`` and each tenant solo through ``stream.run`` must
    give every tenant bit-for-bit the same result, with exact accounting.
    Before that, one plan and one learn on 16 stacked members must equal
-   each member's own at member widths 1, 3 and 1024; after it, a window of
+   each member's own at member widths 1, 3 and 1024, and one plan at width
+   3 with N=33, m=7 (N m odd, rows at every alignment); after it, a window of
    fused cohort ticks must replay one projection and one RLS kernel per
    tick for the whole cohort (and a profiler window gives its busy share);
 6g. durability at the same width: each policy's 6c ``algo1`` run is
@@ -86,7 +95,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    be one phases 2-4 held against the plain version;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
-   N=256 (S=16,384, P 4 GiB).
+   N=256 (S=16,384, P 4 GiB); the plan's pass in ``algo1`` (reads x) and
+   ``train_phase`` (reads no x), and its reduced instances alone.
 
 The line before the last is the ``kernels`` JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
 of the repository, it exits non-zero and prints no result.
@@ -98,8 +108,9 @@ this script's timing code and prints one JSON line: the card, the device
 time of the projection and of the whole RLS update at the fleet shape,
 fleet ``train_phase`` stream-ticks per second after a warm-up, the same
 for the graphed stream path, for the fused multiplexer of phase 6f and for
-6h's unwrapped session over the wire (each null for a checkout without it), and the profiled tick (wall, device time
-per kernel, busy share).  To compare two checkouts, run it for both in
+6h's unwrapped session over the wire, one paper drift trial's seconds and
+the graphed stream tick's device ms (each null for a checkout without it),
+and the profiled eager tick (wall, device time per kernel, busy share).  To compare two checkouts, run it for both in
 turns on one card (A, B, B, A).
 """
 
@@ -135,7 +146,7 @@ STREAM_CHECK = dict(n_streams=256, n_ticks=48, latency=3, jitter=2, capacity=4)
 # its path calls a kernel at a shape these lists do not hold.
 K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 128),
              (130, 100, 72), (1, 16, 16), (4096, 561, 128), (64, 64, 64), (256, 64, 64),
-             (FLEET_STREAMS, 561, 256)]
+             (48, 561, 33), (3, 561, 33), (FLEET_STREAMS, 561, 256)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
              (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (FLEET_STREAMS, 256, 1, 6)]
 # Phase 7 also times the projection and the RLS update at N=256 (the
@@ -147,20 +158,32 @@ K1_N256, K2_N256 = K1_SHAPES[-1], K2_SHAPES[-1]
 PAPER_TRIALS = 1
 PAPER_CROSS = (("hash", 256), ("base", 128))
 PAPER_WIDTHS = (128, 256)
-PAPER_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet", "readout")
+PAPER_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet", "plan_rows")
 # Shapes the single pass does not take go to the two-stage route.
 K2_EXTRA_SHAPES = [(64, 384, 1, 6), (4, 64, 64, 3)]
 K3_SHAPE = (128, 16, 6)  # one head: N, k, m
 TWO_STAGE_SHAPE = (64, 384, 1, 6)
 # The kernels the fleet path launches every tick (``ops.launch_counts`` keys),
-# by mode: the drift detector's feature mean runs only where the detector does.
-PATH_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet", "readout", "row_abs_mean")
-MODE_KERNELS = {"train_phase": PATH_KERNELS[:3], "algo1": PATH_KERNELS}
-# The per-stream row kernels against their plain versions: (S, N, m) of the
-# readout, (S, n) of the feature mean; the first of each is the fleet's.
+# in every mode: the projection, the RLS update and the plan's per-stream pass.
+PATH_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet", "plan_rows")
+MODE_KERNELS = {"train_phase": PATH_KERNELS, "algo1": PATH_KERNELS}
+PLAN_MODES = ("algo1", "serve", "train_phase")
+# The plan's per-stream pass against its plain version, (S, N, m, n_in), in
+# every mode; the first is the fleet's.  Every shape of READOUT_SHAPES with
+# m >= 2 is here, with 6h's (4,096 rows; rpc_bench's 64 and 256 at
+# n_in = N = 64), the paper path's (one stream at N = 128 and 256), 6d's
+# and 6f's, and 6f's odd cohort (N m = 231: rows at every alignment).
+PLAN_SHAPES = [(FLEET_STREAMS, 128, 6, 561), (1, 128, 6, 561), (3, 16, 4, 24), (130, 33, 7, 100),
+               (4096, 128, 6, 561), (64, 64, 6, 64), (256, 64, 6, 64), (1, 256, 6, 561),
+               (256, 128, 6, 561), (1024, 128, 6, 561), (48, 128, 6, 561), (16, 128, 6, 561),
+               (3, 128, 6, 561), (3, 33, 7, 561), (48, 33, 7, 561)]
+# Its reduced instances alone against theirs: (S, N, m) of the readout, (S,
+# n) of the feature mean; the first of each is the fleet's.
 READOUT_SHAPES = [(FLEET_STREAMS, 128, 6), (1, 128, 6), (3, 16, 4), (1024, 100, 1), (130, 33, 7),
                   (4096, 128, 6), (64, 64, 6), (256, 64, 6)]
 ROW_MEAN_SHAPES = [(FLEET_STREAMS, 561), (1, 561), (3, 24), (130, 100)]
+# Phase 6f's cohort at an odd N m: 16 members of 3 streams, N = 33, m = 7.
+ODD_COHORT = dict(width=3, n_members=16, n_hidden=33, n_out=7)
 # Phase 6f, the multiplexer: 16 tenants of 1024 streams stack to the fleet's
 # 16,384; 12 run 32 ticks and 4 run 24, and one more of 32 ticks is admitted
 # after round 2.
@@ -358,16 +381,113 @@ def phase_kernel2(device="cuda"):
     return errs
 
 
+def _plan_inputs(s, n, m, n_in, device, gen):
+    """A config of (n_in, N, m) and the plan pass's inputs for ``s`` streams
+    drawn on the card: h, beta (some rows with tied outputs), x, and
+    prune, drift and meter states and counts at the controllers' edges (the
+    detector's boot steps and warm-up, the ladder's ends, ``min_trained``),
+    a partly available teacher and a forced-drift mask."""
+    import torch
+
+    from repro_torch.core import drift as drift_mod
+    from repro_torch.core import labels, oselm, pruning
+    from repro_torch.engine.types import EngineConfig
+
+    cfg = EngineConfig(elm=oselm.OSELMConfig(n_in=n_in, n_hidden=n, n_out=m))
+    pc, dc, i32 = cfg.prune, cfg.drift, torch.int32
+
+    def pick(values):
+        v = torch.tensor(values, device=device)
+        return v[torch.randint(0, len(values), (s,), generator=gen, device=device)]
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (s,), generator=gen, device=device, dtype=i32)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=device)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    beta = randn(s, n, m) * pick([0.01, 0.3, 3.0])[:, None, None]
+    tied = rand(s) < 0.2
+    beta[tied, :, 1] = beta[tied, :, 0]
+    lv = len(pc.ladder)
+    return cfg, dict(
+        h=torch.sigmoid(randn(s, n)), beta=beta,
+        x=2.0 * randn(s, n_in) * pick([0.1, 1.0, 6.0])[:, None],
+        count=pick([0, pc.min_trained - 1, pc.min_trained, 10 ** 6]).to(i32),
+        prune=pruning.PruneState(ints(-1, lv + 1), ints(0, pc.x_consec + 1), ints(0, 500),
+                                 ints(0, 500), ints(0, 400)),
+        drift=drift_mod.DriftState(
+            randn(s) * pick([0.0, 1e-6, 1.0]), randn(s).abs() * pick([1e-14, 1e-3, 1.0]),
+            pick([0, 1, 7, 8, 9, dc.warmup - 1, dc.warmup, 10 ** 4]).to(i32),
+            ints(0, dc.enter_hits + 1), ints(0, dc.exit_calm + 1), rand(s) < 0.4),
+        meter=labels.CommMeter(ints(0, 1000).float() * (n_in * 4), ints(0, 1000).float()),
+        teacher_available=rand(s) < 0.75, drift_active=rand(s) < 0.3)
+
+
+def _hold_plan_rows(shape, device, gen):
+    """The fused pass at (S, N, m, n_in) in every mode, with and without a
+    teacher mask, against ``ref.plan_rows_ref`` fed the kernel's own readout
+    and feature mean: every output and leaf bit for bit; the readout and the
+    feature mean themselves against ``ref.readout_ref`` and
+    ``ref.row_abs_mean_ref`` (f32 sums in another order): the readout within
+    1e-5 (1 + sum |h beta|) per output, the feature mean at rtol and atol
+    1e-5.  Returns the largest absolute error of the two."""
+    import torch
+
+    from repro_torch.engine.types import tree_leaves
+    from repro_torch.kernels import plan_rows, ref
+
+    s = shape[0]
+    cfg, args = _plan_inputs(*shape, device, gen)
+    err = 0.0
+    for mode in PLAN_MODES:
+        for avail in (args["teacher_available"], None):
+            kw = dict(args, teacher_available=avail)
+            a = (torch.empty(s, device=device) if mode != "train_phase" else None)
+            got = plan_rows.plan_rows(**kw, cfg=cfg, mode=mode, feature_mean=a)
+            want = ref.plan_rows_ref(**kw, cfg=cfg, mode=mode, o=got.outputs, a=a)
+            differ = [f for f, g, w in zip(got._fields, got, want)
+                      if any(x.dtype != y.dtype or not torch.equal(x, y)
+                             for x, y in zip(tree_leaves(g), tree_leaves(w)))]
+            check(not differ, f"plan_rows {mode} {shape}: {differ} differ from the plain version")
+            # f32 sums in another order: within 1e-5 of the sum of the terms'
+            # magnitudes (beta reaches 3 here, so o cancels), plus 1e-5.
+            h, beta, x = args["h"], args["beta"], args["x"]
+            scale = (h.abs()[:, :, None] * beta.abs()).sum(1)
+            gap = (got.outputs - ref.readout_ref(h, beta)).abs()
+            check(bool((gap <= 1e-5 * (1.0 + scale)).all()),
+                  f"plan_rows {mode} {shape}: readout |err| {gap.max().item()} beyond 1e-5 of "
+                  "the terms' magnitudes")
+            err = max(err, gap.max().item())
+            if a is not None:
+                e = (a - ref.row_abs_mean_ref(x)).abs().max().item()
+                check(torch.allclose(a, ref.row_abs_mean_ref(x), rtol=1e-5, atol=1e-5),
+                      f"plan_rows {mode} {shape}: feature mean |err| {e} beyond rtol and atol "
+                      "1e-5")
+                err = max(err, e)
+    return err
+
+
 def phase_kernel_rows(device="cuda"):
-    """The readout and feature-mean kernels vs ``ref.readout_ref`` and
-    ``ref.row_abs_mean_ref`` on the card (rtol and atol 1e-5: f32 sums of
-    up to 561 terms in another order)."""
+    """Phase 4, the plan's per-stream pass: the fused kernel against
+    ``ref.plan_rows_ref`` at every ``PLAN_SHAPES`` entry (``_hold_plan_rows``),
+    and its reduced instances alone, the readout and the feature mean,
+    against ``ref.readout_ref`` and ``ref.row_abs_mean_ref`` (rtol and atol
+    1e-5: f32 sums of up to 561 terms in another order)."""
     import torch
 
     from repro_torch.kernels import ops, ref
 
+    held = {(s, n, m) for s, n, m, _ in PLAN_SHAPES}
+    check(all(sh in held for sh in READOUT_SHAPES if sh[2] >= 2),
+          "a readout shape with m >= 2 is not held by the fused pass")
     g = _gen(device, SEED + 7)
-    errs = {}
+    errs = {"plan_rows": _hold_plan_rows(PLAN_SHAPES[0], device, g)}
+    for shape in PLAN_SHAPES[1:]:
+        _hold_plan_rows(shape, device, g)
     cases = [("readout", shape) for shape in READOUT_SHAPES]
     cases += [("row_abs_mean", shape) for shape in ROW_MEAN_SHAPES]
     for name, shape in cases:
@@ -387,8 +507,11 @@ def phase_kernel_rows(device="cuda"):
               f"{name} {shape}: max |err| {err} beyond rtol and atol 1e-5")
         if shape in (READOUT_SHAPES[0], ROW_MEAN_SHAPES[0]):
             errs[name] = err
-    print(f"row kernels: readout {len(READOUT_SHAPES)} shapes, fleet |err| {errs['readout']:.3e}; "
-          f"row_abs_mean {len(ROW_MEAN_SHAPES)} shapes, fleet |err| {errs['row_abs_mean']:.3e}")
+    print(f"plan rows (phase 4): the fused pass bit for bit against ref.plan_rows_ref in "
+          f"{', '.join(PLAN_MODES)} at {len(PLAN_SHAPES)} shapes, fleet readout and feature "
+          f"mean |err| {errs['plan_rows']:.3e}; readout alone {len(READOUT_SHAPES)} shapes, "
+          f"fleet |err| {errs['readout']:.3e}; feature mean alone {len(ROW_MEAN_SHAPES)} "
+          f"shapes, fleet |err| {errs['row_abs_mean']:.3e}")
     return errs
 
 
@@ -449,13 +572,13 @@ def _paper_kernels_vs_plain(batches, device="cuda"):
     """The paper path's kernel calls at its own shapes against their plain
     versions on the card: the projection at every batch it is given (the
     boot's training set, the two accuracy sets and one row a tick), and the
-    RLS update and the readout at one stream a tick."""
+    RLS update and the plan's pass at one stream a tick."""
     import torch
 
     from repro_torch.kernels import ops, ref
 
     g = _gen(device, SEED + 5)
-    errs = {"xorshift_projection": 0.0, "oselm_rls_update_fleet": 0.0, "readout": 0.0}
+    errs = {"xorshift_projection": 0.0, "oselm_rls_update_fleet": 0.0, "plan_rows": 0.0}
     for n in PAPER_WIDTHS:
         for b in batches:
             x = 0.3 * torch.randn(b, 561, generator=g, device=device)
@@ -471,10 +594,7 @@ def _paper_kernels_vs_plain(batches, device="cuda"):
         eb = (b_got - b_want).abs().max().item()
         check(ep <= 2e-5 and eb <= 2e-4, f"paper RLS S=1 N={n}: P err {ep}, beta err {eb}")
         errs["oselm_rls_update_fleet"] = max(errs["oselm_rls_update_fleet"], ep, eb)
-        h = torch.sigmoid(torch.randn(1, n, generator=g, device=device))
-        err = (ops.readout(h, b_want) - ref.readout_ref(h, b_want)).abs().max().item()
-        check(err <= 1e-5, f"paper readout 1x{n}x6: err {err} > 1e-5")
-        errs["readout"] = max(errs["readout"], err)
+        errs["plan_rows"] = max(errs["plan_rows"], _hold_plan_rows((1, n, 6, 561), device, g))
     return errs
 
 
@@ -484,8 +604,8 @@ def phase_paper_tables(device="cuda"):
     row is printed beside the paper's value; the analytic rows must equal
     the port's models, the drift rows must meet ``tests/test_odl_system.py``'s
     claims, a trial run twice must give the same result, two trials must
-    agree with the same trials on the CPU, and the projection, the readout
-    and the single-pass RLS must have launched at both widths.  Returns the
+    agree with the same trials on the CPU, and the projection, the plan's
+    pass and the single-pass RLS must have launched at both widths.  Returns the
     launches and the kernels' errors at the path's shapes."""
     from repro_torch.benchmarks import common, paper_tables
     from repro_torch.core import memory_model as mm
@@ -790,9 +910,48 @@ def _profile_window(device="cuda", n_streams=FLEET_STREAMS, n_ticks=PROFILE_TICK
                                and e.self_device_time_total > 0]
 
 
+def _plan_kernels(device="cuda", n_streams=FLEET_STREAMS):
+    """The CUDA kernels one eager ``fleet.plan`` launches at the fleet width,
+    by mode (``algo1`` also with a teacher mask, and ``gate``), and one
+    eager ``fleet.learn`` (key ``learn``), each under ``torch.profiler``
+    after a warm-up call: {call: {kernel: launches}}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import engine
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+    from repro_torch.engine import fleet
+
+    cfg = har_odl.full()
+    xs, _ = _fleet_ticks(har.generate(seed=SEED), 1, n_streams, 1, device, SEED + 6)
+    x, state = xs[0], engine.init_fleet(cfg, n_streams, device)
+    avail = torch.arange(n_streams, device=device) % 3 != 0
+    calls = {mode: (lambda mode=mode: fleet.plan(state, x, cfg, mode=mode)) for mode in PLAN_MODES}
+    calls["algo1 (teacher mask)"] = lambda: fleet.plan(state, x, cfg, "algo1", avail)
+    calls["gate"] = lambda: fleet.gate(state, x, cfg)
+    # The other half of the tick, for the record: one learn of every stream.
+    _, p = fleet.plan(state, x, cfg, mode="train_phase")
+    labels = (torch.arange(n_streams, device=device) % cfg.elm.n_out).to(torch.int32)
+    calls["learn"] = lambda: fleet.learn(state, p.h, labels, p.pred, p.confidence, p.queried,
+                                         p.controller_on, cfg, theta=p.theta)
+    out = {}
+    for name, call in calls.items():
+        call()
+        _sync(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            _sync(device)
+        out[name] = {e.key: e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.count > 0}
+    return out
+
+
 def phase_profile(device="cuda", n_streams=FLEET_STREAMS, n_ticks=PROFILE_TICKS):
-    """Where a fleet tick's time goes, and a check that the RLS update is
-    one kernel per tick there."""
+    """6b: where a fleet tick's time goes, a check that the RLS update is
+    one kernel per tick there, and the CUDA kernels of one eager ``plan``
+    by mode: the projection and the plan's pass, nothing else."""
     wall_ms, events = _profile_window(device, n_streams, n_ticks)
     rows = sorted(((e.self_device_time_total / 1e3 / n_ticks, e.key) for e in events),
                   reverse=True)
@@ -814,7 +973,20 @@ def phase_profile(device="cuda", n_streams=FLEET_STREAMS, n_ticks=PROFILE_TICKS)
           f"({100 * busy / wall_ms:.1f} % of wall)")
     for ms, name in rows[:10]:
         print(f"  {ms:8.4f} ms/tick  {100 * ms / busy:5.1f} %  {name[:90]}")
-    return {"wall_ms": wall_ms, "device_ms": busy}
+    plan_kernels = _plan_kernels(device, n_streams)
+    learn_kernels = plan_kernels.pop("learn")
+    for mode, kernels in plan_kernels.items():
+        check(sorted(kernels.values()) == [1, 1]
+              and any("proj_kernel" in k for k in kernels)
+              and any("plan_rows_kernel" in k for k in kernels),
+              f"profile: an eager plan ({mode}) launched {kernels}, not the projection and the "
+              "plan's pass alone")
+    shown = {c: {k[:70]: n for k, n in ks.items()} for c, ks in plan_kernels.items()}
+    print(f"  CUDA kernels per eager plan call (S={n_streams}), by mode: {json.dumps(shown)}")
+    print(f"  CUDA kernels per eager learn call (S={n_streams}, every stream learns): "
+          f"{sum(learn_kernels.values())} launches of {len(learn_kernels)} kernels")
+    return {"wall_ms": wall_ms, "device_ms": busy, "plan_kernels": plan_kernels,
+            "learn_launches": sum(learn_kernels.values())}
 
 
 def _run_stream_once(cfg, ticks, labels, mode, device, teacher_kw=None, **kw):
@@ -1036,7 +1208,7 @@ def phase_stream_profile(eager, fleet, device="cuda", n_streams=FLEET_STREAMS,
     wall_ms, prof = _stream_window(device, n_streams, n_ticks, profiled=True)
     events = prof.key_averages()
     dev = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    for kernel in ("proj_kernel", "rls_single_kernel", "readout_kernel"):
+    for kernel in ("proj_kernel", "rls_single_kernel", "plan_rows_kernel"):
         hits = [e for e in dev if kernel in e.key]
         check(len(hits) == 1 and hits[0].count == n_ticks,
               f"stream profile: {kernel} ran {[e.count for e in hits]} times in {n_ticks} "
@@ -1051,7 +1223,7 @@ def phase_stream_profile(eager, fleet, device="cuda", n_streams=FLEET_STREAMS,
           f"{wall_ms:.3f} ms/tick wall profiled, {unprofiled_ms:.3f} unprofiled; device "
           f"{busy:.3f} ms/tick ({100 * busy / wall_ms:.1f} % of the profiled wall, "
           f"{100 * busy / unprofiled_ms:.1f} % of the unprofiled); one proj_kernel, one "
-          f"rls_single_kernel and one readout_kernel per tick")
+          f"rls_single_kernel and one plan_rows_kernel per tick")
     print(f"  unprofiled without the collect pulls: {no_collect_ms:.3f} ms/tick "
           f"({100 * busy / no_collect_ms:.1f} % busy)")
     print(f"  eager fleet tick beside it: {eager_ms:.3f} ms unprofiled (phase 6), "
@@ -1065,10 +1237,13 @@ def phase_stream_profile(eager, fleet, device="cuda", n_streams=FLEET_STREAMS,
             "no_collect_ms": no_collect_ms}
 
 
-def _stacked_rows_differ(cfg, width, n_members, device, seed):
+def _stacked_rows_differ(cfg, width, n_members, device, seed, learn=True):
     """One ``algo1`` plan and one learn on ``n_members`` stacked members of
     ``width`` streams and on each member alone (heads warmed by two learns
-    first): the plan fields and state leaves whose rows differ."""
+    first): the plan fields and state leaves whose rows differ.  Without
+    ``learn``: random heads, two plans to step the detectors, then the plan
+    alone is compared (for shapes whose RLS update takes the two-stage
+    route, whose torch operands are not held to this)."""
     import torch
 
     from repro_torch import engine
@@ -1076,27 +1251,35 @@ def _stacked_rows_differ(cfg, width, n_members, device, seed):
     from repro_torch.engine.types import tree_map
 
     g = _gen(device, seed)
-    total, m = width * n_members, cfg.elm.n_out
+    total, m, n_in = width * n_members, cfg.elm.n_out, cfg.elm.n_in
     st = engine.init_fleet(cfg, total, device)
+    if not learn:
+        beta = 0.3 * torch.randn(st.elm.beta.shape, generator=g, device=device)
+        st = st._replace(elm=st.elm._replace(beta=beta))
     for _ in range(2):
-        st, p = fleet.plan(st, torch.randn(total, cfg.elm.n_in, generator=g, device=device), cfg,
-                           mode="train_phase")
-        lab = torch.randint(0, m, (total,), generator=g, device=device).to(torch.int32)
-        st = fleet.learn(st, p.h, lab, p.pred, p.confidence, p.queried, p.controller_on, cfg,
-                         theta=p.theta)
-    x = 2.0 * torch.tanh(torch.randn(total, cfg.elm.n_in, generator=g, device=device))
+        x = torch.randn(total, n_in, generator=g, device=device)
+        st, p = fleet.plan(st, x, cfg, mode="train_phase" if learn else "algo1")
+        if learn:
+            lab = torch.randint(0, m, (total,), generator=g, device=device).to(torch.int32)
+            st = fleet.learn(st, p.h, lab, p.pred, p.confidence, p.queried, p.controller_on, cfg,
+                             theta=p.theta)
+    x = 2.0 * torch.tanh(torch.randn(total, n_in, generator=g, device=device))
     lab = torch.randint(0, m, (total,), generator=g, device=device).to(torch.int32)
     mask = torch.rand(total, generator=g, device=device) < 0.7
-    new, p = fleet.plan(st, x, cfg, mode="algo1")
-    after = fleet.learn(new, p.h, lab, p.pred, p.confidence, mask, p.controller_on, cfg,
-                        theta=p.theta)
+
+    def tick(state, x, lab, mask):
+        new, p = fleet.plan(state, x, cfg, mode="algo1")
+        if learn:
+            new = fleet.learn(new, p.h, lab, p.pred, p.confidence, mask, p.controller_on, cfg,
+                              theta=p.theta)
+        return new, p
+
+    after, p = tick(st, x, lab, mask)
     differ = set()
     for i in range(n_members):
         lo, hi = i * width, (i + 1) * width
-        new_i, p_i = fleet.plan(tree_map(lambda a: a[lo:hi].clone(), st), x[lo:hi].clone(), cfg,
-                                mode="algo1")
-        after_i = fleet.learn(new_i, p_i.h, lab[lo:hi].clone(), p_i.pred, p_i.confidence,
-                              mask[lo:hi].clone(), p_i.controller_on, cfg, theta=p_i.theta)
+        after_i, p_i = tick(tree_map(lambda a: a[lo:hi].clone(), st), x[lo:hi].clone(),
+                            lab[lo:hi].clone(), mask[lo:hi].clone())
         differ |= {f"plan.{f}" for f in p._fields
                    if not torch.equal(getattr(p, f)[lo:hi], getattr(p_i, f))}
         differ |= {f"state.{name}" for (name, a), (_, b) in zip(_state_leaves(after),
@@ -1257,6 +1440,15 @@ def phase_multiplex(stream_prof, device="cuda"):
         differ = _stacked_rows_differ(cfg, w, 16, device, SEED + w)
         res["stacked_rows_differ"][str(w)] = differ
         check(not differ, f"16 stacked members of width {w}: rows differ from solo in {differ}")
+    # An odd N m (each beta, h and x row at another 16-byte alignment than
+    # its neighbours'); the plan alone (N = 33 takes the two-stage RLS route).
+    odd = har_odl.full(n_hidden=ODD_COHORT["n_hidden"])
+    odd = dataclasses.replace(odd, elm=odd.elm.replace(n_out=ODD_COHORT["n_out"]))
+    w = ODD_COHORT["width"]
+    differ = _stacked_rows_differ(odd, w, ODD_COHORT["n_members"], device, SEED + 33, learn=False)
+    key = f"{w} (N={ODD_COHORT['n_hidden']}, m={ODD_COHORT['n_out']}, plan)"
+    res["stacked_rows_differ"][key] = differ
+    check(not differ, f"odd cohort {key}: rows differ from solo in {differ}")
 
     inputs = _mux_inputs(device)
     solo = []
@@ -1918,11 +2110,13 @@ class _ShapeLog:
                                                out.shape[-1]),
         "oselm_rls_update_fleet": lambda a, out: (a[0].shape[0], a[0].shape[1], a[2].shape[1],
                                                   a[1].shape[2]),
+        "plan_rows": lambda a, out: (*a[1].shape, a[2].shape[-1]),
         "readout": lambda a, out: tuple(a[1].shape),
         "row_abs_mean": lambda a, out: (math.prod(a[0].shape[:-1]), a[0].shape[-1]),
     }
     HELD = {"xorshift_projection": K1_SHAPES, "oselm_rls_update_fleet": K2_SHAPES,
-            "readout": READOUT_SHAPES, "row_abs_mean": ROW_MEAN_SHAPES}
+            "plan_rows": PLAN_SHAPES, "readout": READOUT_SHAPES,
+            "row_abs_mean": ROW_MEAN_SHAPES}
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -2294,11 +2488,47 @@ def phase_times(device="cuda"):
         bound_ms=bound_ms,
         bound_by=bound_by,
     ))
-    # The row kernels at the fleet shape: h and beta of a tick, and x.
-    s, n, m = READOUT_SHAPES[0]
-    gen = _gen(device, SEED + 8)
-    h = torch.sigmoid(torch.randn(s, n, generator=gen, device=device))
-    beta = 0.1 * torch.randn(s, n, m, generator=gen, device=device)
+    # The plan's per-stream pass at the fleet shape, in its two byte classes:
+    # algo1 reads x for the drift feature mean, train_phase reads no x. The
+    # teacher is always available (no mask), as in run_fleet.
+    s, n, m, n_in = PLAN_SHAPES[0]
+    cfg, args = _plan_inputs(s, n, m, n_in, device, _gen(device, SEED + 8))
+    args["teacher_available"] = args["drift_active"] = None
+    x = _cycling_x(device, s, n_in)
+    h, beta = args["h"], args["beta"]
+
+    def nbytes(*trees):
+        from repro_torch.engine.types import tree_leaves
+
+        return float(sum(t.numel() * t.element_size() for t in tree_leaves(trees)
+                         if t is not None))
+
+    fused = {}
+    for mode in ("algo1", "train_phase"):
+        def kernel(mode=mode):
+            return plan_rows.plan_rows(**dict(args, x=x()), cfg=cfg, mode=mode)
+
+        def plain(mode=mode):
+            return ref.plan_rows_ref(**dict(args, x=x()), cfg=cfg, mode=mode)
+
+        r = kernel()
+        reads = nbytes(h, beta, args["count"], args["prune"], args["drift"], args["meter"])
+        if mode == "algo1":
+            reads += nbytes(args["x"])
+        writes = nbytes(tuple(r[:7]), r.prune, r.meter) + (
+            nbytes(r.drift) if mode == "algo1" else 0.0)
+        ops_ = 2.0 * s * n * m + (2.0 * s * n_in if mode == "algo1" else 0.0)
+        fused[mode] = dict(
+            ms=_device_ms(kernel), plain_ms=_device_ms(plain, reps=PLAIN_REPS),
+            bytes=reads + writes,
+            **dict(zip(("bound_ms", "bound_by"), _bound(flops=ops_, nbytes=reads + writes))))
+    rows.append(dict(
+        name="plan_rows", **fused["algo1"], library_ms=None,
+        library="none (no one call computes the pass; readout and feature mean alone below)",
+        train_phase=fused["train_phase"],
+    ))
+    # Its reduced instances alone: the readout (h and beta of a tick) and the
+    # feature mean (x).
     rows.append(dict(
         name="readout",
         ms=_device_ms(lambda: plan_rows.readout(h, beta)),
@@ -2308,24 +2538,26 @@ def phase_times(device="cuda"):
         **dict(zip(("bound_ms", "bound_by"), _bound(
             flops=2.0 * s * n * m, nbytes=4.0 * (s * n + s * n * m + s * m)))),
     ))
-    del h, beta
-    s, n = ROW_MEAN_SHAPES[0]
-    x = _cycling_x(device, s, n)
     rows.append(dict(
         name="row_abs_mean",
         ms=_device_ms(lambda: plan_rows.row_abs_mean(x())),
         plain_ms=_device_ms(lambda: ref.row_abs_mean_ref(x())),
-        library_ms=None,
-        library="none (no single call; the plain version is abs, then mean)",
-        **dict(zip(("bound_ms", "bound_by"), _bound(flops=2.0 * s * n,
-                                                     nbytes=4.0 * (s * n + s)))),
+        library_ms=_device_ms(lambda: torch.mean(x().abs(), -1)),
+        library="torch.mean(x.abs(), -1)",
+        **dict(zip(("bound_ms", "bound_by"), _bound(flops=2.0 * s * n_in,
+                                                     nbytes=4.0 * (s * n_in + s)))),
     ))
-    del x
+    del h, beta, x, args
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ({r['library']}), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f} % of it reached)")
+    t = rows[-3]["train_phase"]
+    print(f"time plan_rows in train_phase (no x): kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+          f"{100 * t['bound_ms'] / t['ms']:.1f} % of it reached); bytes per call: algo1 "
+          f"{rows[-3]['bytes']:.0f}, train_phase {t['bytes']:.0f}")
     print(f"time the two-stage route at the fleet shape: {rows[1]['two_stage_ms']:.4f} ms")
     for r in rows[:2]:
         w = r["n256"]
@@ -2404,6 +2636,25 @@ def time_port(root: Path, device="cuda") -> dict:
     out["rpc_stream_ticks_per_s"] = None
     if importlib.util.find_spec("repro_torch.engine.rpc") is not None:
         out["rpc_stream_ticks_per_s"] = _rpc_unwrapped_rate(device)
+    # One drift trial of the paper's tables (1,008 one-stream eager ticks at
+    # N=128, theta=1) behind a warm-up trial; null without the harness.
+    out["paper_trial_s"] = None
+    if importlib.util.find_spec("repro_torch.benchmarks.common") is not None:
+        from repro_torch.benchmarks import common
+
+        common.drift_trial(0, 1.0, 128, "hash", 0, device)
+        t0 = time.perf_counter()
+        common.drift_trial(1, 1.0, 128, "hash", 0, device)
+        out["paper_trial_s"] = time.perf_counter() - t0
+    # The graphed stream tick's device time (6e's profiled window).
+    out["stream_tick_device_ms"] = None
+    if importlib.util.find_spec("repro_torch.engine.stream") is not None:
+        from torch.autograd import DeviceType
+
+        _, prof = _stream_window(device, profiled=True)
+        out["stream_tick_device_ms"] = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA) / 1e3 / PROFILE_TICKS
     wall_ms, events = _profile_window(device)
     kernels = {e.key[:80]: e.self_device_time_total / 1e3 / PROFILE_TICKS for e in events}
     out["profiled_tick_wall_ms"] = wall_ms
@@ -2476,8 +2727,13 @@ def main(argv=None) -> int:
             source=rls_src, replaces="src/repro/kernels/oselm_update.py:172",
             max_abs_err=err2["rls_two_stage"],
         ),
-        # Not ports of a Pallas kernel: the port's plan ops whose CUDA kernels
-        # split a row's sum by S (the reference computes them in XLA).
+        # Not ports of a Pallas kernel: the plan's per-stream pass after the
+        # projection (the reference computes it in XLA ops), and its two
+        # reduced instances alone, on no path of the engine.
+        "plan_rows": dict(
+            source=rows_src, replaces="src/repro/engine/fleet.py:151",
+            max_abs_err=err_rows["plan_rows"],
+        ),
         "readout": dict(
             source=rows_src, replaces="src/repro/engine/fleet.py:133",
             max_abs_err=err_rows["readout"],
@@ -2525,6 +2781,8 @@ def main(argv=None) -> int:
             "library": t["library"],
             # Phase 7 at N=256 (the paper's Tables 2-3 width), where timed.
             "n256": t.get("n256"),
+            # The plan's pass in train_phase (no x read), where timed.
+            "train_phase": t.get("train_phase"),
             "ok": True,
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -57,11 +57,13 @@ def init_state(device: str | torch.device | None = None) -> DriftState:
     )
 
 
-def score(x: torch.Tensor, outputs: torch.Tensor, cfg: DriftConfig) -> torch.Tensor:
-    """Drift score; x: (..., n_in), outputs: (..., m) -> score (...,)."""
+def score(x: torch.Tensor, outputs: torch.Tensor, cfg: DriftConfig,
+          feature_mean: torch.Tensor | None = None) -> torch.Tensor:
+    """Drift score; x: (..., n_in), outputs: (..., m) -> score (...,).
+    ``feature_mean``: mean(|x|) over the last axis, where already computed."""
     parts = []
     if cfg.use_features:
-        parts.append(ops.row_abs_mean(x))
+        parts.append(ops.row_abs_mean(x) if feature_mean is None else feature_mean)
     if cfg.use_confidence:
         top2 = torch.topk(outputs, 2, dim=-1).values
         parts.append(-(top2[..., 0] - top2[..., 1]))  # low confidence -> high score

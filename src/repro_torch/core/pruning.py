@@ -142,6 +142,12 @@ def update(
     )
 
 
+def select(cond: torch.Tensor, a: PruneState, b: PruneState) -> PruneState:
+    """Per-stream choice between two fleet states: ``a``'s rows where
+    ``cond`` (S,) holds, else ``b``'s."""
+    return PruneState(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+
+
 def comm_volume_fraction(state: PruneState) -> torch.Tensor:
     """Queries / (queries + skips) — Fig. 3's communication-volume metric."""
     total = state.queries + state.skips

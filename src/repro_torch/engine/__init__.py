@@ -31,8 +31,9 @@ the package import so ``python -m`` runs them cleanly.
     ├── drift: DriftState   mean/var/steps/hits/calm/active (S,)
     └── meter: CommMeter    up_bytes/down_bytes (S,)
 
-One tick is ``plan`` (projection kernel, readout, confidence, drift, query
-decision, comm meter) then ``learn`` (fused RLS kernel + auto-theta ladder);
+One tick is ``plan`` (projection kernel, then one per-stream pass for the
+readout, confidence, drift, query decision and comm meter) then ``learn``
+(fused RLS kernel + auto-theta ladder);
 ``fleet_step`` composes them and ``run_fleet`` loops it over T ticks.
 ``gate``/``apply_labels`` are the serving split.  The S=1 view (``step``,
 ``run_training_phase``, ``run_stream``, ``accuracy``) lives in ``scalar.py``;

@@ -8,8 +8,10 @@ Design rules, as in the JAX engine:
     (S,) tensors unchanged;
   * the device-heavy work is one (S, n_in) hidden projection per tick (the
     projection kernel) and one masked rank-1 RLS update per tick (the fused
-    RLS kernel), plus the per-stream readout (S, N) x (S, N, m) (the readout
-    kernel, one warp per stream, so a row's output does not depend on S);
+    RLS kernel); the rest of the plan (readout, confidence, drift detector,
+    query decision, meter) is one per-stream pass (``ops.plan_rows``), each
+    row summed in an order fixed by the shapes, so a row's output does not
+    depend on S;
   * one tick is split at the teacher round-trip: ``plan`` (predict, drift,
     query decision, comm metering) and ``learn`` (masked rank-1 RLS + the
     auto-theta controller observing answered queries).  ``fleet_step`` is
@@ -23,7 +25,6 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.core import drift as drift_mod
 from repro_torch.core import labels as labels_mod
 from repro_torch.core import oselm, pruning
 from repro_torch.engine.types import (
@@ -68,9 +69,9 @@ def stream_slice(state: EngineState, s: int) -> EngineState:
 # axis, so one plan/learn dispatch advances all of them.  Every op of plan and
 # learn computes a row in an order that does not depend on S: the projection
 # has no split over n_in, the RLS kernel works on one stream per block, the
-# readout and the drift feature mean give a stream one warp, and their CPU
-# versions are made alike (``kernels/ops``).  So row r of a stacked dispatch
-# is bit for bit row r of the solo dispatch.
+# plan's per-stream pass sums a row in an order fixed by the shapes, and
+# their CPU versions are made alike (``kernels/ops``).  So row r of a
+# stacked dispatch is bit for bit row r of the solo dispatch.
 
 
 def stack_streams(states: list[EngineState]) -> EngineState:
@@ -118,15 +119,6 @@ def _patch_learn_runner(cfg: EngineConfig, lo: int, hi: int, donate: bool):
     return run_patch
 
 
-def _tree_where(cond: torch.Tensor, a, b):
-    """Per-stream select between two states of (S,)-leading leaves."""
-    return tree_map(
-        lambda x, y: torch.where(cond.reshape(cond.shape + (1,) * (x.dim() - cond.dim())), x, y),
-        a,
-        b,
-    )
-
-
 def _predict(state: EngineState, x: torch.Tensor, cfg: EngineConfig):
     """Fleet predict: hidden projection once, then the per-stream readout."""
     h = oselm.hidden(x, cfg.elm)  # (S, N)
@@ -155,86 +147,39 @@ def plan(
     mode: str = "algo1",
     teacher_available: Optional[torch.Tensor] = None,  # (S,) bool
     drift_active: Optional[torch.Tensor] = None,  # (S,) bool (train_phase only)
+    out: Optional[EngineState] = None,
 ) -> tuple[EngineState, PlanOutput]:
     """Teacher-facing half of one tick: predict → confidence → drift →
     should_query, charge the comm meter for issued queries, and account the
     pruning ladder's SKIP events (streams the controller observes but that
     do not query — their transition needs no label).
 
-    ``elm`` passes through untouched.  Queried streams' ladder transitions
-    wait for ``learn``.  The meter charges every *issued* query here, while
-    ``prune.queries`` counts only *answered* ones (incremented in ``learn``).
+    The projection kernel, then one per-stream pass for the rest
+    (``ops.plan_rows``; its plain version ``ref.plan_rows_ref`` spells the
+    steps out).  ``elm`` passes through untouched.  Queried streams' ladder
+    transitions wait for ``learn``.  The meter charges every *issued* query
+    here, while ``prune.queries`` counts only *answered* ones (incremented
+    in ``learn``).  ``out``: a state whose prune, drift and meter buffers
+    the new leaves are written into (``engine/stream.py``'s other buffer
+    set).
     """
     if mode not in MODES:
         raise ValueError(f"unknown engine mode {mode!r}")
-    n_streams = x.shape[0]
-    dev = x.device
-    if teacher_available is None:
-        teacher_available = torch.ones((n_streams,), dtype=torch.bool, device=dev)
-    off = torch.zeros((n_streams,), dtype=torch.bool, device=dev)
-
-    h, c, o = _predict(state, x, cfg)
-    conf = pruning.confidence(o)
-
-    if mode == "serve":
-        # ``gate`` semantics: live drift detector, a drifting stream is
-        # forced to query, the controller is always armed, no training-mode
-        # gating — so plan(mode='serve') + learn == gate + apply_labels.
-        s = drift_mod.score(x, o, cfg.drift)
-        new_drift = drift_mod.update(state.drift, s, cfg.drift)
-        training = torch.ones((n_streams,), dtype=torch.bool, device=dev)
-        prune_st = state.prune
-        want_query = pruning.should_query(
-            prune_st, o, state.elm.count, new_drift.active, cfg.prune
-        )
-        queried = want_query & teacher_available
-        controller_on = teacher_available
-    elif mode == "algo1":
-        # IsDrift / IsTrainDone: per-stream detector with hysteresis.
-        s = drift_mod.score(x, o, cfg.drift)
-        new_drift = drift_mod.update(state.drift, s, cfg.drift)
-        training = new_drift.active
-        # Rising edge == IsDrift fired: re-arm the per-phase counter.
-        entering = training & ~state.drift.active
-        prune_st = _tree_where(entering, pruning.reset_phase(state.prune), state.prune)
-        want_query = pruning.should_query(prune_st, o, state.elm.count, off, cfg.prune)
-        queried = training & want_query & teacher_available
-        # Auto-theta only observes training-mode steps with a live teacher.
-        controller_on = training & teacher_available
-    else:
-        if drift_active is None:
-            drift_active = off
-        new_drift = state.drift
-        training = torch.ones((n_streams,), dtype=torch.bool, device=dev)
-        prune_st = state.prune
-        want_query = pruning.should_query(
-            prune_st, o, state.elm.count, drift_active, cfg.prune
-        )
-        queried = want_query & teacher_available
-        controller_on = teacher_available
-
-    theta = pruning.theta_of(prune_st, cfg.prune)
-    meter = state.meter.charge_query(x.shape[-1], queried)
-    # A skipped sample's ladder transition uses only (conf > theta), never
-    # the teacher's answer, so it is accounted now.
-    new_prune = _tree_where(
-        controller_on & ~queried,
-        pruning.update(prune_st, off, off, conf, cfg.prune),
-        prune_st,
-    )
-
-    new_state = EngineState(elm=state.elm, prune=new_prune, drift=new_drift, meter=meter)
-    out = PlanOutput(
+    h = oselm.hidden(x, cfg.elm)  # (S, N)
+    r = ops.plan_rows(h, state.elm.beta, x, state.elm.count, state.prune, state.drift,
+                      state.meter, cfg, mode, teacher_available, drift_active,
+                      out=None if out is None else (out.prune, out.drift, out.meter))
+    new_state = EngineState(elm=state.elm, prune=r.prune, drift=r.drift, meter=r.meter)
+    return new_state, PlanOutput(
         h=h,
-        pred=c,
-        outputs=o,
-        confidence=conf,
-        queried=queried,
-        controller_on=controller_on,
-        theta=theta,
-        mode_training=training,
+        pred=r.pred,
+        outputs=r.outputs,
+        confidence=r.confidence,
+        queried=r.queried,
+        controller_on=r.controller_on,
+        theta=r.theta,
+        mode_training=r.mode_training,
     )
-    return new_state, out
 
 
 def learn(
@@ -257,7 +202,7 @@ def learn(
     y = labels_mod.one_hot(labels, cfg.elm.n_out)  # (S, m)
     agree = pred == labels
     new_elm = oselm.fleet_rank1_update_h(state.elm, h, y, cfg.elm, mask=mask, out=out)
-    new_prune = _tree_where(
+    new_prune = pruning.select(
         controller_on & mask,
         pruning.update(state.prune, mask, agree, confidence, cfg.prune, theta=theta),
         state.prune,
@@ -403,31 +348,19 @@ def gate(
     events for the non-querying streams.  Labels arrive later via
     ``apply_labels`` with the returned ``GateOutput``.
     """
-    h, c, o = _predict(state, x, cfg)
-    conf = pruning.confidence(o)
-    s = drift_mod.score(x, o, cfg.drift)
-    new_drift = drift_mod.update(state.drift, s, cfg.drift)
-    query_mask = pruning.should_query(
-        state.prune, o, state.elm.count, new_drift.active, cfg.prune
-    )
-    theta = pruning.theta_of(state.prune, cfg.prune)
-    meter = state.meter.charge_query(x.shape[-1], query_mask)
-    off = torch.zeros_like(query_mask)
-    new_prune = _tree_where(
-        ~query_mask,
-        pruning.update(state.prune, off, off, conf, cfg.prune),
-        state.prune,
-    )
-    new_state = state._replace(drift=new_drift, meter=meter, prune=new_prune)
+    h = oselm.hidden(x, cfg.elm)  # (S, N)
+    r = ops.plan_rows(h, state.elm.beta, x, state.elm.count, state.prune, state.drift,
+                      state.meter, cfg, "serve")
+    new_state = state._replace(drift=r.drift, meter=r.meter, prune=r.prune)
     out = GateOutput(
         h=h,
-        pred=c,
-        outputs=o,
-        confidence=conf,
-        queried=query_mask,
-        theta=theta,
+        pred=r.pred,
+        outputs=r.outputs,
+        confidence=r.confidence,
+        queried=r.queried,
+        theta=r.theta,
         feats=x,
-        drift_active=new_drift.active,
+        drift_active=r.drift.active,
     )
     return new_state, out
 
@@ -450,7 +383,7 @@ def apply_labels(
     agree = ctx.pred == labels
     y = labels_mod.one_hot(labels, cfg.elm.n_out)
     new_elm = oselm.fleet_rank1_update_h(state.elm, ctx.h, y, cfg.elm, mask=mask)
-    new_prune = _tree_where(
+    new_prune = pruning.select(
         mask,
         pruning.update(state.prune, mask, agree, ctx.confidence, cfg.prune, theta=ctx.theta),
         state.prune,

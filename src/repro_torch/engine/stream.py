@@ -435,7 +435,8 @@ class StreamStats:
 def _store(dst: EngineState, new: EngineState) -> None:
     """Write ``new``'s leaves into ``dst``'s buffers, skipping those already
     there (P and beta, which the RLS kernel writes into ``dst``, or which a
-    plan passes through)."""
+    plan passes through; the prune, drift and meter leaves, which the plan
+    writes into ``dst``)."""
     pairs = [(d, n) for d, n in zip(tree_leaves(dst), tree_leaves(new)) if d is not n]
     graphs.copy_into([d for d, _ in pairs], [n for _, n in pairs])
 
@@ -451,7 +452,7 @@ def _plan_runner(cfg: EngineConfig, mode: str, donate: bool):
     del donate
 
     def run_plan(src, dst, x):
-        new, p = fleet.plan(src, x, cfg, mode=mode)
+        new, p = fleet.plan(src, x, cfg, mode=mode, out=dst)
         _store(dst, new)
         return p
 
@@ -476,7 +477,7 @@ def _learn_plan_runner(cfg: EngineConfig, mode: str, donate: bool):
 
     def run_learn_plan(src, dst, h, labels, pred, conf, mask, controller_on, theta, x_next):
         mid = _learn_into(src, dst, cfg, h, labels, pred, conf, mask, controller_on, theta)
-        new, p = fleet.plan(mid, x_next, cfg, mode=mode)
+        new, p = fleet.plan(mid, x_next, cfg, mode=mode, out=dst)
         _store(dst, new)
         return p
 
@@ -491,7 +492,7 @@ def _plan_avail_runner(cfg: EngineConfig, mode: str, donate: bool):
     del donate
 
     def run_plan(src, dst, avail, x):
-        new, p = fleet.plan(src, x, cfg, mode=mode, teacher_available=avail)
+        new, p = fleet.plan(src, x, cfg, mode=mode, teacher_available=avail, out=dst)
         _store(dst, new)
         return p
 
@@ -507,7 +508,8 @@ def _learn_plan_avail_runner(cfg: EngineConfig, mode: str, donate: bool):
     def run_learn_plan(src, dst, avail, h, labels, pred, conf, mask, controller_on, theta,
                        x_next):
         mid = _learn_into(src, dst, cfg, h, labels, pred, conf, mask, controller_on, theta)
-        new, p = fleet.plan(mid, x_next, cfg, mode=mode, teacher_available=avail)
+        new, p = fleet.plan(mid, x_next, cfg, mode=mode, teacher_available=avail,
+                            out=dst)
         _store(dst, new)
         return p
 

@@ -18,9 +18,12 @@ The keys of both:
 * ``oselm_rls_update_fleet`` — the single-pass RLS kernel, from the fleet entry;
 * ``oselm_rls_update`` — the same kernel, from the one-head entry;
 * ``rls_two_stage`` — the two-stage RLS route, from either entry;
-* ``readout`` — the per-stream readout of ``plan``;
-* ``row_abs_mean`` — the drift detector's feature mean (``algo1`` and
-  ``serve`` plans).
+* ``plan_rows`` — the fused per-stream pass of ``plan`` and ``gate``
+  after the projection (readout, top-2, drift detector, query decision,
+  meter, the ladder's skip step), every plan in every mode;
+* ``readout`` — the readout alone, a reduced instance of the same kernel
+  (no path of the engine calls it);
+* ``row_abs_mean`` — the drift detector's feature mean alone, likewise.
 
 Each wrapper's CPU path gives a row the same result whatever the number of
 rows beside it, as its kernel does on the card: a cohort's stacked dispatch
@@ -41,6 +44,7 @@ launch_counts = {
     "oselm_rls_update_fleet": 0,
     "oselm_rls_update": 0,
     "rls_two_stage": 0,
+    "plan_rows": 0,
     "readout": 0,
     "row_abs_mean": 0,
 }
@@ -109,6 +113,46 @@ def row_abs_mean(x: torch.Tensor) -> torch.Tensor:
     else:
         a = _ref.row_abs_mean_ref(x2)
     return a.reshape(lead)
+
+
+def plan_rows(
+    h: torch.Tensor,  # (S, N)
+    beta: torch.Tensor,  # (S, N, m)
+    x: torch.Tensor,  # (S, n_in)
+    count: torch.Tensor,  # (S,) int32
+    prune,  # PruneState
+    drift,  # DriftState
+    meter,  # CommMeter
+    cfg,  # EngineConfig
+    mode: str,
+    teacher_available: torch.Tensor | None = None,  # (S,) bool
+    drift_active: torch.Tensor | None = None,  # (S,) bool, train_phase only
+    out: tuple | None = None,  # (PruneState, DriftState, CommMeter) buffers
+) -> _ref.PlanRows:
+    """Everything ``plan`` does after the projection, for S streams:
+    ``ref.PlanRows`` (the plan's fields and the new prune, drift and meter
+    leaves).  With ``out`` the new leaves are written into those buffers."""
+    if _on_cuda(h):
+        if teacher_available is not None:
+            teacher_available = teacher_available.to(torch.bool).contiguous()
+        if drift_active is not None:
+            drift_active = drift_active.to(torch.bool).contiguous()
+        stepped = mode != "train_phase" and cfg.drift.use_features
+        r = _plan_rows.plan_rows(
+            h.to(torch.float32).contiguous(), beta.contiguous(),
+            x.to(torch.float32).contiguous() if stepped else x,
+            count, prune, drift, meter, cfg, mode, teacher_available, drift_active, out=out)
+        _count("plan_rows")
+        return r
+    r = _ref.plan_rows_ref(h, beta, x, count, prune, drift, meter, cfg, mode,
+                           teacher_available, drift_active)
+    if out is None:
+        return r
+    new = (r.prune, r.drift, r.meter)
+    for dst, src in zip(out, new):
+        for d, n in zip(dst, src):
+            d.copy_(n)
+    return r._replace(prune=out[0], drift=out[1], meter=out[2])
 
 
 def rls_route(n: int, k: int, m: int) -> str:

@@ -10,6 +10,8 @@ in ``chip_smoke.py``, which hold the kernels against them — apart from
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
@@ -86,6 +88,106 @@ def readout_ref(h: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
 def row_abs_mean_ref(x: torch.Tensor) -> torch.Tensor:
     """The drift detector's feature term mean(|x[s]|): x (S, n) -> (S,) f32."""
     return torch.mean(torch.abs(x.to(torch.float32)), dim=-1)
+
+
+class PlanRows(NamedTuple):
+    """What ``plan`` and ``gate`` compute after the projection: the plan's
+    fields of the tick and the new prune, drift and meter leaves."""
+
+    outputs: torch.Tensor  # (S, m) f32 raw outputs o
+    pred: torch.Tensor  # (S,) int32 argmax of o
+    confidence: torch.Tensor  # (S,) f32 P1P2
+    queried: torch.Tensor  # (S,) bool
+    controller_on: torch.Tensor  # (S,) bool
+    theta: torch.Tensor  # (S,) f32
+    mode_training: torch.Tensor  # (S,) bool
+    prune: tuple  # PruneState
+    drift: tuple  # DriftState
+    meter: tuple  # CommMeter
+
+
+def plan_rows_ref(
+    h: torch.Tensor,  # (S, N)
+    beta: torch.Tensor,  # (S, N, m)
+    x: torch.Tensor,  # (S, n_in)
+    count: torch.Tensor,  # (S,) int32, elm.count
+    prune,  # PruneState
+    drift,  # DriftState
+    meter,  # CommMeter
+    cfg,  # EngineConfig
+    mode: str,
+    teacher_available: Optional[torch.Tensor] = None,  # (S,) bool
+    drift_active: Optional[torch.Tensor] = None,  # (S,) bool, train_phase only
+    o: Optional[torch.Tensor] = None,  # (S, m) the readout, if already computed
+    a: Optional[torch.Tensor] = None,  # (S,) the feature mean, if already computed
+) -> PlanRows:
+    """The plain version of ``csrc/plan_rows.cu``'s fused pass: the part of
+    ``engine/fleet.py``'s ``plan`` after the projection, in the torch ops of
+    the controllers in ``core/`` (``gate`` is mode ``serve``).  ``o`` and
+    ``a`` default to ``readout_ref(h, beta)`` and ``row_abs_mean_ref(x)``; a
+    check of the kernel passes the kernel's own, so that the rest is
+    compared bit for bit."""
+    # Imported here: core/drift.py imports kernels.ops, which imports this module.
+    from repro_torch.core import drift as drift_mod
+    from repro_torch.core import pruning
+
+    if o is None:
+        o = readout_ref(h, beta)
+    if a is None and mode != "train_phase" and cfg.drift.use_features:
+        a = row_abs_mean_ref(x)
+    n_streams = o.shape[0]
+    dev = o.device
+    if teacher_available is None:
+        teacher_available = torch.ones((n_streams,), dtype=torch.bool, device=dev)
+    off = torch.zeros((n_streams,), dtype=torch.bool, device=dev)
+    c = torch.argmax(o, dim=-1).to(torch.int32)
+    conf = pruning.confidence(o)
+
+    if mode == "serve":
+        # ``gate`` semantics: live drift detector, a drifting stream is
+        # forced to query, the controller is always armed, no training-mode
+        # gating — so plan(mode='serve') + learn == gate + apply_labels.
+        s = drift_mod.score(x, o, cfg.drift, feature_mean=a)
+        new_drift = drift_mod.update(drift, s, cfg.drift)
+        training = torch.ones((n_streams,), dtype=torch.bool, device=dev)
+        prune_st = prune
+        want_query = pruning.should_query(prune_st, o, count, new_drift.active, cfg.prune)
+        queried = want_query & teacher_available
+        controller_on = teacher_available
+    elif mode == "algo1":
+        # IsDrift / IsTrainDone: per-stream detector with hysteresis.
+        s = drift_mod.score(x, o, cfg.drift, feature_mean=a)
+        new_drift = drift_mod.update(drift, s, cfg.drift)
+        training = new_drift.active
+        # Rising edge == IsDrift fired: re-arm the per-phase counter.
+        entering = training & ~drift.active
+        prune_st = pruning.select(entering, pruning.reset_phase(prune), prune)
+        want_query = pruning.should_query(prune_st, o, count, off, cfg.prune)
+        queried = training & want_query & teacher_available
+        # Auto-theta only observes training-mode steps with a live teacher.
+        controller_on = training & teacher_available
+    else:
+        if drift_active is None:
+            drift_active = off
+        new_drift = drift
+        training = torch.ones((n_streams,), dtype=torch.bool, device=dev)
+        prune_st = prune
+        want_query = pruning.should_query(prune_st, o, count, drift_active, cfg.prune)
+        queried = want_query & teacher_available
+        controller_on = teacher_available
+
+    theta = pruning.theta_of(prune_st, cfg.prune)
+    new_meter = meter.charge_query(x.shape[-1], queried)
+    # A skipped sample's ladder transition uses only (conf > theta), never
+    # the teacher's answer, so it is accounted now.
+    new_prune = pruning.select(
+        controller_on & ~queried,
+        pruning.update(prune_st, off, off, conf, cfg.prune),
+        prune_st,
+    )
+    return PlanRows(outputs=o, pred=c, confidence=conf, queried=queried,
+                    controller_on=controller_on, theta=theta, mode_training=training,
+                    prune=new_prune, drift=new_drift, meter=new_meter)
 
 
 def small_operands(

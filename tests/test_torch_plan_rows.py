@@ -5,8 +5,8 @@ plain versions.
 The JAX package computes both in XLA inside ``repro.engine.fleet.plan``
 (``jnp.einsum("sn,snm->sm", h, beta)``) and ``repro.core.drift.score``
 (``jnp.mean(jnp.abs(x))``); the port dispatches them to a hand-written
-kernel on the card (``csrc/plan_rows.cu``, one warp per stream) and to the
-plain versions on the CPU.  Against JAX the values agree within 1e-5
+kernel on the card (the reduced instances of ``csrc/plan_rows.cu``'s
+per-stream pass) and to the plain versions on the CPU.  Against JAX the values agree within 1e-5
 (f32 sums in another order); inside the port a row's value does not depend
 on how many rows share the call, on the CPU bit for bit here and on the
 card in the ``cuda`` tests:

@@ -1004,7 +1004,7 @@ def test_cuda_graphed_session_over_rpc_equals_latency_teacher(cuda_device, mode)
     for k in COUNTERS:
         assert getattr(stats_l, k) == getattr(stats_r, k), k
     assert stats_r.labels_applied > 0
-    for name in ("xorshift_projection", "oselm_rls_update_fleet", "readout"):
+    for name in ("xorshift_projection", "oselm_rls_update_fleet", "plan_rows"):
         assert graphs.kernel_replays[name] + ops.launch_counts[name] > 0, name
 
 
