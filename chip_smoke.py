@@ -93,6 +93,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    its launches and replays counted apart); and telemetry's overhead on
    6e's window, off and on in turns.  Every shape 6h calls a kernel at must
    be one phases 2-4 held against the plain version;
+6i. the elastic fleet (``runtime/worker.py``, ``runtime/elastic.py``): two
+   port workers spawned on the card; four 4,096-stream ``train_phase``
+   tenants, one per policy, fuse on w0 into the fleet's 16,384 rows, and
+   past tick 16 each is extracted, shipped through this process over the
+   snapshot wire and admitted on w1; each must end bit for bit as its solo
+   run in this process on the card (state, counters, label latencies, no
+   re-ask).  Then four ``algo1`` tenants of 1,024 streams and one taught
+   over a loopback socket drain off w0 by ``Router.scale_in``: w0 exits 0
+   and the fleet's accounting reconciles per tenant and in sum.  Each
+   worker's own scrape (w0 just before its scale-in, w1 at the end) must
+   show every path kernel launched or replayed in that worker, and every
+   shape it launched or captured a kernel at must be one phases 2-4 held.
+   It prints each migration's extract, admit and ship ms and wire bytes,
+   each worker's kernel counts, peak device memory (its allocator's) and
+   Σ s·tick_rate_ema, nvidia-smi's compute apps, and the phase's seconds;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
    N=256 (S=16,384, P 4 GiB); the plan's pass in ``algo1`` (reads x) and
@@ -143,12 +158,19 @@ POLICIES = ("drop_oldest", "drop_newest", "block", "coalesce")
 STREAM_CHECK = dict(n_streams=256, n_ticks=48, latency=3, jitter=2, capacity=4)
 # Phase 6h's shapes are here too: its multiplexer's member (4,096 rows) and
 # rpc_bench's tenant (64) and fused cohort (256) at n_in=N=64; 6h fails if
-# its path calls a kernel at a shape these lists do not hold.
+# its path calls a kernel at a shape these lists do not hold.  So are the
+# shapes a 6i worker can launch at: a cohort of 1-4 members of 4,096 rows
+# and of 1-4 of 1,024; 6i fails on a shape a worker reports that these do
+# not hold.
 K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 128),
              (130, 100, 72), (1, 16, 16), (4096, 561, 128), (64, 64, 64), (256, 64, 64),
-             (48, 561, 33), (3, 561, 33), (FLEET_STREAMS, 561, 256)]
+             (48, 561, 33), (3, 561, 33), (8192, 561, 128), (12288, 561, 128),
+             (1024, 561, 128), (2048, 561, 128), (3072, 561, 128),
+             (FLEET_STREAMS, 561, 256)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
-             (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (FLEET_STREAMS, 256, 1, 6)]
+             (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (8192, 128, 1, 6),
+             (12288, 128, 1, 6), (1024, 128, 1, 6), (2048, 128, 1, 6), (3072, 128, 1, 6),
+             (FLEET_STREAMS, 256, 1, 6)]
 # Phase 7 also times the projection and the RLS update at N=256 (the
 # paper's Tables 2-3 width), at the fleet's S: the last shape of each list.
 K1_N256, K2_N256 = K1_SHAPES[-1], K2_SHAPES[-1]
@@ -176,7 +198,8 @@ PLAN_MODES = ("algo1", "serve", "train_phase")
 PLAN_SHAPES = [(FLEET_STREAMS, 128, 6, 561), (1, 128, 6, 561), (3, 16, 4, 24), (130, 33, 7, 100),
                (4096, 128, 6, 561), (64, 64, 6, 64), (256, 64, 6, 64), (1, 256, 6, 561),
                (256, 128, 6, 561), (1024, 128, 6, 561), (48, 128, 6, 561), (16, 128, 6, 561),
-               (3, 128, 6, 561), (3, 33, 7, 561), (48, 33, 7, 561)]
+               (3, 128, 6, 561), (3, 33, 7, 561), (48, 33, 7, 561), (8192, 128, 6, 561),
+               (12288, 128, 6, 561), (2048, 128, 6, 561), (3072, 128, 6, 561)]
 # Its reduced instances alone against theirs: (S, N, m) of the readout, (S,
 # n) of the feature mean; the first of each is the fleet's.
 READOUT_SHAPES = [(FLEET_STREAMS, 128, 6), (1, 128, 6), (3, 16, 4), (1024, 100, 1), (130, 33, 7),
@@ -221,6 +244,24 @@ RPC_MUX_TICKS = 8
 RPC_OVERHEAD_BLOCKS = 16
 RPC_OVERHEAD_BLOCK_TICKS = 4
 TELEMETRY_BUDGET_PCT = 2.0
+# Phase 6i, the elastic fleet: two workers (quantum 1); four tenants of
+# ``streams`` (one per policy, train_phase, ``ticks`` synth ticks, capacity
+# 4) fuse on w0 into the fleet's 16,384 rows and each migrates to w1 once all
+# are past tick ``cut``; then four algo1 tenants of ``scale_streams`` and a
+# train_phase one taught by a loopback label server that answers each frame
+# ``rpc_delay_s`` late drain off w0 by scale-in once past tick ``drain_at``.
+# The delay keeps that tenant's tickets in flight when it moves, so its
+# extract's quiesce has answers to wait for; a ticket is re-asked on w1 only
+# where that wait runs out, and the re-asks are printed, not required.
+# Stationary synth ticks never drift, so the algo1 tenants issue no query:
+# the fifth one's queries make the fleet's accounting identity non-vacuous.
+# w0 goes on ticking the tenants not yet moved while the router ships one
+# (the drain takes ~3.7 s; a round of these tenants ~50-80 ms, mostly the
+# host's synth draws), so ``scale_ticks`` leaves each about four times the
+# ticks the drain can take.  The rpc tenant (~13 ticks a second over the
+# wire) is admitted, and so drained, first, and runs ``rpc_ticks``.
+ELASTIC = dict(streams=4096, ticks=64, cut=16, capacity=4, scale_streams=1024, scale_ticks=320,
+               rpc_ticks=96, drain_at=8, rpc_delay_s=0.05)
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
             "tickets_dropped", "queries_dropped", "replies_orphaned", "tickets_lost",
             "queries_lost", "tickets_coalesced", "queries_coalesced", "asks_deferred",
@@ -2280,6 +2321,336 @@ def phase_rpc(ticks, device="cuda", cfg=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6i: the elastic fleet (runtime/worker.py, runtime/elastic.py)
+# ---------------------------------------------------------------------------
+
+
+class _GpuMemory:
+    """While active, samples ``nvidia-smi --query-compute-apps`` every
+    ``period_s`` and keeps each listed pid's largest ``used_memory`` (MiB).
+    Printed for information only: where the card is shared through a
+    container's proxy, the pids listed are not this machine's (one row for
+    every process of the container, this one included), so the rows cannot
+    say which process held what."""
+
+    def __init__(self, period_s=0.25):
+        import threading
+
+        self.period_s = period_s
+        self.peak_mib: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def sample(self):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        ).stdout
+        for line in out.strip().splitlines():
+            parts = [p.strip() for p in line.split(",")]
+            if len(parts) != 2 or not parts[0].isdigit():
+                continue
+            mib = float(parts[1].split()[0])
+            pid = int(parts[0])
+            self.peak_mib[pid] = max(self.peak_mib.get(pid, 0.0), mib)
+
+    def _loop(self):
+        while not self._stop.wait(self.period_s):
+            self.sample()
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.sample()
+
+
+def _elastic_spec(name, policy, seed, s, t_total, mode, teacher=None):
+    """A 6i tenant: ``har_odl.full()``, synth ticks seeded per tick, and the
+    latency teacher of ``tests/test_elastic.py`` (or ``teacher``)."""
+    from repro_torch.configs import har_odl
+    from repro_torch.runtime import worker as worker_mod
+
+    cfg = har_odl.full()
+    return worker_mod.tenant_spec(
+        name, cfg, s=s, mode=mode, capacity=ELASTIC["capacity"], backpressure=policy,
+        ticks=worker_mod.synth_ticks_spec(seed=seed, t_total=t_total),
+        teacher=teacher or worker_mod.latency_teacher_spec(
+            n_out=cfg.elm.n_out, latency=2, jitter=2, loss=0.2, partial=0.15, seed=seed),
+    )
+
+
+def _elastic_solo(spec, device):
+    """The uninterrupted run a migrated tenant must reproduce, in this
+    process, from the spec builders the workers use."""
+    from repro_torch import engine
+    from repro_torch.engine import snapshot, stream
+    from repro_torch.runtime import worker as worker_mod
+
+    it = iter(worker_mod._build_ticks(spec))
+    cfg = snapshot.config_from_dict(spec["cfg"])
+    sess = stream.StreamSession(
+        engine.init_fleet(cfg, spec["s"], device), cfg, worker_mod._build_teacher(spec, {}),
+        mode=spec["mode"], capacity=spec["capacity"], backpressure=spec["backpressure"],
+        collect=spec["collect"])
+    sess.start(next(it))
+    while sess._p is not None:
+        sess.advance(next(it, None))
+    sess.drain_replies()
+    state, _, stats = sess.finish()
+    return snapshot.state_to_tree(state), stats
+
+
+def _note_rate(rates, worker, live):
+    """Note a worker's Σ s·tick_rate_ema (the router's load signal) while
+    it has tenants that still tick."""
+    ticking = [t for t in live if not t["draining"]]
+    if ticking:
+        rates.setdefault(worker, []).append(sum(t["s"] * t["tick_rate_ema"] for t in ticking))
+
+
+def _wait_live_at(client, names, tick, rates, timeout_s=120.0):
+    """Poll ``client``'s status until every named tenant is live at ``tick``
+    or later (a tenant that finished first fails the phase); notes the
+    worker's Σ s·tick_rate_ema in ``rates``."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        live = client.status()["live"]
+        rows = {t["name"]: t for t in live}
+        _note_rate(rates, client.name, live)
+        check(all(n in rows for n in names),
+              f"elastic: a tenant finished before its cut (live {sorted(rows)})")
+        if all(rows[n]["t"] >= tick for n in names):
+            return rows
+        time.sleep(0.05)
+    raise TimeoutError(f"elastic: {names} never reached tick {tick}")
+
+
+def _elastic_wait(router, names, rates, timeout_s=300.0):
+    """``Router.wait_finished``, noting each worker's Σ s·tick_rate_ema."""
+    remaining = set(names)
+    deadline = time.monotonic() + timeout_s
+    while remaining:
+        for w in router.workers:
+            st = w.status()
+            _note_rate(rates, w.name, st["live"])
+            remaining -= set(st["finished"])
+        check(time.monotonic() < deadline, f"elastic: never finished: {sorted(remaining)}")
+        time.sleep(0.05)
+
+
+def _worker_scrape(client):
+    """A worker's own counts, from its ``metrics`` scrape: its peak device
+    memory (``odl_worker_device_peak_bytes``), and by kernel its eager
+    launches, its launches by graph replays and the shapes it launched or
+    captured the kernel at (all 0 or empty when the worker started)."""
+    gauges = client.metrics()[0]["metrics"]["gauges"]
+
+    def by_kernel(name):
+        return {r["labels"]["kernel"]: int(r["value"]) for r in gauges[name]}
+
+    shapes = {}
+    for r in gauges.get("odl_worker_kernel_shape", []):
+        shapes.setdefault(r["labels"]["kernel"], set()).add(
+            tuple(int(d) for d in r["labels"]["shape"].split(",")))
+    return {"peak_bytes": int(gauges["odl_worker_device_peak_bytes"][0]["value"]),
+            "launches": by_kernel("odl_worker_kernel_launches"),
+            "replays": by_kernel("odl_worker_kernel_replays"), "shapes": shapes}
+
+
+def phase_elastic(device="cuda"):
+    """6i: the elastic fleet on the card (see the module docstring)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.engine import graphs, rpc
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime import worker as worker_mod
+
+    t_phase = time.perf_counter()
+    card = _card()
+    torch.cuda.empty_cache()
+    e = ELASTIC
+    p_bytes = 128 * 128 * 4  # one stream's P
+    res = {"migrations": [], "rates": {}}
+    workers = []
+    try:
+        with _GpuMemory() as mem:
+            workers = [elastic.spawn_worker(f"w{i}", quantum=1) for i in range(2)]
+            w0, w1 = workers
+            res["spawn_s"] = time.perf_counter() - t_phase
+            pids = {w.name: w.proc.pid for w in workers}
+            # (a) migration: four tenants, one per policy, fuse on w0 into
+            # one cohort of the fleet's width; each moves to w1 mid-stream.
+            specs = [_elastic_spec(f"mig_{p}", p, SEED + 600 + i, e["streams"], e["ticks"],
+                                   "train_phase") for i, p in enumerate(POLICIES)]
+            for spec in specs:
+                w0.admit(spec)
+            names = [s["name"] for s in specs]
+            rows = _wait_live_at(w0, names, e["cut"], res["rates"])
+            check(all(r["fused"] for r in rows.values()), f"elastic: not fused on w0: {rows}")
+            res["fused_rows"] = sum(r["s"] for r in rows.values())
+            res["cut_status_t"] = {n: r["t"] for n, r in rows.items()}
+            # Every extract first, back to back, so that the source's other
+            # tenants cannot run out while the router ships one; then every
+            # admit.  A tenant's ship is its extract and its admit.
+            shipped = []
+            for spec in specs:
+                t0 = time.perf_counter()
+                sent, wire = w0.extract(spec["name"])
+                shipped.append((sent, wire, 1e3 * (time.perf_counter() - t0)))
+            for sent, wire, extract_ms in shipped:
+                t0 = time.perf_counter()
+                reply = w1.admit(sent, wire)
+                admit_ms = 1e3 * (time.perf_counter() - t0)
+                check(reply["migrated"] is True, f"elastic: {reply}")
+                res["migrations"].append(dict(
+                    tenant=sent["name"], extract_ms=extract_ms, admit_ms=admit_ms,
+                    ship_ms=extract_ms + admit_ms, wire_bytes=len(wire)))
+            del shipped
+            router = elastic.Router(workers)
+            _elastic_wait(router, names, res["rates"])
+            finished = {n: w1.result(n) for n in names}
+            res["migration_part_s"] = time.perf_counter() - t_phase - res["spawn_s"]
+            t_b = time.perf_counter()
+            # (b) scale-in: four algo1 tenants and one taught over the wire
+            # drain off w0 onto w1; w0 exits.
+            with rpc.loopback_server(n_out=6, delay_s=e["rpc_delay_s"]) as (host, port):
+                specs_b = [_elastic_spec(
+                    "drain_rpc", "drop_oldest", SEED + 704, e["scale_streams"],
+                    e["rpc_ticks"], "train_phase",
+                    teacher=worker_mod.rpc_teacher_spec(host, port, timeout_s=30.0))]
+                specs_b += [_elastic_spec(f"drain{i}", "drop_oldest", SEED + 700 + i,
+                                          e["scale_streams"], e["scale_ticks"], "algo1")
+                            for i in range(4)]
+                names_b = [s["name"] for s in specs_b]
+                for spec in specs_b:
+                    w0.admit(spec)
+                _wait_live_at(w0, names_b, e["drain_at"], res["rates"])
+                scrapes = {"w0": _worker_scrape(w0)}
+                t0 = time.perf_counter()
+                migrated, finished_there = router.scale_in(w0)
+                res["scale_in_ms"] = 1e3 * (time.perf_counter() - t0)
+                check(sorted(migrated) == sorted(names_b) and not finished_there,
+                      f"elastic: scale-in moved {migrated}, finished there {finished_there}")
+                check(w0.proc.wait(timeout=60) == 0, "elastic: the drained worker did not exit 0")
+                check(router.workers == [w1], "elastic: the drained worker is still in the fleet")
+                _elastic_wait(router, names_b, res["rates"])
+                results_b = {n: st for n, st in router.fleet_results().items() if n in names_b}
+                scrapes["w1"] = _worker_scrape(w1)
+            router.close()
+            res["scale_in_part_s"] = time.perf_counter() - t_b
+    finally:
+        for w in workers:
+            if w.proc.poll() is None:
+                w.close(shutdown=True)
+    # Peak memory per worker: its allocator's own peak (the worker's
+    # metrics); nvidia-smi's rows are printed as they are.
+    held = {"w0": 4 * e["streams"] * p_bytes, "w1": 4 * e["streams"] * p_bytes}
+    peak = {name: sc["peak_bytes"] for name, sc in scrapes.items()}
+    res["peak_bytes"] = peak
+    res["smi_rows"] = {str(pid): mib for pid, mib in mem.peak_mib.items()}
+    for name in pids:
+        check(peak[name] >= held[name], f"elastic: worker {name} peaked at {peak[name]} bytes, "
+                                        f"below the {held[name]} bytes of P it held")
+    # The path ran through the kernels in each worker, by its own counts.
+    res["worker_launches"] = {name: sc["launches"] for name, sc in scrapes.items()}
+    res["worker_replays"] = {name: sc["replays"] for name, sc in scrapes.items()}
+    for name, sc in scrapes.items():
+        for kernel in PATH_KERNELS:
+            check(sc["launches"][kernel] + sc["replays"][kernel] > 0,
+                  f"elastic: worker {name} ran {kernel} neither eagerly nor by a replay")
+    res["launches"] = {k: sum(sc["launches"][k] for sc in scrapes.values())
+                       for k in scrapes["w0"]["launches"]}
+    res["kernel_replays"] = {k: sum(sc["replays"][k] for sc in scrapes.values())
+                             for k in scrapes["w0"]["replays"]}
+    # The migrated tenants against their solo runs in this process, on the
+    # card (``ops.launch_shapes`` notes their shapes).
+    graphs.reset_replay_counts()
+    ops.reset_launch_counts()
+    t_solo = time.perf_counter()
+    for spec in specs:
+        solo_tree, solo_stats = _elastic_solo(spec, device)
+        stats_wire, tree = finished[spec["name"]]
+        got = _leaf_digests(tree["state"])
+        differ = [p for p, leaf in _leaf_digests(solo_tree).items() if got.get(p) != leaf]
+        check(not differ, f"elastic {spec['name']}: state leaves {differ} differ from solo")
+        bad = [f for f in COUNTERS if stats_wire[f] != getattr(solo_stats, f)]
+        check(not bad, f"elastic {spec['name']}: counters {bad} differ from solo")
+        check(stats_wire["label_latency_ticks"] == list(solo_stats.label_latency_ticks),
+              f"elastic {spec['name']}: label latency history differs from solo")
+        check(stats_wire["reconciled"] and stats_wire["tickets_reasked"] == 0,
+              f"elastic {spec['name']}: {stats_wire}")
+    _sync(device)
+    res["solo_s"] = time.perf_counter() - t_solo
+    res["solo_launches"] = dict(ops.launch_counts)
+    res["solo_replays"] = dict(graphs.kernel_replays)
+    for name in PATH_KERNELS:
+        check(res["solo_launches"][name] + res["solo_replays"][name] > 0,
+              f"elastic solo runs: {name} ran neither eagerly nor by a replay")
+    # Scale-in accounting: per tenant and fleet-wide.
+    agg = elastic.reconcile(results_b)
+    check(sorted(results_b) == sorted(names_b), f"elastic: results of {sorted(results_b)}")
+    check(agg["reconciled"] and all(agg["per_tenant"].values()) and agg["queries_issued"] > 0,
+          f"elastic: scale-in accounting {agg}")
+    res["scale_in"] = {k: v for k, v in agg.items() if k != "per_tenant"}
+    res["rpc_tenant"] = {k: results_b["drain_rpc"][k] for k in
+                         ("queries_issued", "labels_applied", "queries_lost", "tickets_issued",
+                          "tickets_reasked", "tickets_lost", "reconciled")}
+    # Every shape a worker launched or captured a kernel at, by its own
+    # report, and the solo runs' shapes, each held in phases 2-4.
+    ran = {}
+    for got_by_kernel in [sc["shapes"] for sc in scrapes.values()] + [ops.launch_shapes]:
+        for name, got in got_by_kernel.items():
+            ran.setdefault(name, set()).update(got)
+    check(all(sc["shapes"].get(name) for sc in scrapes.values() for name in PATH_KERNELS),
+          f"elastic: a worker reported no shape for a path kernel: {ran}")
+    missing = {name: sorted(got - set(_ShapeLog.HELD.get(name, ())))
+               for name, got in ran.items() if got - set(_ShapeLog.HELD.get(name, ()))}
+    check(not missing, f"elastic: shapes phases 2-4 did not hold: {missing}")
+    res["shapes"] = {name: sorted(got) for name, got in ran.items() if got}
+    res["stream_ticks_per_s"] = {w: {"median": statistics.median(r), "max": max(r),
+                                     "polls": len(r)} for w, r in res["rates"].items()}
+    res["seconds"] = time.perf_counter() - t_phase
+    del res["rates"]
+    print(f"elastic (6i, 2 workers, S={e['streams']}x4 fused to {res['fused_rows']} rows, "
+          f"n_in=561, N=128, m=6) on {card}: {json.dumps(res)}")
+    for m in res["migrations"]:
+        print(f"  migrate {m['tenant']}: extract {m['extract_ms']:.1f} ms, admit "
+              f"{m['admit_ms']:.1f} ms, ship {m['ship_ms']:.1f} ms, {m['wire_bytes']} wire "
+              f"bytes ({card})")
+    print("  migrated tenants bit for bit their solo runs on the card (state, counters, label "
+          "latency history; tickets_reasked 0)")
+    for name, nbytes in peak.items():
+        ran_here = {k: res["worker_launches"][name][k] + res["worker_replays"][name][k]
+                    for k in PATH_KERNELS}
+        print(f"  worker {name} (pid {pids[name]}) ran, by its own scrape (launches + "
+              f"replays): {ran_here}; peak memory {nbytes} bytes (its allocator, "
+              f"odl_worker_device_peak_bytes), P held {held[name]} bytes; stream·ticks/s "
+              f"(status, Σ s·tick_rate_ema) median "
+              f"{res['stream_ticks_per_s'][name]['median']:.1f}, max "
+              f"{res['stream_ticks_per_s'][name]['max']:.1f} ({card})")
+    print(f"  nvidia-smi compute apps, peak MiB by pid (information: the container's "
+          f"processes may share one row): {res['smi_rows']}")
+    print(f"  scale-in: {len(names_b)} tenants drained in {res['scale_in_ms']:.1f} ms, worker "
+          f"exit 0, fleet reconciled (issued {agg['queries_issued']} = applied "
+          f"{agg['labels_applied']} + dropped {agg['queries_dropped']} + lost "
+          f"{agg['queries_lost']} + coalesced {agg['queries_coalesced']}); rpc tenant "
+          f"{res['rpc_tenant']}")
+    print(f"  kernel shapes the workers and the solo runs launched at, each held in phases "
+          f"2-4: {res['shapes']}")
+    print(f"  phase 6i took {res['seconds']:.1f} s: spawning the workers {res['spawn_s']:.1f}, "
+          f"migration {res['migration_part_s']:.1f}, scale-in {res['scale_in_part_s']:.1f}, "
+          f"the solo runs {res['solo_s']:.1f} ({card})")
+    return res
+
+
 def _device_ms(fn, reps=20, rounds=3):
     """Device time of one call of ``fn``: CUDA events around a batch of
     calls, the median of ``rounds`` batches.  A sleep kernel keeps the card
@@ -2705,6 +3076,7 @@ def main(argv=None) -> int:
     del policy_runs, labels, mux_solo, mux_inputs
     rpc_res = phase_rpc(ticks)
     del ticks
+    elastic_res = phase_elastic()
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -2769,6 +3141,13 @@ def main(argv=None) -> int:
             # 6h's rpc_bench at the reference's shape, counted on its own.
             "rpc_bench_launches": rpc_res["bench_launches"].get(name, 0),
             "rpc_bench_replays": rpc_res["bench_replays"].get(name, 0),
+            # The elastic fleet (phase 6i): eager launches and graph replays
+            # in the two worker processes, summed from their own scrapes;
+            # and, apart, this process's solo runs of 6i's migrated tenants.
+            "elastic_launches": elastic_res["launches"].get(name, 0),
+            "elastic_replays": elastic_res["kernel_replays"].get(name, 0),
+            "elastic_solo_launches": elastic_res["solo_launches"].get(name, 0),
+            "elastic_solo_replays": elastic_res["solo_replays"].get(name, 0),
             # The paper's tables (phase 5b): eager launches, both widths.
             "paper_launches": paper["launches"].get(name, 0),
             "paper_max_abs_err": paper["errs"].get(name),

@@ -92,6 +92,17 @@ PENDING_POLICIES = ("auto", "reask", "drop")
 _STATE_GROUPS = ("elm", "prune", "drift", "meter")
 
 
+def config_to_dict(cfg) -> dict:
+    """The reference's name for ``convert.config_to_dict`` (its worker and
+    router call it): an ``EngineConfig`` of either package as a nested dict."""
+    return convert.config_to_dict(cfg)
+
+
+def config_from_dict(d: dict) -> EngineConfig:
+    """The reference's name for ``convert.engine_config_from_dict``."""
+    return convert.engine_config_from_dict(d)
+
+
 # ---------------------------------------------------------------------------
 # State and plans <-> numpy trees (CheckpointManager restores dicts and
 # lists, not NamedTuples, so leaves go by field name)

@@ -12,7 +12,9 @@ its main path went through the kernels (``chip_smoke.py`` reads it).  A
 call made while a CUDA graph is being captured launches nothing: it records
 the kernel into the graph, and raises ``captured_counts`` instead, from
 which ``engine.graphs`` learns which kernels each of its graphs replays.
-The keys of both:
+``launch_shapes`` notes, beside either count, the shape of the call (keyed
+as ``chip_smoke.py`` keys the shapes it holds each kernel at), so a process
+can say at which shapes it ran each kernel.  The keys of all three:
 
 * ``xorshift_projection`` — the projection kernel;
 * ``oselm_rls_update_fleet`` — the single-pass RLS kernel, from the fleet entry;
@@ -49,18 +51,21 @@ launch_counts = {
     "row_abs_mean": 0,
 }
 captured_counts = dict.fromkeys(launch_counts, 0)
+launch_shapes: dict[str, set[tuple]] = {name: set() for name in launch_counts}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+        launch_shapes[name].clear()
 
 
-def _count(name: str) -> None:
-    """One launch of ``name`` on the current CUDA stream, or one kernel node
-    recorded into the graph that stream is capturing."""
+def _count(name: str, shape: tuple) -> None:
+    """One launch of ``name`` at ``shape`` on the current CUDA stream, or one
+    kernel node recorded into the graph that stream is capturing."""
     counts = captured_counts if torch.cuda.is_current_stream_capturing() else launch_counts
     counts[name] += 1
+    launch_shapes[name].add(shape)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -88,7 +93,7 @@ def xorshift_projection(
         h = _xorshift_proj.xorshift_projection(
             x2.contiguous(), seed, n_hidden, scale=scale, activation=activation
         )
-        _count("xorshift_projection")
+        _count("xorshift_projection", (x2.shape[0], x2.shape[1], n_hidden))
     else:
         h = _ref.xorshift_projection_ref(x2, seed, n_hidden, scale=scale, activation=activation)
     return h.reshape(lead + (n_hidden,))
@@ -98,7 +103,7 @@ def readout(h: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """Per-stream readout o[s] = h[s] @ beta[s]: h (S, N), beta (S, N, m) -> (S, m)."""
     if _on_cuda(h):
         o = _plan_rows.readout(h.to(torch.float32).contiguous(), beta.contiguous())
-        _count("readout")
+        _count("readout", tuple(beta.shape))
         return o
     return _ref.readout_ref(h, beta)
 
@@ -109,7 +114,7 @@ def row_abs_mean(x: torch.Tensor) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     if _on_cuda(x2):
         a = _plan_rows.row_abs_mean(x2.to(torch.float32).contiguous())
-        _count("row_abs_mean")
+        _count("row_abs_mean", tuple(x2.shape))
     else:
         a = _ref.row_abs_mean_ref(x2)
     return a.reshape(lead)
@@ -142,7 +147,7 @@ def plan_rows(
             h.to(torch.float32).contiguous(), beta.contiguous(),
             x.to(torch.float32).contiguous() if stepped else x,
             count, prune, drift, meter, cfg, mode, teacher_available, drift_active, out=out)
-        _count("plan_rows")
+        _count("plan_rows", (*beta.shape, x.shape[-1]))
         return r
     r = _ref.plan_rows_ref(h, beta, x, count, prune, drift, meter, cfg, mode,
                            teacher_available, drift_active)
@@ -179,13 +184,14 @@ def _rls(P, beta, H, Y, counter, out=None):
         return out
     P, beta = P.contiguous(), beta.contiguous()
     H, Y = H.to(torch.float32).contiguous(), Y.to(torch.float32).contiguous()
+    shape = (P.shape[0], P.shape[1], H.shape[1], beta.shape[2])
     if rls_route(P.shape[1], H.shape[1], beta.shape[2]) == "single":
         new = _oselm_update.rls_single(P, beta, H, Y, out=out)
-        _count(counter)
+        _count(counter, shape)
     else:
         new = _oselm_update.rls_fleet(P, beta, *_oselm_update.small_operands(P, beta, H, Y),
                                       out=out)
-        _count("rls_two_stage")
+        _count("rls_two_stage", shape)
     return new
 
 
