@@ -108,6 +108,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    It prints each migration's extract, admit and ship ms and wire bytes,
    each worker's kernel counts, peak device memory (its allocator's) and
    Σ s·tick_rate_ema, nvidia-smi's compute apps, and the phase's seconds;
+6j. stream-axis sharding (``engine.split_fleet``/``run_fleet_shards``,
+   ``shard_fleet``/``run_fleet_sharded``, ``stream.run_sharded``) under
+   ``sharding.activate`` of a mesh of four ``cuda:0`` entries (one card:
+   the shards share it): (a) phase 6's two runs through the blocked path,
+   one 4,096-stream block a shard and the default 512-stream block, each
+   bit for bit phase 6's ``run_fleet``; (b) S=16,381 (3 dead tail rows)
+   through both layouts, bit for bit ``run_fleet`` at that S, the padding
+   stripped; (c) ``run_sharded`` over 4 shards: a zero-latency teacher bit
+   for bit 6c's zero-latency runs, ``LatencyTeacher(latency=3)`` bit for
+   bit the solo ``stream.run``, and a late, lossy ``algo1`` run whose
+   accounting reconciles per shard and in sum; (d) the blocked
+   ``train_phase`` run merged at tick 16, saved by ``CheckpointManager``,
+   restored with ``shardings`` onto the card, split into 2 shards and run
+   to tick 32, bit for bit the uninterrupted run.  It prints the path
+   kernels' launches and replays on the sharded paths (each > 0), the
+   shapes they ran at (each held in phases 2-4), sharded against solo
+   stream·ticks/s and the phase's seconds;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
    N=256 (S=16,384, P 4 GiB); the plan's pass in ``algo1`` (reads x) and
@@ -156,6 +173,8 @@ STREAM_TEACHER = dict(latency=2, jitter=2, loss_prob=0.02, partial_prob=0.05, se
 STREAM_CAPACITY = 8
 POLICIES = ("drop_oldest", "drop_newest", "block", "coalesce")
 STREAM_CHECK = dict(n_streams=256, n_ticks=48, latency=3, jitter=2, capacity=4)
+# Phase 6j's shard blocks are here too: 4,096 rows (a shard of the fleet's
+# 16,384 over SHARDS) and the default 512-stream block.
 # Phase 6h's shapes are here too: its multiplexer's member (4,096 rows) and
 # rpc_bench's tenant (64) and fused cohort (256) at n_in=N=64; 6h fails if
 # its path calls a kernel at a shape these lists do not hold.  So are the
@@ -165,12 +184,12 @@ STREAM_CHECK = dict(n_streams=256, n_ticks=48, latency=3, jitter=2, capacity=4)
 K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 128),
              (130, 100, 72), (1, 16, 16), (4096, 561, 128), (64, 64, 64), (256, 64, 64),
              (48, 561, 33), (3, 561, 33), (8192, 561, 128), (12288, 561, 128),
-             (1024, 561, 128), (2048, 561, 128), (3072, 561, 128),
+             (1024, 561, 128), (2048, 561, 128), (3072, 561, 128), (512, 561, 128),
              (FLEET_STREAMS, 561, 256)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
              (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (8192, 128, 1, 6),
              (12288, 128, 1, 6), (1024, 128, 1, 6), (2048, 128, 1, 6), (3072, 128, 1, 6),
-             (FLEET_STREAMS, 256, 1, 6)]
+             (512, 128, 1, 6), (FLEET_STREAMS, 256, 1, 6)]
 # Phase 7 also times the projection and the RLS update at N=256 (the
 # paper's Tables 2-3 width), at the fleet's S: the last shape of each list.
 K1_N256, K2_N256 = K1_SHAPES[-1], K2_SHAPES[-1]
@@ -199,7 +218,8 @@ PLAN_SHAPES = [(FLEET_STREAMS, 128, 6, 561), (1, 128, 6, 561), (3, 16, 4, 24), (
                (4096, 128, 6, 561), (64, 64, 6, 64), (256, 64, 6, 64), (1, 256, 6, 561),
                (256, 128, 6, 561), (1024, 128, 6, 561), (48, 128, 6, 561), (16, 128, 6, 561),
                (3, 128, 6, 561), (3, 33, 7, 561), (48, 33, 7, 561), (8192, 128, 6, 561),
-               (12288, 128, 6, 561), (2048, 128, 6, 561), (3072, 128, 6, 561)]
+               (12288, 128, 6, 561), (2048, 128, 6, 561), (3072, 128, 6, 561),
+               (512, 128, 6, 561)]
 # Its reduced instances alone against theirs: (S, N, m) of the readout, (S,
 # n) of the feature mean; the first of each is the fleet's.
 READOUT_SHAPES = [(FLEET_STREAMS, 128, 6), (1, 128, 6), (3, 16, 4), (1024, 100, 1), (130, 33, 7),
@@ -262,6 +282,13 @@ TELEMETRY_BUDGET_PCT = 2.0
 # wire) is admitted, and so drained, first, and runs ``rpc_ticks``.
 ELASTIC = dict(streams=4096, ticks=64, cut=16, capacity=4, scale_streams=1024, scale_ticks=320,
                rpc_ticks=96, drain_at=8, rpc_delay_s=0.05)
+# Phase 6j, sharding: SHARDS entries of one card in the mesh; S=16,381 for
+# the padded case (SHARD_DEAD_ROWS dead tail rows); the blocked train_phase run is saved
+# at tick SHARD_SAVE_TICK and restored onto SHARD_RESCALE shards.
+SHARDS = 4
+SHARD_DEAD_ROWS = 3
+SHARD_SAVE_TICK = 16
+SHARD_RESCALE = 2
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
             "tickets_dropped", "queries_dropped", "replies_orphaned", "tickets_lost",
             "queries_lost", "tickets_coalesced", "queries_coalesced", "asks_deferred",
@@ -1052,6 +1079,16 @@ def _run_stream_once(cfg, ticks, labels, mode, device, teacher_kw=None, **kw):
     return state, outs, stats, secs
 
 
+def _host_tree(tree):
+    """A NamedTuple tree with every tensor leaf copied to host memory
+    (numpy leaves stay as they are)."""
+    import torch
+
+    from repro_torch.engine.types import tree_map
+
+    return tree_map(lambda a: a.cpu() if torch.is_tensor(a) else a, tree)
+
+
 def _state_leaves(state):
     """(name, tensor) of every leaf of an ``EngineState``."""
     return [(f"{g}.{leaf}", getattr(getattr(state, g), leaf))
@@ -1098,9 +1135,10 @@ def phase_stream(runs, device="cuda", n_streams=FLEET_STREAMS):
     shipped from host memory.  Zero latency must equal the eager
     ``run_fleet`` runs of phase 6 (``runs``) bit for bit; then ``algo1``
     with a late, lossy teacher under each backpressure policy.  Returns
-    (the printed results, each policy's ``(state, outputs, stats)``, and
-    the ``algo1`` ticks and labels as host arrays): phase 6g resumes
-    snapshots of the same runs against them."""
+    (the printed results, each policy's ``(state, outputs, stats)``, the
+    ``algo1`` ticks and labels as host arrays, and each mode's zero-latency
+    ``(state, outputs)`` on the host): phase 6g resumes snapshots of the
+    same runs against them, phase 6j holds its sharded sessions to them."""
     import numpy as np
     import torch
 
@@ -1112,6 +1150,7 @@ def phase_stream(runs, device="cuda", n_streams=FLEET_STREAMS):
     cfg = har_odl.full()
     data = har.generate(seed=SEED)
     res = {}
+    zero_runs = {}
     ops.reset_launch_counts()
     graphs.reset_replay_counts()
     for mode, n_ticks, shift_at in _fleet_modes():
@@ -1120,6 +1159,7 @@ def phase_stream(runs, device="cuda", n_streams=FLEET_STREAMS):
         del xs, ys
         state, outs, stats, secs = _run_stream_once(cfg, ticks, labels, mode, device,
                                                     {"latency": 0})
+        zero_runs[mode] = (_host_tree(state), outs)
         f_state, f_outs = runs[mode]
         f_host = {f: getattr(f_outs, f).cpu().numpy() for f in f_outs._fields}
         differ = [f for f in f_outs._fields if not np.array_equal(f_host[f], getattr(outs, f))]
@@ -1162,7 +1202,7 @@ def phase_stream(runs, device="cuda", n_streams=FLEET_STREAMS):
           "stream: the fleet shape took the two-stage route")
     print(f"stream path (S={n_streams}, graphed runners, ticks from host memory): "
           f"{json.dumps(res)}")
-    return res, policy_runs, (ticks, labels)
+    return res, policy_runs, (ticks, labels), zero_runs
 
 
 def phase_stream_cross_check(n_streams=STREAM_CHECK["n_streams"],
@@ -2651,6 +2691,294 @@ def phase_elastic(device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6j: stream-axis sharding (engine.split_fleet, stream.run_sharded)
+# ---------------------------------------------------------------------------
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted name, leaf) of a NamedTuple tree, in field order."""
+    if hasattr(tree, "_fields"):
+        return [nl for f in tree._fields
+                for nl in _named_leaves(getattr(tree, f), prefix + f + ".")]
+    return [(prefix[:-1], tree)]
+
+
+def _bitwise_differs(a, b):
+    """Names of the leaves where two NamedTuple trees (tensors on any
+    device or numpy arrays) differ in dtype, shape or any bit."""
+    import numpy as np
+    import torch
+
+    def host(x):
+        return x.cpu() if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+
+    out = []
+    for (name, x), (_, y) in zip(_named_leaves(a), _named_leaves(b), strict=True):
+        x, y = host(x), host(y)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            out.append(name)
+    return out
+
+
+def _sharded_window(acc, fn, device="cuda"):
+    """Run ``fn`` (one sharded run) with the kernels' launch and replay
+    counts set to 0 just before and read just after, added into ``acc``
+    with the shapes its kernels were called at; returns (result, seconds)."""
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import ops
+
+    _sync(device)
+    ops.reset_launch_counts()
+    graphs.reset_replay_counts()
+    with _ShapeLog() as log:
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        secs = time.perf_counter() - t0
+    for key, counts in (("launches", ops.launch_counts), ("replays", graphs.kernel_replays)):
+        for name, n in counts.items():
+            acc[key][name] = acc[key].get(name, 0) + n
+    for name, got in log.shapes.items():
+        acc["shapes"].setdefault(name, set()).update(got)
+    return out, secs
+
+
+def _shard_teachers(labels, n_shards=SHARDS, **kw):
+    """A factory ``k -> LatencyTeacher`` over shard k's label columns; a
+    ``seed`` in ``kw`` becomes ``seed + k``."""
+    from repro_torch.engine import stream
+
+    width = labels.shape[1] // n_shards
+
+    def make(k):
+        kk = dict(kw, seed=kw["seed"] + k) if "seed" in kw else kw
+        return stream.LatencyTeacher(
+            stream.array_labels(labels[:, k * width:(k + 1) * width]), **kk)
+
+    return make
+
+
+def _check_shard_accounting(what, stats_list):
+    """Per shard and in sum: the accounting identity, and every aggregate
+    counter the sum of the shards' own."""
+    from repro_torch.engine import stream
+
+    agg = stream.aggregate_stats(stats_list)
+    check(all(s.reconciled for s in stats_list) and agg["queries_reconciled"],
+          f"sharding {what}: a shard does not reconcile: {agg['per_shard']}")
+    for c in COUNTERS[1:]:
+        check(sum(p[c] for p in agg["per_shard"]) == agg[c],
+              f"sharding {what}: the shards' {c} do not sum to the aggregate")
+    return agg
+
+
+def phase_sharding(fleet_res, fleet_runs, stream_res, zero_runs, device="cuda",
+                   n_streams=FLEET_STREAMS):
+    """6j: stream-axis sharding on one card (see the module docstring).
+    ``fleet_runs`` are phase 6's ``run_fleet`` results and ``zero_runs``
+    6c's zero-latency stream runs, by mode, on the host; ``fleet_res`` and
+    ``stream_res`` their printed results (for the solo rates)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.configs import har_odl
+    from repro_torch.data import har
+    from repro_torch.distributed import sharding
+    from repro_torch.engine import snapshot, stream
+    from repro_torch.engine.types import EngineState
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.runtime.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    cfg = har_odl.full()
+    data = har.generate(seed=SEED)
+    card = _card() if device == "cuda" else "cpu"
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh = make_fleet_mesh(SHARDS, devices=[dev] * SHARDS)
+    width = n_streams // SHARDS
+    acc = {"launches": {}, "replays": {}, "shapes": {}}
+    res = {"blocked": {}, "padded": {}, "stream": {}, "rescale": {}}
+    with sharding.activate(mesh):
+        check(sharding.fleet_axis_size() == SHARDS, "sharding: the mesh's fleet axis")
+        # (a) phase 6's runs through the blocked path.
+        for mode, n_ticks, shift_at in _fleet_modes():
+            xs, ys = _fleet_ticks(data, n_ticks, n_streams, shift_at, device, SEED + n_ticks)
+            ref_state, ref_outs = fleet_runs[mode]
+            for block in (width, None):
+                sh = engine.split_fleet(engine.init_fleet(cfg, n_streams, device), cfg, block=block)
+                (sh, outs), secs = _sharded_window(
+                    acc, lambda: engine.run_fleet_shards(sh, xs, ys, cfg, mode=mode), device)
+                merged = engine.merge_fleet(sh)
+                differ = _bitwise_differs(ref_state, merged) + _bitwise_differs(ref_outs, outs)
+                check(not differ, f"sharding (a) {mode} block={block}: {differ} differ from "
+                                  "run_fleet")
+                res["blocked"][f"{mode}_block{block or engine.DEFAULT_STREAM_BLOCK}"] = {
+                    "blocks": len(sh.states), "bit_for_bit": True, "secs": secs,
+                    "stream_ticks_per_s": n_streams * n_ticks / secs,
+                    "solo_stream_ticks_per_s": fleet_res[f"{mode}_stream_ticks_per_s"]}
+                del sh, outs, merged
+            if mode == "train_phase":
+                train = (xs, ys)
+            del xs, ys
+
+        # (b) S=16,381: three dead tail rows through both layouts.
+        s_b = n_streams - SHARD_DEAD_ROWS
+        xs, ys = _fleet_ticks(data, TRAIN_TICKS, s_b, TRAIN_TICKS, device, SEED + 1)
+        ref_state, ref_outs = engine.run_fleet(engine.init_fleet(cfg, s_b, device), xs, ys, cfg,
+                                               mode="train_phase")
+        ref_state, ref_outs = _host_tree(ref_state), _host_tree(ref_outs)
+        sh = engine.split_fleet(engine.init_fleet(cfg, s_b, device), cfg, block=width)
+        check(sh.n_pad == SHARD_DEAD_ROWS and len(sh.states) == SHARDS,
+              f"sharding (b): n_pad {sh.n_pad}, {len(sh.states)} blocks")
+        (sh, outs), secs_split = _sharded_window(
+            acc, lambda: engine.run_fleet_shards(sh, xs, ys, cfg, mode="train_phase"), device)
+        merged = engine.merge_fleet(sh)
+        check(merged.elm.P.shape[0] == s_b, "sharding (b): merge_fleet kept the padding")
+        differ = _bitwise_differs(ref_state, merged) + _bitwise_differs(ref_outs, outs)
+        check(not differ, f"sharding (b) split_fleet: {differ} differ from run_fleet")
+        placed, n_pad = engine.shard_fleet(engine.init_fleet(cfg, s_b, device), cfg)
+        check(n_pad == SHARD_DEAD_ROWS and placed.elm.P.shape[0] == n_streams,
+              f"sharding (b): shard_fleet padded by {n_pad}")
+        (st, outs), secs_gspmd = _sharded_window(
+            acc, lambda: engine.run_fleet_sharded(placed, xs, ys, cfg, mode="train_phase"), device)
+        differ = (_bitwise_differs(ref_state, engine.slice_streams(st, 0, s_b))
+                  + _bitwise_differs(ref_outs, outs))
+        check(not differ, f"sharding (b) shard_fleet: {differ} differ from run_fleet")
+        res["padded"] = {"streams": s_b, "n_pad": n_pad, "bit_for_bit": True,
+                         "split_secs": secs_split, "sharded_secs": secs_gspmd}
+        del xs, ys, ref_state, ref_outs, sh, merged, placed, st, outs
+
+        # (c) run_sharded over SHARDS sessions, ticks from host memory.
+        tr_ticks, tr_labels = (a.cpu().numpy() for a in train)
+        xs, ys = _fleet_ticks(data, ALGO1_TICKS, n_streams, ALGO1_SHIFT_AT, device,
+                              SEED + ALGO1_TICKS)
+        ticks = {"train_phase": (tr_ticks, tr_labels),
+                 "algo1": (xs.cpu().numpy(), ys.cpu().numpy())}
+        del xs, ys
+        for mode, (tk, lb) in ticks.items():
+            (st, outs, stats), secs = _sharded_window(acc, lambda: stream.run_sharded(
+                engine.init_fleet(cfg, n_streams, device), iter(tk), cfg,
+                _shard_teachers(lb, latency=0), mode=mode), device)
+            z_state, z_outs = zero_runs[mode]
+            differ = _bitwise_differs(z_state, st) + _bitwise_differs(z_outs, outs)
+            check(not differ, f"sharding (c) {mode} latency 0: {differ} differ from 6c")
+            agg = _check_shard_accounting(f"(c) {mode} latency 0", stats)
+            check(agg["labels_applied"] == agg["queries_issued"] > 0,
+                  f"sharding (c) {mode}: a zero-latency label was not applied")
+            res["stream"][f"{mode}_latency0"] = {
+                "bit_for_bit": True, "secs": secs,
+                "stream_ticks_per_s": n_streams * len(tk) / secs,
+                "solo_stream_ticks_per_s": stream_res[f"{mode}_stream_ticks_per_s"],
+                "tick_p50_ms": agg["tick_p50_ms"], "tick_p95_ms": agg["tick_p95_ms"]}
+            del st, outs, stats
+        solo_state, solo_outs, solo_stats, solo_secs = _run_stream_once(
+            cfg, tr_ticks, tr_labels, "train_phase", device, {"latency": 3})
+        solo_state = _host_tree(solo_state)
+        (st, outs, stats), secs = _sharded_window(acc, lambda: stream.run_sharded(
+            engine.init_fleet(cfg, n_streams, device), iter(tr_ticks), cfg,
+            _shard_teachers(tr_labels, latency=3), mode="train_phase"), device)
+        differ = _bitwise_differs(solo_state, st) + _bitwise_differs(solo_outs, outs)
+        check(not differ, f"sharding (c) latency 3: {differ} differ from the solo stream.run")
+        agg = _check_shard_accounting("(c) latency 3", stats)
+        same = ("stream_steps", "queries_issued", "labels_applied", "queries_dropped",
+                "queries_lost", "queries_coalesced", "replies_orphaned")
+        check(all(agg[c] == getattr(solo_stats, c) for c in same),
+              "sharding (c) latency 3: query counters differ from the solo run")
+        res["stream"]["train_phase_latency3"] = {
+            "bit_for_bit": True, "secs": secs, "stream_ticks_per_s": n_streams * TRAIN_TICKS / secs,
+            "solo_stream_ticks_per_s": n_streams * TRAIN_TICKS / solo_secs,
+            "label_latency_p50": agg["label_latency_p50"]}
+        del solo_state, solo_outs, st, outs
+        tk, lb = ticks["algo1"]
+        (st, outs, stats), secs = _sharded_window(acc, lambda: stream.run_sharded(
+            engine.init_fleet(cfg, n_streams, device), iter(tk), cfg,
+            _shard_teachers(lb, **STREAM_TEACHER), mode="algo1", capacity=STREAM_CAPACITY,
+            backpressure="drop_oldest"), device)
+        agg = _check_shard_accounting("(c) lossy algo1", stats)
+        check(agg["labels_applied"] > 0, f"sharding (c) lossy algo1: no label applied: {agg}")
+        res["stream"]["algo1_lossy_drop_oldest"] = {
+            k: agg[k] for k in ("queries_issued", "labels_applied", "queries_dropped",
+                                "queries_lost", "replies_orphaned", "queries_reconciled",
+                                "tick_p50_ms", "tick_p95_ms", "label_latency_p50")}
+        res["stream"]["algo1_lossy_drop_oldest"]["per_shard_issued"] = [
+            p["queries_issued"] for p in agg["per_shard"]]
+        res["stream"]["algo1_lossy_drop_oldest"]["secs"] = secs
+        del ticks, tk, lb, st, outs, stats
+
+        # (d) merged at tick SHARD_SAVE_TICK, saved, restored with shardings
+        # onto the card, split into SHARD_RESCALE shards, run to the end.
+        xs, ys = train
+        cut = SHARD_SAVE_TICK
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharding_"))
+        try:
+            sh = engine.split_fleet(engine.init_fleet(cfg, n_streams, device), cfg, block=width)
+            (sh, outs_a), _ = _sharded_window(
+                acc, lambda: engine.run_fleet_shards(sh, xs[:cut], ys[:cut], cfg,
+                                                     mode="train_phase"), device)
+            tree = snapshot.state_to_tree(engine.merge_fleet(sh))
+            del sh
+            t0 = time.perf_counter()
+            CheckpointManager(str(tmp)).save(cut, tree)
+            save_ms = 1e3 * (time.perf_counter() - t0)
+            shardings = {g: {k: dev for k in leaves} for g, leaves in tree.items()}
+            del tree
+            t0 = time.perf_counter()
+            step, restored = CheckpointManager(str(tmp)).restore(shardings=shardings)
+            _sync(device)
+            restore_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        ref_state, ref_outs = fleet_runs["train_phase"]
+        state = EngineState(*(type(getattr(ref_state, g))(**restored[g])
+                              for g in EngineState._fields))
+        check(step == cut and all(a.device == dev for _, a in _named_leaves(state)),
+              "sharding (d): the restore did not place every leaf on the card")
+        sh = engine.split_fleet(state, cfg, n_shards=SHARD_RESCALE)
+        del state, restored
+        (sh, outs_b), _ = _sharded_window(
+            acc, lambda: engine.run_fleet_shards(sh, xs[cut:], ys[cut:], cfg, mode="train_phase"),
+            device)
+        outs = type(outs_a)(*(torch.cat(p, dim=0) for p in zip(outs_a, outs_b)))
+        differ = _bitwise_differs(ref_state, engine.merge_fleet(sh)) + _bitwise_differs(
+            ref_outs, outs)
+        check(not differ, f"sharding (d): {differ} differ from the uninterrupted run")
+        res["rescale"] = {"from_shards": SHARDS, "to_shards": SHARD_RESCALE,
+                          "blocks_after": len(sh.states), "cut": cut, "bit_for_bit": True,
+                          "save_ms": save_ms, "restore_ms": restore_ms}
+        del sh, train, xs, ys
+    for name in PATH_KERNELS:
+        check(device != "cuda" or acc["launches"][name] + acc["replays"][name] > 0,
+              f"sharding: {name} ran neither eagerly nor by a replay on the sharded paths")
+    res["launches"], res["replays"] = acc["launches"], acc["replays"]
+    res["shapes"] = {name: sorted(got) for name, got in acc["shapes"].items() if got}
+    missing = {name: sorted(got - set(_ShapeLog.HELD[name]))
+               for name, got in acc["shapes"].items() if got - set(_ShapeLog.HELD[name])}
+    check(device != "cuda" or not missing,
+          f"sharding: kernels called at shapes phases 2-4 did not hold: {missing}")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"sharding (6j, mesh of {SHARDS} x {dev}, S={n_streams}, n_in={cfg.elm.n_in}, "
+          f"N={cfg.elm.n_hidden}, m={cfg.elm.n_out}) on {card}: "
+          f"{json.dumps({k: v for k, v in res.items() if k != 'shapes'})}")
+    for key, r in list(res["blocked"].items()) + [(k, v) for k, v in res["stream"].items()
+                                                  if "solo_stream_ticks_per_s" in v]:
+        print(f"  {key}: bit for bit; sharded {r['stream_ticks_per_s']:.1f} against solo "
+              f"{r['solo_stream_ticks_per_s']:.1f} stream·ticks/s ({card})")
+    print(f"  padded S={n_streams - SHARD_DEAD_ROWS}: split_fleet and shard_fleet bit for bit "
+          f"run_fleet, the {res['padded']['n_pad']} dead rows stripped; rescale "
+          f"{SHARDS} -> {SHARD_RESCALE} shards at tick {SHARD_SAVE_TICK} bit for bit (save "
+          f"{res['rescale']['save_ms']:.1f} ms, restore onto {dev} "
+          f"{res['rescale']['restore_ms']:.1f} ms) ({card})")
+    print("  kernels on the sharded paths (launches + replays): "
+          f"{ {k: res['launches'][k] + res['replays'][k] for k in PATH_KERNELS} }")
+    print(f"  kernel shapes on the sharded paths, each held in phases 2-4: {res['shapes']}")
+    print(f"  phase 6j took {res['seconds']:.1f} s ({card})")
+    return res
+
+
 def _device_ms(fn, reps=20, rounds=3):
     """Device time of one call of ``fn``: CUDA events around a batch of
     calls, the median of ``rounds`` batches.  A sleep kernel keeps the card
@@ -3067,7 +3395,8 @@ def main(argv=None) -> int:
     fleet, runs = phase_fleet()
     phase_cross_check()
     eager = phase_profile()
-    streamed, policy_runs, (ticks, labels) = phase_stream(runs)
+    streamed, policy_runs, (ticks, labels), zero_runs = phase_stream(runs)
+    fleet_runs = {mode: (_host_tree(st), _host_tree(outs)) for mode, (st, outs) in runs.items()}
     del runs
     phase_stream_cross_check()
     stream_prof = phase_stream_profile(eager, fleet)
@@ -3077,6 +3406,8 @@ def main(argv=None) -> int:
     rpc_res = phase_rpc(ticks)
     del ticks
     elastic_res = phase_elastic()
+    sharded = phase_sharding(fleet, fleet_runs, streamed, zero_runs)
+    del fleet_runs, zero_runs
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -3148,6 +3479,11 @@ def main(argv=None) -> int:
             "elastic_replays": elastic_res["kernel_replays"].get(name, 0),
             "elastic_solo_launches": elastic_res["solo_launches"].get(name, 0),
             "elastic_solo_replays": elastic_res["solo_replays"].get(name, 0),
+            # Sharding (phase 6j): eager launches and graph replays of the
+            # sharded runs (blocked, padded, streamed and rescaled), counted
+            # from 0 around each; the unsharded runs they are held to apart.
+            "sharded_launches": sharded["launches"].get(name, 0),
+            "sharded_replays": sharded["replays"].get(name, 0),
             # The paper's tables (phase 5b): eager launches, both widths.
             "paper_launches": paper["launches"].get(name, 0),
             "paper_max_abs_err": paper["errs"].get(name),

@@ -18,6 +18,7 @@ from repro_torch import resolve_device
 from repro_torch.core import drift as drift_mod
 from repro_torch.core import labels as labels_mod
 from repro_torch.core import oselm, pruning
+from repro_torch.engine.fleet import FleetShards
 from repro_torch.engine.types import EngineConfig, EngineState
 
 _GROUPS = {
@@ -63,6 +64,19 @@ def engine_state_from_numpy(
         for g, cls in _GROUPS.items()
     }
     return EngineState(**groups)
+
+
+def fleet_shards_from_numpy(shards, device: str | torch.device | None = None) -> FleetShards:
+    """The port's ``FleetShards`` from either package's (the JAX package's
+    blocks are JAX arrays): every block through ``engine_state_to_numpy``
+    and ``engine_state_from_numpy`` onto ``device`` (CUDA unless named),
+    ``bounds`` and ``n_pad`` copied."""
+    return FleetShards(
+        states=tuple(engine_state_from_numpy(engine_state_to_numpy(st), device)
+                     for st in shards.states),
+        bounds=tuple((int(lo), int(hi)) for lo, hi in shards.bounds),
+        n_pad=int(shards.n_pad),
+    )
 
 
 def config_to_dict(cfg) -> dict:

@@ -120,3 +120,9 @@ def update(state: DriftState, s: torch.Tensor, cfg: DriftConfig) -> DriftState:
 
 def init_fleet(n_streams: int, device: str | torch.device | None = None) -> DriftState:
     return DriftState(*(a.expand((n_streams,)).clone() for a in init_state(device)))
+
+
+def fleet_update(state: DriftState, s: torch.Tensor, cfg: DriftConfig) -> DriftState:
+    """``update`` for S detectors (leaves and ``s`` of shape (S,)): the step
+    is elementwise, so this is ``update`` itself."""
+    return update(state, s, cfg)

@@ -214,6 +214,28 @@ def init_fleet(
     return OSELMState(*(a.expand((n_streams,) + a.shape).clone() for a in one))
 
 
+def fleet_predict(
+    state: OSELMState, x: torch.Tensor, cfg: OSELMConfig
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``predict`` for S heads, one sample each: x (S, n_in) -> (c (S,),
+    O (S, m)) by one projection and a batched readout."""
+    o = torch.bmm(hidden(x, cfg)[:, None, :], state.beta)[:, 0]
+    return torch.argmax(o, dim=-1), o
+
+
+def fleet_update(
+    state: OSELMState,
+    x: torch.Tensor,  # (S, n_in)
+    y: torch.Tensor,  # (S, m) one-hot
+    cfg: OSELMConfig,
+    mask: Optional[torch.Tensor] = None,  # (S,) in {0, 1}
+) -> OSELMState:
+    """Rank-1 ``sequential_update`` for S heads, one sample each (the JAX
+    package's vmap baseline): :func:`fleet_rank1_update`, whose RLS the
+    device routes (the kernel on CUDA, its plain version on the CPU)."""
+    return fleet_rank1_update(state, x, y, cfg, mask=mask)
+
+
 def fleet_rank1_update_h(
     state: OSELMState,  # leaves with leading S
     h: torch.Tensor,  # (S, N) hidden activations, one row per stream

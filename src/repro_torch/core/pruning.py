@@ -157,3 +157,15 @@ def comm_volume_fraction(state: PruneState) -> torch.Tensor:
 
 def init_fleet(n_streams: int, device: str | torch.device | None = None) -> PruneState:
     return PruneState(*(a.expand((n_streams,)).clone() for a in init_state(device)))
+
+
+def fleet_should_query(state: PruneState, outputs, trained_count, drift_active,
+                       cfg: PruneConfig) -> torch.Tensor:
+    """``should_query`` for S streams (outputs (S, m), the rest (S,)):
+    elementwise over S, so ``should_query`` itself."""
+    return should_query(state, outputs, trained_count, drift_active, cfg)
+
+
+def fleet_update(state: PruneState, queried, agree, conf, cfg: PruneConfig) -> PruneState:
+    """``update`` for S streams: elementwise over S, so ``update`` itself."""
+    return update(state, queried, agree, conf, cfg)

@@ -8,7 +8,14 @@ durability (``snapshot.py``: snapshot/restore of a live session and its wire
 frame; ``durable.py``: the single-session durable runner and the
 kill-and-resume smoke, ``python -m repro_torch.engine.durable
 --crash-smoke``) and the teacher transport (``rpc.py`` on ``wire.py``).
-Sharding is not ported yet.
+
+Sharding: ``split_fleet``/``run_fleet_shards``/``merge_fleet`` split a fleet
+along its stream axis into shard-local blocks, one device per shard (a
+``launch.mesh.make_fleet_mesh`` mesh under ``distributed.sharding.activate``,
+or an explicit device list), and ``stream.run_sharded`` runs one stream
+session per shard; both are bit for bit the unsplit run.
+``shard_fleet``/``run_fleet_sharded`` keep the reference's GSPMD layout on a
+mesh whose entries are all one device.
 
 Teachers over the wire: ``engine.rpc.RpcTeacher`` speaks the
 ``stream.Teacher`` protocol over a real TCP socket with timeout -> loss;
@@ -44,6 +51,8 @@ into cohorts that advance with one stacked dispatch per tick.
 """
 
 from repro_torch.engine.fleet import (  # noqa: F401
+    DEFAULT_STREAM_BLOCK,
+    FleetShards,
     GateOutput,
     PlanOutput,
     apply_labels,
@@ -53,11 +62,17 @@ from repro_torch.engine.fleet import (  # noqa: F401
     gate,
     init_fleet,
     learn,
+    merge_fleet,
+    pad_streams,
     plan,
     remove_streams,
     run_fleet,
+    run_fleet_sharded,
+    run_fleet_shards,
     runner_cache_info,
+    shard_fleet,
     slice_streams,
+    split_fleet,
     stack_streams,
     stream_slice,
 )

@@ -239,6 +239,7 @@ def _crash_smoke(ticks: int, snapshot_every: int, device: Optional[str]) -> int:
                 child.wait(timeout=30)
         report = _smoke_run(d, ticks, snapshot_every, tick_sleep_s=0.0, resume=True,
                             device=device)
+        # odlint: disable=ODL005 -- CI crash-smoke CLI prints its report
         print(json.dumps(report, indent=2))
         for name, r in report.items():
             if not r["reconciled"]:
@@ -247,6 +248,7 @@ def _crash_smoke(ticks: int, snapshot_every: int, device: Optional[str]) -> int:
                 raise AssertionError(f"{name}: resumed run incomplete: {r}")
             if r["labels_applied"] <= 0:
                 raise AssertionError(f"{name}: resumed run never trained")
+    # odlint: disable=ODL005 -- CI crash-smoke CLI status line
     print(f"crash smoke OK on {device}: {_SMOKE_TENANTS} tenants killed mid-stream, "
           f"resumed from snapshots, accounting reconciled")
     return 0
@@ -276,6 +278,7 @@ def main(argv=None) -> int:
             args.dir, args.ticks, args.snapshot_every,
             tick_sleep_s=args.tick_sleep_ms / 1000.0, resume=args.resume, device=args.device,
         )
+        # odlint: disable=ODL005 -- smoke-child CLI: parent parses stdout
         print(json.dumps(report, indent=2))
         return 0
     ap.error("choose --crash-smoke or --smoke-child")

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import labels as labels_mod
 from repro_torch.core import oselm, pruning
+from repro_torch.distributed import sharding
 from repro_torch.engine.types import (
     EngineConfig,
     EngineState,
@@ -390,3 +391,237 @@ def apply_labels(
     )
     return state._replace(elm=new_elm, prune=new_prune)
 
+
+# ---------------------------------------------------------------------------
+# Sharded fleets: the stream axis split over a ("fleet",) device mesh.
+# ---------------------------------------------------------------------------
+#
+# Every op of a tick computes a row in an order that does not depend on S
+# (see the stacked-state helpers above), so a fleet split along its stream
+# axis, advanced block by block and stitched back in row order, is bit for
+# bit the unsplit run, with no traffic between shards.  The JAX package
+# offers two layouts: one array that GSPMD partitions (``shard_fleet`` +
+# ``run_fleet_sharded``) and explicit per-shard blocks (``split_fleet`` +
+# ``run_fleet_shards``).  One torch process has no partitioner: the first
+# layout runs here on a mesh whose entries are all one device, as one padded
+# full-width dispatch, which is what the partitioned dispatch computes; the
+# second runs on any device list.
+
+# Streams per block of the explicit shard-local path, the reference's: P is
+# 64 KB a stream at N=128, so a 512-stream block's P (32 MB) fits the H100's
+# 50 MB L2 across the block's T-tick loop.
+DEFAULT_STREAM_BLOCK = 512
+
+
+def pad_streams(state: EngineState, cfg: EngineConfig, n_pad: int) -> EngineState:
+    """Append ``n_pad`` fresh-init dead rows to a fleet (S padded up to a
+    multiple of the shard count), on the fleet's device.  Dead rows run
+    with ``teacher_available=False``, so they never query or learn; callers
+    strip their rows from the outputs."""
+    if n_pad <= 0:
+        return state
+    return stack_streams([state, init_fleet(cfg, n_pad, state.elm.P.device)])
+
+
+def _canon(device) -> torch.device:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _one_device(mesh, what: str) -> torch.device:
+    """The device of a mesh whose entries are all one device; raises for a
+    mesh of distinct devices, which only the explicit shard path runs."""
+    devices = {_canon(d) for d in mesh.devices}
+    if len(devices) != 1:
+        raise NotImplementedError(
+            f"{what} partitions one dispatch over the mesh, which needs GSPMD; on a mesh "
+            f"of distinct devices ({sorted(map(str, devices))}) use split_fleet and "
+            "run_fleet_shards")
+    return devices.pop()
+
+
+def shard_fleet(
+    state: EngineState, cfg: EngineConfig, mesh=None
+) -> tuple[EngineState, int]:
+    """Place a fleet on the current mesh (or ``mesh``): pad S to a multiple
+    of the mesh's fleet-axis size and put every leaf on the mesh's device.
+    Returns ``(placed_state, n_pad)``; the identity (and ``n_pad=0``) with
+    no mesh.  Advance it with ``run_fleet_sharded``.  A mesh of distinct
+    devices raises ``NotImplementedError`` (use ``split_fleet``)."""
+    if mesh is not None and mesh is not sharding.mesh_or_none():
+        with sharding.activate(mesh):
+            return shard_fleet(state, cfg)
+    mesh = sharding.mesh_or_none()
+    if mesh is None:
+        return state, 0
+    dev = _one_device(mesh, "shard_fleet")
+    n_shards = sharding.fleet_axis_size()
+    s = state.elm.P.shape[0]
+    n_pad = (-s) % n_shards
+    state = pad_streams(tree_map(lambda a: a.to(dev), state), cfg, n_pad)
+    return state, n_pad
+
+
+def _pad_rows(a: torch.Tensor, n_dead: int, value=0) -> torch.Tensor:
+    """``a`` (T, S, ...) with ``n_dead`` rows of ``value`` appended on axis 1."""
+    pad = torch.full((a.shape[0], n_dead) + tuple(a.shape[2:]), value, dtype=a.dtype,
+                     device=a.device)
+    return torch.cat([a, pad], dim=1)
+
+
+def run_fleet_sharded(
+    state: EngineState,  # shard_fleet-placed (possibly padded) fleet
+    xs,  # (T, S_real, n_in)
+    labels,  # (T, S_real) int
+    cfg: EngineConfig,
+    mode: str = "algo1",
+    teacher_available=None,  # (T, S_real) bool
+    chunk: Optional[int] = None,
+) -> tuple[EngineState, FleetStepOutput]:
+    """Advance a ``shard_fleet``-placed fleet by full-width dispatches on
+    its device.  Inputs are in real (unpadded) width: dead rows are
+    appended here with ``teacher_available=False`` and stripped from the
+    returned outputs, so callers never see padding.  Under a mesh of
+    distinct devices it raises ``NotImplementedError`` (use
+    ``run_fleet_shards``)."""
+    mesh = sharding.mesh_or_none()
+    if mesh is not None:
+        _one_device(mesh, "run_fleet_sharded")
+    dev = state.elm.P.device
+    s_pad = state.elm.P.shape[0]
+    xs = torch.as_tensor(xs, device=dev)
+    labels = torch.as_tensor(labels, device=dev)
+    t, s_real = xs.shape[0], xs.shape[1]
+    if s_pad < s_real:
+        raise ValueError(f"state has {s_pad} streams < input width {s_real}")
+    if teacher_available is not None:
+        teacher_available = torch.as_tensor(teacher_available, device=dev).to(torch.bool)
+    if s_pad != s_real:
+        n_dead = s_pad - s_real
+        if teacher_available is None:
+            teacher_available = torch.ones((t, s_real), dtype=torch.bool, device=dev)
+        xs, labels = _pad_rows(xs, n_dead), _pad_rows(labels, n_dead)
+        teacher_available = _pad_rows(teacher_available, n_dead, False)
+    state, out = run_fleet(state, xs, labels, cfg, mode=mode,
+                           teacher_available=teacher_available, chunk=chunk, donate=True)
+    if s_pad != s_real:
+        out = tree_map(lambda a: a[:, :s_real], out)
+    return state, out
+
+
+class FleetShards(NamedTuple):
+    """Explicit shard-local layout: the fleet split into per-block states,
+    shard k's blocks on device k.
+
+    Each block is advanced by its own block-width dispatches, so a shard's
+    P and beta never leave its device, and a block's P can stay in cache
+    across the T-tick loop.  The sharded stream session
+    (``stream.ShardedStreamSession``) uses the same row partition.
+    """
+
+    states: tuple  # per-block EngineState, block b on its shard's device
+    bounds: tuple  # per-block (lo, hi) row window in the padded fleet
+    n_pad: int  # dead rows appended to the tail (never surfaced in outputs)
+
+
+def split_fleet(
+    state: EngineState,
+    cfg: EngineConfig,
+    n_shards: Optional[int] = None,
+    block: Optional[int] = None,
+    devices=None,
+) -> FleetShards:
+    """Split a fleet into ``FleetShards``: pad S to a multiple of
+    ``n_shards`` (default: the current mesh's fleet-axis size, 1 with no
+    mesh), divide each shard into ``block``-stream blocks (default
+    ``DEFAULT_STREAM_BLOCK``, capped at the shard width), and put shard k's
+    blocks on ``devices[k]`` (default: the current mesh's devices, else the
+    fleet's own device).  Every block owns its tensors."""
+    if n_shards is None:
+        n_shards = sharding.fleet_axis_size()
+    if devices is None:
+        mesh = sharding.mesh_or_none()
+        if mesh is not None:
+            devices = list(mesh.devices)
+    if devices is not None and len(devices) < n_shards:
+        raise ValueError(f"{n_shards} shards > {len(devices)} devices")
+    s = state.elm.P.shape[0]
+    n_pad = (-s) % n_shards
+    state = pad_streams(state, cfg, n_pad)
+    width = (s + n_pad) // n_shards
+    if block is None:
+        block = DEFAULT_STREAM_BLOCK
+    block = max(1, min(block, width))
+    states, bounds = [], []
+    for k in range(n_shards):
+        dev = torch.device(devices[k]) if devices is not None else state.elm.P.device
+        lo = k * width
+        while lo < (k + 1) * width:
+            hi = min(lo + block, (k + 1) * width)
+            states.append(tree_map(lambda a: a[lo:hi].to(dev, copy=True), state))
+            bounds.append((lo, hi))
+            lo = hi
+    return FleetShards(states=tuple(states), bounds=tuple(bounds), n_pad=n_pad)
+
+
+def merge_fleet(shards: FleetShards) -> EngineState:
+    """One fleet on the host (CPU tensors) from shard-local blocks, with the
+    dead-row padding stripped (the checkpoint and inspection path; the hot
+    path never gathers)."""
+    full = stack_streams([tree_map(lambda a: a.cpu(), st) for st in shards.states])
+    if shards.n_pad:
+        full = slice_streams(full, 0, full.elm.P.shape[0] - shards.n_pad)
+    return full
+
+
+def run_fleet_shards(
+    shards: FleetShards,
+    xs,  # (T, S_real, n_in)
+    labels,  # (T, S_real) int
+    cfg: EngineConfig,
+    mode: str = "algo1",
+    teacher_available=None,  # (T, S_real) bool
+    chunk: Optional[int] = None,
+) -> tuple[FleetShards, FleetStepOutput]:
+    """Advance every block of a ``FleetShards`` by its own dispatches on its
+    device and stitch the outputs in row order, on the host (CPU tensors).
+    Bit for bit the unsplit ``run_fleet`` at equal S; dead tail rows run
+    with ``teacher_available=False`` and are stripped from the outputs.
+
+    The blocks are shard-local, so the loop runs under
+    ``sharding.deactivate()``: a caller's mesh scope does not reach them."""
+    with sharding.deactivate():
+        return _run_fleet_shards_body(shards, xs, labels, cfg, mode, teacher_available, chunk)
+
+
+# odlint: shard-local
+def _run_fleet_shards_body(
+    shards, xs, labels, cfg, mode, teacher_available, chunk
+) -> tuple[FleetShards, FleetStepOutput]:
+    xs, labels = torch.as_tensor(xs), torch.as_tensor(labels)
+    if teacher_available is not None:
+        teacher_available = torch.as_tensor(teacher_available).to(torch.bool)
+    s_real = xs.shape[1]
+    new_states, outs = [], []
+    for st, (lo, hi) in zip(shards.states, shards.bounds):
+        dev = st.elm.P.device
+        real_hi = max(lo, min(hi, s_real))  # a block may sit wholly in the padding
+        n_dead = hi - real_hi
+        x_b = xs[:, lo:real_hi].to(dev)
+        lab_b = labels[:, lo:real_hi].to(dev)
+        av_b = None if teacher_available is None else teacher_available[:, lo:real_hi].to(dev)
+        if n_dead:
+            if av_b is None:
+                av_b = torch.ones(lab_b.shape, dtype=torch.bool, device=dev)
+            x_b, lab_b = _pad_rows(x_b, n_dead), _pad_rows(lab_b, n_dead)
+            av_b = _pad_rows(av_b, n_dead, False)
+        st, out = run_fleet(st, x_b, lab_b, cfg, mode=mode, teacher_available=av_b,
+                            chunk=chunk, donate=True)
+        if n_dead:
+            out = tree_map(lambda a: a[:, : hi - lo - n_dead], out)
+        new_states.append(st)
+        outs.append(out)
+    merged = tree_map(lambda *a: torch.cat([x.cpu() for x in a], dim=1), *outs)
+    return shards._replace(states=tuple(new_states)), merged

@@ -816,7 +816,7 @@ class BatchedRpcClient:
 
     # -- internals ---------------------------------------------------------
 
-    def _take_locked(self):
+    def _take_locked(self):  # odlint: holds-lock(_cond)
         """Take up to ``batch_max`` queued asks (the caller holds _cond)."""
         batch = self._queue[: self.batch_max]
         self._queue = self._queue[self.batch_max:]
@@ -1065,6 +1065,7 @@ def _selftest(device) -> int:
         # times out into loss and no label arrives.
         _, replies = roundtrip(host, port, secret=None, timeout_s=0.5)
         assert not replies, "unauthenticated client must receive nothing"
+    # odlint: disable=ODL005 -- CLI selftest result line, not library code
     print(f"rpc selftest OK on {device} (v1 + v2 + zlib + batched + hmac + reject): {want}")
     return 0
 
@@ -1092,7 +1093,8 @@ def main(argv=None) -> int:
     server = LabelServer(port=args.port, n_out=args.n_out, delay_s=args.delay_ms / 1000.0,
                          secret=args.secret, loss_prob=args.loss_prob,
                          jitter_s=args.jitter_ms / 1000.0)
-    print(f"PORT {server.port}", flush=True)  # the line loopback_server parses
+    # odlint: disable=ODL005 -- CLI contract: launchers parse this PORT line
+    print(f"PORT {server.port}", flush=True)
     server.serve_forever()
     return 0
 

@@ -50,7 +50,14 @@ Telemetry (``runtime/telemetry.py``): ``advance`` is one ``stream.tick``
 span (``t=``, ``queries=``) begun and ended on the host, outside any graph
 capture; a ring eviction is a ``ring.evict`` event; ``sync_telemetry``
 mirrors ``StreamStats`` into the registry at ``finish()`` and at live
-scrapes, from host integers only.  Not ported here: the sharded session.
+scrapes, from host integers only; a shard's session labels its series
+``shard=<k>``.
+
+Sharding: ``ShardedStreamSession`` / ``run_sharded`` split the stream axis
+into shard-local sessions, each with its own ring, backpressure and teacher,
+advanced in lockstep over row windows of one full-width tick source;
+``aggregate_stats`` folds their stats, the accounting identity held per
+shard.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import oselm
+from repro_torch.distributed import sharding
 from repro_torch.engine import fleet, graphs
 from repro_torch.engine.types import (
     EngineConfig,
@@ -755,6 +763,7 @@ class StreamSession:
     def started(self) -> bool:
         return self._t_start is not None
 
+    # odlint: shard-local
     def start(self, x0) -> None:
         """Plan the first tick (nothing pending yet)."""
         assert not self.started(), "session already started"
@@ -762,6 +771,7 @@ class StreamSession:
         x0 = self.ship(x0)
         self._x, self._p = x0, self._tick(self._plan_fn, False, (x0,))
 
+    # odlint: shard-local
     def advance(self, nxt) -> None:
         """Finish the current tick (ask → poll → learn) and plan ``nxt``
         (the next tick's features, or None when the source is exhausted)."""
@@ -889,6 +899,7 @@ class StreamSession:
                 self._learn(args)
         return replies
 
+    # odlint: shard-local
     def finish(
         self, drain: bool = True
     ) -> tuple[EngineState, Optional[FleetStepOutput], StreamStats]:
@@ -1122,6 +1133,232 @@ def run(
         while nxt is not None:
             # Double buffering: pull tick t+1 (shipped inside advance) while
             # the device works on tick t.
+            nxt = next(it, None)
+            sess.advance(nxt)
+    return sess.finish(drain=drain)
+
+
+# ---------------------------------------------------------------------------
+# Sharded streaming: per-shard sessions with shard-local pending rings.
+# ---------------------------------------------------------------------------
+
+
+class ShardedStreamSession:
+    """N shard-local ``StreamSession``s advanced in lockstep over row
+    windows of one full-width tick source.
+
+    Everything per tick is shard-local: shard k's state rows live on
+    ``devices[k]`` (the current mesh's devices, or the fleet's own device);
+    its plan and learn dispatches, pending ring, backpressure state and
+    teacher cover only rows ``[k*width, (k+1)*width)``; and a label learns
+    back only into the shard that planned the query.  Each shard gets a
+    row window of the incoming tick (a view for a shard with no padding).
+    Per-shard query accounting reconciles shard-locally
+    (``stats_summary()["per_shard"]``), which is how the tests show that no
+    label crosses shards.
+
+    ``teachers`` is one ``Teacher`` per shard, a factory ``shard_idx ->
+    Teacher``, or an object with a ``tenant`` method (an
+    ``rpc.BatchedRpcClient``): each shard then asks through its own handle,
+    ``teachers.tenant(name=f"shard{k}")``, and the shards' asks share the
+    client's batched frames on one socket.
+
+    S is padded up to a multiple of ``n_shards`` with dead rows at the
+    tail: they plan with ``teacher_available=False`` (never query, never
+    learn, left out of ``stream_steps``), every shard keeps the same
+    width, and ``finish()`` strips them from the merged state and outputs.
+    Under a deterministic lossless teacher the result is bit for bit the
+    unsharded ``run`` at equal S.
+    """
+
+    def __init__(
+        self,
+        state: EngineState,
+        cfg: EngineConfig,
+        teachers,
+        n_shards: Optional[int] = None,
+        mode: str = "algo1",
+        capacity: int = 64,
+        backpressure: str = "drop_oldest",
+        collect: bool = True,
+        donate: Optional[bool] = None,
+        devices=None,
+    ):
+        if n_shards is None:
+            n_shards = sharding.fleet_axis_size()
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if devices is None:
+            mesh = sharding.mesh_or_none()
+            if mesh is not None:
+                devices = list(mesh.devices)
+        if devices is not None and len(devices) < n_shards:
+            raise ValueError(f"{n_shards} shards > {len(devices)} devices")
+        if hasattr(teachers, "tenant"):
+            client = teachers
+            teachers = [client.tenant(name=f"shard{k}") for k in range(n_shards)]
+        elif callable(teachers):
+            teachers = [teachers(k) for k in range(n_shards)]
+        teachers = list(teachers)
+        if len(teachers) != n_shards:
+            raise ValueError(f"need one teacher per shard: {len(teachers)} != {n_shards}")
+        s = int(state.elm.P.shape[0])
+        self.s_real = s
+        self.n_shards = n_shards
+        self.n_pad = (-s) % n_shards
+        self.width = (s + self.n_pad) // n_shards
+        self.bounds = [(k * self.width, (k + 1) * self.width) for k in range(n_shards)]
+        padded = fleet.pad_streams(state, cfg, self.n_pad)
+        self.sessions: list[StreamSession] = []
+        for k, (lo, hi) in enumerate(self.bounds):
+            sub = fleet.slice_streams(padded, lo, hi)
+            if devices is not None:
+                sub = tree_map(lambda a: a.to(devices[k]), sub)
+            sess = StreamSession(
+                sub, cfg, teachers[k], mode=mode, capacity=capacity,
+                backpressure=backpressure, collect=collect, donate=donate,
+                live=min(self.width, max(0, s - lo)),
+            )
+            sess.telemetry_labels = {"shard": str(k)}
+            self.sessions.append(sess)
+        self._zeros = None  # (key, window): shared by the fully dead shards
+
+    def _shard_tick(self, x, k: int):
+        """Shard k's rows of a full-width tick (numpy array or tensor)."""
+        lo, hi = self.bounds[k]
+        if hi <= self.s_real:
+            return x[lo:hi]  # a view, no copy
+        shape = (self.width,) + tuple(x.shape[1:])
+        if lo >= self.s_real:
+            key = (torch.is_tensor(x), shape, x.dtype, getattr(x, "device", None))
+            if self._zeros is None or self._zeros[0] != key:
+                self._zeros = (key, _zeros_like(x, shape))
+            return self._zeros[1]
+        # A tail shard with live and dead rows gets a fresh buffer every
+        # tick: the session asks with the previous tick's rows on the next
+        # advance, and ring tickets keep them, so a buffer written in place
+        # would change what they hold.
+        buf = _zeros_like(x, shape)
+        buf[: self.s_real - lo] = x[lo:]
+        return buf
+
+    def started(self) -> bool:
+        return self.sessions[0].started()
+
+    # The per-shard calls are shard-local (each session's tensors live on one
+    # device), so they run under ``sharding.deactivate()``: a caller's mesh
+    # scope does not reach them.
+
+    def start(self, x0) -> None:
+        x0 = _as_tick(x0)
+        with sharding.deactivate():
+            for k, sess in enumerate(self.sessions):
+                sess.start(self._shard_tick(x0, k))
+
+    def advance(self, nxt) -> None:
+        nxt = None if nxt is None else _as_tick(nxt)
+        with sharding.deactivate():
+            for k, sess in enumerate(self.sessions):
+                sess.advance(None if nxt is None else self._shard_tick(nxt, k))
+
+    def finish(
+        self, drain: bool = True
+    ) -> tuple[EngineState, Optional[FleetStepOutput], list[StreamStats]]:
+        """Drain every shard and merge states (on the host, as CPU tensors)
+        and outputs in row order, with the dead rows stripped; returns the
+        per-shard stats list (``aggregate_stats`` folds it)."""
+        states, outs, stats = [], [], []
+        with sharding.deactivate():
+            for sess in self.sessions:
+                st, o, sstats = sess.finish(drain=drain)
+                states.append(tree_map(lambda a: a.cpu(), st))
+                outs.append(o)
+                stats.append(sstats)
+        merged = fleet.stack_streams(states)
+        if self.n_pad:
+            merged = fleet.slice_streams(merged, 0, self.s_real)
+        out = None
+        if outs and all(o is not None for o in outs):
+            out = FleetStepOutput(*(np.concatenate(a, axis=1) for a in zip(*outs)))
+            if self.n_pad:
+                out = FleetStepOutput(*(a[:, : self.s_real] for a in out))
+        return merged, out, stats
+
+    def stats_summary(self) -> dict:
+        return aggregate_stats([s.stats for s in self.sessions], padded_streams=self.n_pad)
+
+
+def _as_tick(x):
+    """A tick as a tensor or a numpy array (anything else through numpy)."""
+    return x if torch.is_tensor(x) else np.asarray(x)
+
+
+def _zeros_like(x, shape):
+    if torch.is_tensor(x):
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+    return np.zeros(shape, x.dtype)
+
+
+def aggregate_stats(stats_list: list, padded_streams: int = 0) -> dict:
+    """Fold per-shard ``StreamStats`` into one fleet-wide summary.
+
+    Counters sum; latency percentiles pool the shard windows; the
+    accounting identity must hold per shard (a reply can settle only a
+    query its own shard issued), so ``queries_reconciled`` is the AND: a
+    label crossing shards shows as one shard over- and another
+    under-counting."""
+    counters = (
+        "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
+        "tickets_dropped", "queries_dropped", "replies_orphaned",
+        "tickets_lost", "queries_lost", "tickets_coalesced",
+        "queries_coalesced", "asks_deferred", "tickets_reasked",
+    )
+    out = {k: sum(getattr(s, k) for s in stats_list) for k in counters}
+    out["ticks"] = max((s.ticks for s in stats_list), default=0)
+    out["wall_s"] = max((s.wall_s for s in stats_list), default=0.0)
+    out["steps_per_s"] = out["stream_steps"] / out["wall_s"] if out["wall_s"] > 0 else 0.0
+    tick_ms = [v for s in stats_list for v in s.tick_ms]
+    lab = [v for s in stats_list for v in s.label_latency_ticks]
+    out["tick_p50_ms"] = _percentile(tick_ms, 50)
+    out["tick_p95_ms"] = _percentile(tick_ms, 95)
+    out["label_latency_p50"] = _percentile(lab, 50)
+    out["label_latency_p95"] = _percentile(lab, 95)
+    out["queries_reconciled"] = all(s.reconciled for s in stats_list)
+    out["padded_streams"] = padded_streams
+    out["n_shards"] = len(stats_list)
+    out["per_shard"] = [s.summary() for s in stats_list]
+    return out
+
+
+def run_sharded(
+    state: EngineState,
+    ticks: Iterable,  # yields full-width (S, n_in) feature arrays or tensors
+    cfg: EngineConfig,
+    teachers,  # one Teacher per shard, a factory shard_idx -> Teacher, or a BatchedRpcClient
+    n_shards: Optional[int] = None,
+    mode: str = "algo1",
+    capacity: int = 64,
+    backpressure: str = "drop_oldest",
+    collect: bool = True,
+    drain: bool = True,
+    donate: Optional[bool] = None,
+    devices=None,
+) -> tuple[EngineState, Optional[FleetStepOutput], list[StreamStats]]:
+    """``run`` over a sharded fleet: the stream axis splits into
+    ``n_shards`` shard-local sessions (default: the current mesh's fleet
+    axis), each with its own pending ring and teacher (see
+    ``ShardedStreamSession``).  Returns ``(final state, outputs, per-shard
+    stats)``, state and outputs merged back to full (unpadded) width on
+    the host."""
+    sess = ShardedStreamSession(
+        state, cfg, teachers, n_shards=n_shards, mode=mode, capacity=capacity,
+        backpressure=backpressure, collect=collect, donate=donate, devices=devices,
+    )
+    it = iter(ticks)
+    nxt = next(it, None)
+    if nxt is not None:
+        sess.start(nxt)
+        while nxt is not None:
             nxt = next(it, None)
             sess.advance(nxt)
     return sess.finish(drain=drain)

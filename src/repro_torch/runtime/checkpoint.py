@@ -31,9 +31,10 @@ the first of a process, and any step-number rewind) is full.  ``restore``
 composes base+delta by walking the chain.  The unit of a delta is a leaf: a
 fleet's P is one leaf, so any stream that learned rewrites all of it.
 
-``restore`` returns numpy leaves; the caller puts them on its device.  The
-reference's mesh placement (``restore(shardings=...)``, ``rescale``) is not
-ported here.
+``restore`` returns numpy leaves, or, with ``shardings``, puts each leaf on
+the device named for it: checkpoints hold whole logical arrays, so the same
+bytes restore onto any device layout (a fleet saved from N shards is split
+into M by ``engine.split_fleet`` after the restore).
 """
 
 from __future__ import annotations
@@ -251,11 +252,14 @@ class CheckpointManager:
                 out[name[: -len(".npy")].replace("__", "/")] = os.path.join(final, name)
         return out
 
-    def restore(self, step: Optional[int] = None):
-        """Load a checkpoint as ``(step, tree of numpy leaves)``.  A delta
-        checkpoint composes transparently: leaves it did not write are
-        pulled from its base chain (checkpoints without a ``kind`` field
-        read as full)."""
+    def restore(self, step: Optional[int] = None, shardings=None):
+        """Load a checkpoint as ``(step, tree)``.  A delta checkpoint
+        composes transparently: leaves it did not write are pulled from its
+        base chain (checkpoints without a ``kind`` field read as full).
+
+        Leaves are numpy arrays; ``shardings``, a tree of the saved
+        structure whose leaves are a ``torch.device`` (or a name) or None,
+        makes each leaf a tensor on its device (None keeps the numpy leaf)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -278,4 +282,22 @@ class CheckpointManager:
                     "and has no base checkpoint to compose them from"
                 )
             cursor = base
-        return step, _unflatten(leaves, manifest["tree"])
+        tree = _unflatten(leaves, manifest["tree"])
+        if shardings is not None:
+            tree = _place(tree, shardings)
+        return step, tree
+
+
+def _place(tree, shardings):
+    """``tree``'s leaves as tensors on the devices of the matching leaves
+    of ``shardings`` (None: the leaf stays as it is)."""
+    if isinstance(tree, dict):
+        if set(tree) != set(shardings):
+            raise ValueError(f"shardings keys {sorted(shardings)} != saved {sorted(tree)}")
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        seq = [_place(v, d) for v, d in zip(tree, shardings, strict=True)]
+        return tuple(seq) if isinstance(tree, tuple) else seq
+    if shardings is None:
+        return tree
+    return torch.as_tensor(tree, device=torch.device(shardings))

@@ -223,7 +223,7 @@ class SpanTracer:
                 if n % self.sample:
                     # Bumped by every session thread — a plain += outside
                     # the lock loses updates under contention.
-                    self.dropped += 1
+                    self.dropped += 1  # odlint: guarded-by(_lock)
                     return None
         return (name, time.monotonic_ns())
 

@@ -258,6 +258,63 @@ def test_unchanged_tree_delta_is_manifest_only(tmp_path):
     np.testing.assert_allclose(tree["params"]["w"], 1.0)
 
 
+def test_restore_places_leaves_by_shardings(tmp_path):
+    """``restore(shardings=)``: a tree of the saved structure whose leaves
+    are a device or None; each leaf becomes a tensor on its device (None
+    keeps the numpy leaf).  A tree of another structure raises."""
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, _tree(1.5))
+    shardings = {"params": {"w": torch.device("cpu"), "b": None},
+                 "opt": (torch.device("cpu"), ["cpu"])}
+    step, tree = mgr.restore(shardings=shardings)
+    assert step == 3
+    w, b = tree["params"]["w"], tree["params"]["b"]
+    assert torch.is_tensor(w) and w.device.type == "cpu" and float(w[0, 0]) == 1.5
+    assert isinstance(b, np.ndarray)
+    assert tree["opt"][0].dtype == torch.int32 and torch.is_tensor(tree["opt"][1][0])
+    assert isinstance(tree["opt"], tuple) and isinstance(tree["opt"][1], list)
+    with pytest.raises(ValueError, match="shardings keys"):
+        mgr.restore(shardings={"params": {"w": None}, "opt": (None, [None])})
+    with pytest.raises(ValueError):
+        mgr.restore(shardings={"params": {"w": None, "b": None}, "opt": (None,)})
+
+
+def test_fleet_rescales_from_four_shards_to_two(tmp_path):
+    """The fleet's N -> M rescale: a fleet run on 4 shards is merged, saved,
+    restored with ``shardings`` and split into 2 shards; the last ticks on
+    the new layout end bit for bit as the uninterrupted unsharded run."""
+    from repro_torch import engine
+    from repro_torch.core import oselm, pruning
+    from repro_torch.engine import snapshot
+    from repro_torch.engine.types import EngineState
+
+    cfg = engine.EngineConfig(elm=oselm.OSELMConfig(n_in=12, n_hidden=16, n_out=4),
+                              prune=pruning.PruneConfig(min_trained=2))
+    t, s, cut = 8, 30, 4
+    rng = np.random.default_rng(0)
+    xs = np.tanh(rng.standard_normal((t, s, 12))).astype(np.float32)
+    ys = rng.integers(0, 4, (t, s)).astype(np.int32)
+    ref, _ = engine.run_fleet(engine.init_fleet(cfg, s, "cpu"), xs, ys, cfg, mode="train_phase")
+
+    sh = engine.split_fleet(engine.init_fleet(cfg, s, "cpu"), cfg, n_shards=4,
+                            devices=["cpu"] * 4)
+    sh, _ = engine.run_fleet_shards(sh, xs[:cut], ys[:cut], cfg, mode="train_phase")
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(cut, snapshot.state_to_tree(engine.merge_fleet(sh)))
+    tree = snapshot.state_to_tree(engine.init_fleet(cfg, 1, "cpu"))
+    shardings = {g: {k: torch.device("cpu") for k in leaves} for g, leaves in tree.items()}
+    step, restored = mgr.restore(shardings=shardings)
+    assert step == cut
+    state = EngineState(*(type(getattr(ref, g))(**restored[g]) for g in EngineState._fields))
+    sh2 = engine.split_fleet(state, cfg, n_shards=2, devices=["cpu"] * 2)
+    assert sh2.bounds == ((0, 15), (15, 30))
+    sh2, _ = engine.run_fleet_shards(sh2, xs[cut:], ys[cut:], cfg, mode="train_phase")
+    got = engine.merge_fleet(sh2)
+    for g in EngineState._fields:
+        for a, b in zip(getattr(got, g), getattr(ref, g)):
+            assert a.dtype == b.dtype and torch.equal(a, b), g
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
