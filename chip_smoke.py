@@ -125,10 +125,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels' launches and replays on the sharded paths (each > 0), the
    shapes they ran at (each held in phases 2-4), sharded against solo
    stream·ticks/s and the phase's seconds;
+6k. the dense backbone's serving path (``models/``, ``launch/serve.py``) at
+   qwen3-4b's full width, weights drawn on the card from the seed: (a) the
+   parameter count (4,411,424,256, ``count_params``), build seconds and the
+   allocator's peak; (b) 256 streams prefilled with 15 tokens, then
+   ``serve_step`` of token 16, within atol 0.15, rtol 0.05 of
+   ``lm_hidden``'s logits over all 16; (c) ``lm_hidden`` over a 1,024-token
+   prompt at B=2, naive against chunked attention (chunk 256), through the
+   first two layers (the depth of the reference's bounds): Frobenius
+   relative error < 3e-2, max abs < 0.15, and through all 36 (printed: the
+   two algorithms' rounding differs and compounds with depth, in the JAX
+   package as here); (d) two decodes of 16 tokens from
+   one prefill, bit for bit, and the decode ms per token; (e) 64 ticks of
+   ``serve_step`` + ``serve_apply_labels`` at B=256 with a synchronous
+   teacher answering the queried streams (the serve cascade), each tick
+   launching the projection and the plan's pass once and, with an answer,
+   the RLS pass once; (h) a profiler window over 8 more such ticks: the
+   device ms of the backbone decode against the ODL head, the head's
+   kernels, and the device busy share; (f) ``launch.serve.serve`` at B=256,
+   64 tokens, 2 tenants, latency 2, then over the loopback rpc teacher,
+   each reconciled; (g) a decode tenant (B=256, 48 ticks) on two port
+   workers spawned on the card, migrated after tick 16, bit for bit its solo
+   run in this process, with each worker's path kernels from its own scrape.
+   Every shape 6k launched a kernel at must be one phases 2-4 held;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
-   N=256 (S=16,384, P 4 GiB); the plan's pass in ``algo1`` (reads x) and
-   ``train_phase`` (reads no x), and its reduced instances alone.
+   N=256 (S=16,384, P 4 GiB) and, with the plan's pass in ``serve``, at 6k's
+   serving shape (256 streams, n_in 2,560); the plan's pass in ``algo1``
+   (reads x) and ``train_phase`` (reads no x), in ``serve`` at n_in 8,192
+   (x read from device memory), and its reduced instances alone.
 
 The line before the last is the ``kernels`` JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
 of the repository, it exits non-zero and prints no result.
@@ -185,14 +210,21 @@ K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 1
              (130, 100, 72), (1, 16, 16), (4096, 561, 128), (64, 64, 64), (256, 64, 64),
              (48, 561, 33), (3, 561, 33), (8192, 561, 128), (12288, 561, 128),
              (1024, 561, 128), (2048, 561, 128), (3072, 561, 128), (512, 561, 128),
+             (256, 2560, 128), (512, 2560, 128), (4, 64, 128),
              (FLEET_STREAMS, 561, 256)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
              (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (8192, 128, 1, 6),
              (12288, 128, 1, 6), (1024, 128, 1, 6), (2048, 128, 1, 6), (3072, 128, 1, 6),
-             (512, 128, 1, 6), (FLEET_STREAMS, 256, 1, 6)]
+             (512, 128, 1, 6), (256, 128, 1, 6), (FLEET_STREAMS, 256, 1, 6)]
 # Phase 7 also times the projection and the RLS update at N=256 (the
 # paper's Tables 2-3 width), at the fleet's S: the last shape of each list.
 K1_N256, K2_N256 = K1_SHAPES[-1], K2_SHAPES[-1]
+# Phase 6k's serving shape (256 streams of qwen3-4b's d_model = 2,560; two
+# fused tenants are 512 rows) and a smoke-width one (the card tests'), held
+# by phases 2-4 and timed by phase 7; the plan's pass also at the widest
+# dense d_model (chameleon-34b's 8,192), where x rows do not fit a stage.
+K1_BACKBONE, K2_BACKBONE = (256, 2560, 128), (256, 128, 1, 6)
+PLAN_BACKBONE, PLAN_WIDE = (256, 128, 6, 2560), (256, 128, 6, 8192)
 # Phase 5b, the paper's tables on the card: one trial per drift row (the
 # reference runs 3 for Table 2 and Fig 4, 5 for Table 3 and Fig 3), so 18
 # trials of 1008 one-stream ticks; two of them run on the CPU as well.
@@ -219,7 +251,8 @@ PLAN_SHAPES = [(FLEET_STREAMS, 128, 6, 561), (1, 128, 6, 561), (3, 16, 4, 24), (
                (256, 128, 6, 561), (1024, 128, 6, 561), (48, 128, 6, 561), (16, 128, 6, 561),
                (3, 128, 6, 561), (3, 33, 7, 561), (48, 33, 7, 561), (8192, 128, 6, 561),
                (12288, 128, 6, 561), (2048, 128, 6, 561), (3072, 128, 6, 561),
-               (512, 128, 6, 561)]
+               (512, 128, 6, 561), (256, 128, 6, 2560), (512, 128, 6, 2560), (4, 128, 6, 64),
+               (8, 128, 6, 7168), (8, 128, 6, 8192), (256, 128, 6, 8192)]
 # Its reduced instances alone against theirs: (S, N, m) of the readout, (S,
 # n) of the feature mean; the first of each is the fleet's.
 READOUT_SHAPES = [(FLEET_STREAMS, 128, 6), (1, 128, 6), (3, 16, 4), (1024, 100, 1), (130, 33, 7),
@@ -289,6 +322,19 @@ SHARDS = 4
 SHARD_DEAD_ROWS = 3
 SHARD_SAVE_TICK = 16
 SHARD_RESCALE = 2
+# Phase 6k, the dense backbone's serving path at qwen3-4b's full width
+# (4,411,424,256 parameters, 8.82 GB in bf16; the KV cache of 256 streams
+# over 128 slots 4.83 GB): (b) and (e)-(h) at ``batch`` streams; (c) over a
+# ``chunk_prompt``-token prompt at ``chunk_batch``, bounded at
+# ``chunk_depth`` layers (the reference's bounds are its 2-layer smoke
+# model's) and printed through all 36; (d) ``replay_ticks``
+# decoded twice; (e) ``cascade_ticks``, then (h) ``profile_ticks`` profiled;
+# (f) ``serve`` at ``serve_tokens``; (g) a ``worker_ticks`` decode tenant
+# moved between two workers past tick ``worker_cut``.
+BACKBONE = dict(arch="qwen3-4b", variant="full", params=4_411_424_256, batch=256, max_len=128, prompt_len=16,
+                chunk_batch=2, chunk_prompt=1024, chunk=256, chunk_depth=2, replay_ticks=16,
+                cascade_ticks=64,
+                profile_ticks=8, serve_tokens=64, worker_ticks=48, worker_cut=16)
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
             "tickets_dropped", "queries_dropped", "replies_orphaned", "tickets_lost",
             "queries_lost", "tickets_coalesced", "queries_coalesced", "asks_deferred",
@@ -2979,6 +3025,387 @@ def phase_sharding(fleet_res, fleet_runs, stream_res, zero_runs, device="cuda",
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6k: the dense backbone's serving path (models/, launch/serve.py)
+# ---------------------------------------------------------------------------
+
+
+def _model_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _model_leaves(v)
+        else:
+            yield v
+
+
+def _first_layers(stacked, depth):
+    """The first ``depth`` layers of a stacked layer tree (views)."""
+    return {k: _first_layers(v, depth) if isinstance(v, dict) else v[:depth]
+            for k, v in stacked.items()}
+
+
+def _within(got, want, atol, rtol):
+    """max |got - want| - (atol + rtol |want|), <= 0 where within (f32)."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() - (atol + rtol * w.abs())).max())
+
+
+def _fro_and_max(got, want):
+    """(Frobenius relative error, max abs difference) of got against want."""
+    import torch
+
+    g, w = got.double(), want.double()
+    return (float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)),
+            float((g - w).abs().max()))
+
+
+def _serve_report(out):
+    """The aggregate stream·ticks/s and each tenant's tick p50/p95 (ms) of
+    a ``launch.serve.serve`` printout."""
+    import re
+
+    rate = re.search(r"aggregate: .* steps in ([0-9.]+)s \(([0-9,]+) steps/s\)", out)
+    ticks = re.findall(r"  (tenant\d+): tick p50/p95 ([0-9.]+)/([0-9.]+) ms", out)
+    return {"steps_per_s": float(rate.group(2).replace(",", "")), "wall_s": float(rate.group(1)),
+            "tick_ms": {n: [float(a), float(b)] for n, a, b in ticks},
+            "reconciled": out.count("accounting ok"), "broken": out.count("BROKEN")}
+
+
+def _head_split(prof, n_ticks, wall_ms):
+    """6k (h): device ms per tick of the backbone decode and of the ODL head,
+    each kernel (and copy) attributed to the ``model`` range it ran under:
+    the device-side spans of ``serve.backbone`` and ``serve.head`` (the
+    profiler's GPU annotations of those ``record_function`` ranges); the
+    head's kernels by name, and the device busy share of the window (every
+    kernel and copy, annotations excluded)."""
+    from torch.autograd import DeviceType
+
+    spans = {"serve.backbone": [], "serve.head": []}
+    work = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in spans:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+        else:
+            work.append((e.name, e.time_range.start, e.time_range.end - e.time_range.start))
+    ms = {name: 0.0 for name in spans}
+    head = {"projection": 0.0, "plan_pass": 0.0, "rls": 0.0, "rest_of_head": 0.0}
+    for name, start, dur in work:
+        where = next((r for r, ss in spans.items() if any(a <= start < b for a, b in ss)), None)
+        if where is None:
+            continue
+        ms[where] += dur / 1e3
+        if where == "serve.head":
+            part = ("projection" if "proj_kernel" in name else "plan_pass"
+                    if "plan_rows_kernel" in name else "rls" if "rls_single_kernel" in name
+                    else "rest_of_head")
+            head[part] += dur / 1e3
+    busy = sum(dur for _, _, dur in work) / 1e3
+    return {"backbone_ms": ms["serve.backbone"] / n_ticks, "head_ms": ms["serve.head"] / n_ticks,
+            "head": {k: v / n_ticks for k, v in head.items()},
+            "annotated": all(spans.values()), "busy_ms": busy / n_ticks,
+            "wall_ms": wall_ms / n_ticks, "busy_share": busy / wall_ms if wall_ms else float("nan")}
+
+
+def phase_backbone(device="cuda"):
+    """6k: the dense GQA backbone's serving path at qwen3-4b's full width
+    (see the module docstring)."""
+    import contextlib
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs, engine
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.engine import graphs, snapshot, stream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import layers, transformer
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime import worker as worker_mod
+
+    t_phase = time.perf_counter()
+    card = _card()
+    torch.cuda.empty_cache()
+    bb = BACKBONE
+    cfg = configs.get_config(bb["arch"], bb["variant"])
+    b, max_len = bb["batch"], bb["max_len"]
+    res = {}
+    graphs.reset_replay_counts()
+    ops.reset_launch_counts()
+    with _ShapeLog() as log:
+        # (a) build the model on the card from the seed; count it.
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model_lib.build_params(cfg, SEED, device)
+        _sync(device)
+        res["build_s"] = time.perf_counter() - t0
+        res["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["params"] = sum(t.numel() for t in _model_leaves(params))
+        schema_count = layers.count_params(model_lib.build_schema(cfg))
+        check(res["params"] == schema_count == bb["params"],
+              f"backbone: {res['params']} params built, schema {schema_count}")
+        print(f"backbone (6k, {bb['arch']} {bb['variant']}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) "
+              f"on {card}: {res['params']} parameters (count_params {schema_count}), built in "
+              f"{res['build_s']:.2f} s, allocator peak {res['build_peak_bytes']} bytes")
+
+        # (b) decode equals prefill: prefill 15 tokens, serve_step token 16,
+        # against lm_hidden over all 16.
+        gen = torch.Generator().manual_seed(SEED)
+        toks = torch.randint(0, cfg.vocab_size, (b, bb["prompt_len"]), generator=gen).to(device)
+        _, st = model_lib.prefill(params, toks[:, :-1], cfg, max_len=max_len)
+        logits, st, _ = model_lib.serve_step(params, st, toks[:, -1:], cfg)
+        h_all, _ = transformer.lm_hidden(params, toks, cfg)
+        full = transformer.lm_logits(params, h_all[:, -1:], cfg)[:, 0]
+        over = _within(logits, full, 0.15, 0.05)
+        res["decode_vs_prefill"] = dict(zip(("fro_rel", "max_abs"), _fro_and_max(logits, full)),
+                                        excess_over_bound=over)
+        check(over <= 0, f"backbone (b): decode beyond prefill's logits by {over} past the bound")
+        del st, logits, h_all, full
+        print(f"  (b) decode equals prefill at B={b}: logits within atol 0.15, rtol 0.05 "
+              f"(Frobenius rel {res['decode_vs_prefill']['fro_rel']:.4f}, max abs "
+              f"{res['decode_vs_prefill']['max_abs']:.4f})")
+
+        # (c) naive against chunked attention over a 1,024-token prompt, at
+        # the depth the reference's bounds come from (its 2-layer smoke
+        # model: the first two layers, at full width), then through all 36
+        # layers: the two algorithms round the softmax at different points,
+        # and the difference compounds with depth in the reference as here
+        # (tests/test_torch_models.py holds the port's divergence with depth
+        # to the JAX package's), so the deep run is printed, not bounded.
+        long = torch.randint(0, cfg.vocab_size, (bb["chunk_batch"], bb["chunk_prompt"]),
+                             generator=gen).to(device)
+        chunked = dict(attention_impl="chunked", attention_chunk=bb["chunk"])
+        res["naive_vs_chunked"] = {}
+        for depth in (bb["chunk_depth"], cfg.n_layers):
+            cut = cfg.replace(n_layers=depth)
+            p_cut = dict(params, layers=_first_layers(params["layers"], depth))
+            h_naive, _ = transformer.lm_hidden(p_cut, long, cut)
+            h_chunk, _ = transformer.lm_hidden(p_cut, long, cut.replace(**chunked))
+            fro, worst = _fro_and_max(h_chunk, h_naive)
+            res["naive_vs_chunked"][depth] = {"fro_rel": fro, "max_abs": worst}
+            del h_naive, h_chunk
+        del long
+        shallow = res["naive_vs_chunked"][bb["chunk_depth"]]
+        deep = res["naive_vs_chunked"][cfg.n_layers]
+        check(shallow["fro_rel"] < 3e-2 and shallow["max_abs"] < 0.15,
+              f"backbone (c): chunked against naive at {bb['chunk_depth']} layers: {shallow}")
+        print(f"  (c) naive against chunked attention (B={bb['chunk_batch']}, "
+              f"{bb['chunk_prompt']} tokens, chunk {bb['chunk']}, full width): at "
+              f"{bb['chunk_depth']} layers Frobenius rel {shallow['fro_rel']:.4f} < 3e-2, max abs "
+              f"{shallow['max_abs']:.4f} < 0.15; through all {cfg.n_layers} layers Frobenius rel "
+              f"{deep['fro_rel']:.4f}, max abs {deep['max_abs']:.4f} (printed)")
+
+        # (d) replay determinism, and decode ms per token on the host clock.
+        prompts = torch.randint(0, cfg.vocab_size, (b, bb["prompt_len"]), generator=gen).to(device)
+        _, state = model_lib.prefill(params, prompts, cfg, max_len=max_len)
+        token_ms = []
+        first = []
+        _sync(device)
+        t0 = time.perf_counter()
+        for f in serve_lib._decode_feats(params, state, prompts, cfg, bb["replay_ticks"]):
+            _sync(device)
+            token_ms.append(1e3 * (time.perf_counter() - t0))
+            first.append(f)
+            t0 = time.perf_counter()
+        again = list(serve_lib._decode_feats(params, state, prompts, cfg, bb["replay_ticks"]))
+        same = all(torch.equal(x, y) for x, y in zip(first, again))
+        check(same and len(again) == bb["replay_ticks"], "backbone (d): the replayed decode differs")
+        token_ms.sort()
+        res["decode_ms_per_token"] = {"p50": token_ms[len(token_ms) // 2],
+                                      "p95": token_ms[int(0.95 * (len(token_ms) - 1))],
+                                      "first": token_ms[0]}
+        del first, again, state
+        print(f"  (d) two decodes of {bb['replay_ticks']} tokens from one prefill: bit for bit; "
+              f"decode ms per token at B={b} (host clock, synchronised) p50 "
+              f"{res['decode_ms_per_token']['p50']:.2f}, p95 "
+              f"{res['decode_ms_per_token']['p95']:.2f} ({card})")
+
+        # (e) the cascade: serve_step + serve_apply_labels, a synchronous
+        # teacher answering every queried stream with its domain.
+        n_dom = cfg.odl.n_out
+        domains = torch.arange(b) % n_dom
+        tables = TokenStream(TokenStreamConfig(cfg.vocab_size, 1, 1, n_domains=n_dom))._tables
+        top_ids = torch.as_tensor(tables.argsort(axis=1)[:, -100:].copy())
+        labels = domains.to(torch.int32).to(device)
+        st = model_lib.init_serve_state(cfg, b, bb["cascade_ticks"] + bb["profile_ticks"] + 8,
+                                        device)
+
+        def cascade_tick(t, st, counts=None):
+            tok = top_ids[domains, (t + torch.arange(b)) % 100][:, None].to(device)
+            before = dict(ops.launch_counts)
+            _, st, odl = model_lib.serve_step(params, st, tok, cfg)
+            st = model_lib.serve_apply_labels(st, odl, labels, odl.queried, cfg)
+            if counts is not None:
+                q = int(odl.queried.sum())
+                counts.append(q)
+                d = {k: ops.launch_counts[k] - before.get(k, 0) for k in PATH_KERNELS}
+                check(d["xorshift_projection"] == 1 and d["plan_rows"] == 1
+                      and (d["oselm_rls_update_fleet"] == 1 if q
+                           else d["oselm_rls_update_fleet"] <= 1),
+                      f"backbone (e): tick {t} launched {d} with {q} streams answered")
+            return st
+
+        queried = []
+        t0 = time.perf_counter()
+        for t in range(bb["cascade_ticks"]):
+            st = cascade_tick(t, st, queried)
+        _sync(device)
+        res["cascade"] = {"ticks": bb["cascade_ticks"], "queried": queried,
+                          "tick_ms": 1e3 * (time.perf_counter() - t0) / bb["cascade_ticks"],
+                          "meter_bytes": float(st.odl.meter.total.sum()),
+                          "labels": int(st.odl.elm.count.sum())}
+        check(res["cascade"]["labels"] == sum(queried), "backbone (e): labels applied != queried")
+        print(f"  (e) cascade, {bb['cascade_ticks']} ticks at B={b}: queried per tick "
+              f"{queried}; comm volume {res['cascade']['meter_bytes']:.0f} bytes metered "
+              f"({sum(queried)} queries of {b * bb['cascade_ticks']} stream ticks); "
+              f"{res['cascade']['tick_ms']:.2f} ms a tick (host clock) ({card})")
+
+        # (h) the split of a serve tick, continuing the cascade.
+        for t in range(bb["cascade_ticks"], bb["cascade_ticks"] + 2):
+            st = cascade_tick(t, st)  # warm-up
+        _sync(device)
+        n = bb["profile_ticks"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(bb["cascade_ticks"] + 2, bb["cascade_ticks"] + 2 + n):
+                st = cascade_tick(t, st)
+            _sync(device)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        res["split"] = _head_split(prof, n, wall_ms)
+        del st, params, prof
+        torch.cuda.empty_cache()
+        sp = res["split"]
+        if not sp["annotated"]:
+            print("  (h) the split: not measured (the profiler gave no device-side spans of "
+                  "serve.backbone and serve.head)")
+        print(f"  (h) a serve tick at B={b} ({n} ticks profiled): device ms backbone decode "
+              f"{sp['backbone_ms']:.3f}, ODL head {sp['head_ms']:.3f} (projection "
+              f"{sp['head']['projection']:.4f}, plan's pass {sp['head']['plan_pass']:.4f}, RLS "
+              f"{sp['head']['rls']:.4f}, the rest of the head {sp['head']['rest_of_head']:.4f}); "
+              f"head share {100 * sp['head_ms'] / max(sp['backbone_ms'] + sp['head_ms'], 1e-9):.2f} "
+              f"%; device busy {sp['busy_ms']:.3f} of {sp['wall_ms']:.3f} ms wall "
+              f"({100 * sp['busy_share']:.1f} %) ({card})")
+
+        # (f) launch.serve.serve: two tenants under the latency teacher, then over
+        # the loopback rpc server.
+        res["serve"] = {}
+        for teacher in ("latency", "rpc"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                queries, skips = serve_lib.serve(
+                    arch=bb["arch"], variant=bb["variant"], batch=b, gen_tokens=bb["serve_tokens"],
+                    tenants=2, teacher_latency=2, teacher=teacher, seed=SEED, device=device)
+            out = buf.getvalue()
+            print("\n".join("    " + line for line in out.splitlines()))
+            rep = _serve_report(out)
+            rep.update(queries=queries, skips=skips)
+            check(rep["reconciled"] == 2 and rep["broken"] == 0
+                  and queries + skips == 2 * b * bb["serve_tokens"],
+                  f"backbone (f): serve ({teacher}) did not reconcile: {rep}")
+            res["serve"][teacher] = rep
+            torch.cuda.empty_cache()
+        lat = res["serve"]["latency"]
+        print(f"  (f) serve({bb['arch']} {bb['variant']}, B={b}, {bb['serve_tokens']} tokens, 2 tenants, "
+              f"latency 2): reconciled; {lat['steps_per_s']:.0f} stream·ticks/s aggregate; "
+              f"tenant tick p50/p95 ms {lat['tick_ms']}; teacher=rpc reconciled, "
+              f"{res['serve']['rpc']['steps_per_s']:.0f} stream·ticks/s ({card})")
+    res["launches"] = dict(ops.launch_counts)
+    res["replays"] = dict(graphs.kernel_replays)
+    for k in PATH_KERNELS:
+        check(res["launches"].get(k, 0) + res["replays"].get(k, 0) > 0,
+              f"backbone: {k} ran neither eagerly nor by a replay on 6k's path")
+    missing = log.missing()
+    check(not missing, f"backbone: shapes phases 2-4 did not hold: {missing}")
+    res["shapes"] = {k: sorted(v) for k, v in log.shapes.items() if v}
+
+    # (g) a decode tenant on two port workers, migrated after tick 16,
+    # against its solo run in this process.
+    spec = worker_mod.tenant_spec(
+        "decoder", model_lib.core_config(cfg), s=b, mode="serve", capacity=8,
+        backpressure="drop_oldest",
+        ticks=serve_lib.decode_ticks_spec(bb["arch"], bb["variant"], b, SEED, bb["worker_ticks"],
+                                          tick_sleep_ms=20.0, max_len=max_len),
+        teacher=worker_mod.latency_teacher_spec(n_out=cfg.odl.n_out, latency=2, jitter=1,
+                                                seed=SEED))
+    workers = []
+    t_g = time.perf_counter()
+    try:
+        workers = [elastic.spawn_worker(f"b{i}", quantum=1) for i in range(2)]
+        w0, w1 = workers
+        w0.admit(spec)
+        _wait_live_at(w0, ["decoder"], bb["worker_cut"], {}, timeout_s=300)
+        sent, wire = w0.extract("decoder")
+        cut = snapshot.ticks_consumed(snapshot.decode_snapshot(wire))
+        check(bb["worker_cut"] <= cut < bb["worker_ticks"], f"backbone (g): cut at {cut}")
+        check(w1.admit(sent, wire)["migrated"] is True, "backbone (g): admit on b1 refused")
+        _elastic_wait(elastic.Router([w1]), ["decoder"], {}, timeout_s=300)
+        stats_wire, tree = w1.result("decoder")
+        scrapes = {w.name: _worker_scrape(w) for w in workers}
+    finally:
+        for w in workers:
+            if w.proc.poll() is None:
+                w.close(shutdown=True)
+    solo_spec = dict(spec, ticks=dict(spec["ticks"], tick_sleep_ms=0.0))
+    it = iter(worker_mod._build_ticks(solo_spec, {}, device))
+    ecfg = snapshot.config_from_dict(spec["cfg"])
+    sess = stream.StreamSession(
+        engine.init_fleet(ecfg, b, device), ecfg,
+        worker_mod._build_teacher(spec, {}), mode="serve", capacity=spec["capacity"],
+        backpressure=spec["backpressure"], collect=spec["collect"])
+    sess.start(next(it))
+    while sess._p is not None:
+        sess.advance(next(it, None))
+    sess.drain_replies()
+    solo_state, _, solo_stats = sess.finish()
+    del it, sess
+    got = _leaf_digests(tree["state"])
+    differ = [p for p, leaf in _leaf_digests(snapshot.state_to_tree(solo_state)).items()
+              if got.get(p) != leaf]
+    check(not differ, f"backbone (g): state leaves {differ} differ from the solo run")
+    bad = [f for f in COUNTERS if stats_wire[f] != getattr(solo_stats, f)]
+    check(not bad and stats_wire["label_latency_ticks"] == list(solo_stats.label_latency_ticks),
+          f"backbone (g): counters {bad} (or label latencies) differ from the solo run")
+    check(stats_wire["stream_steps"] == b * bb["worker_ticks"] and stats_wire["reconciled"],
+          f"backbone (g): {stats_wire}")
+    res["worker"] = {"cut": cut, "wire_bytes": len(wire), "seconds": time.perf_counter() - t_g,
+                     "peak_bytes": {n: sc["peak_bytes"] for n, sc in scrapes.items()}}
+    res["worker_launches"] = {k: sum(sc["launches"].get(k, 0) for sc in scrapes.values())
+                              for k in scrapes["b0"]["launches"]}
+    res["worker_replays"] = {k: sum(sc["replays"].get(k, 0) for sc in scrapes.values())
+                             for k in scrapes["b0"]["replays"]}
+    for name, sc in scrapes.items():
+        for k in PATH_KERNELS:
+            check(sc["launches"].get(k, 0) + sc["replays"].get(k, 0) > 0,
+                  f"backbone (g): worker {name} ran {k} neither eagerly nor by a replay")
+        miss = {k: sorted(v - set(_ShapeLog.HELD.get(k, ()))) for k, v in sc["shapes"].items()
+                if v - set(_ShapeLog.HELD.get(k, ()))}
+        check(not miss, f"backbone (g): worker {name} ran shapes phases 2-4 did not hold: {miss}")
+        for k, v in sc["shapes"].items():
+            res["shapes"].setdefault(k, [])
+            res["shapes"][k] = sorted(set(map(tuple, res["shapes"][k])) | v)
+    del solo_state, tree
+    torch.cuda.empty_cache()
+    print(f"  (g) a decode tenant (B={b}, {bb['worker_ticks']} ticks) on two port workers, "
+          f"migrated b0 -> b1 at tick {cut} ({len(wire)} wire bytes): bit for bit its solo run "
+          f"in this process (state, counters, label latencies); path kernels by each worker's "
+          f"own scrape (launches + replays): "
+          + "; ".join(f"{n} " + str({k: sc['launches'].get(k, 0) + sc['replays'].get(k, 0)
+                                     for k in PATH_KERNELS}) for n, sc in scrapes.items())
+          + f"; worker peaks {res['worker']['peak_bytes']} bytes ({card})")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  kernel shapes on 6k's path (this process and the workers), each held in phases "
+          f"2-4: {res['shapes']}")
+    print(f"  kernels on 6k's path in this process (launches + replays): "
+          + str({k: res['launches'].get(k, 0) + res['replays'].get(k, 0) for k in PATH_KERNELS}))
+    print(f"  phase 6k took {res['seconds']:.1f} s ({card})")
+    return res
+
+
 def _device_ms(fn, reps=20, rounds=3):
     """Device time of one call of ``fn``: CUDA events around a batch of
     calls, the median of ``rounds`` batches.  A sleep kernel keeps the card
@@ -3190,37 +3617,42 @@ def phase_times(device="cuda"):
     # The plan's per-stream pass at the fleet shape, in its two byte classes:
     # algo1 reads x for the drift feature mean, train_phase reads no x. The
     # teacher is always available (no mask), as in run_fleet.
-    s, n, m, n_in = PLAN_SHAPES[0]
-    cfg, args = _plan_inputs(s, n, m, n_in, device, _gen(device, SEED + 8))
-    args["teacher_available"] = args["drift_active"] = None
-    x = _cycling_x(device, s, n_in)
-    h, beta = args["h"], args["beta"]
-
     def nbytes(*trees):
         from repro_torch.engine.types import tree_leaves
 
         return float(sum(t.numel() * t.element_size() for t in tree_leaves(trees)
                          if t is not None))
 
-    fused = {}
-    for mode in ("algo1", "train_phase"):
-        def kernel(mode=mode):
-            return plan_rows.plan_rows(**dict(args, x=x()), cfg=cfg, mode=mode)
+    def pass_times(shape, modes, seed):
+        """The fused pass at (S, N, m, n_in) by mode: kernel, plain and bound."""
+        s, n, m, n_in = shape
+        cfg, args = _plan_inputs(s, n, m, n_in, device, _gen(device, seed))
+        args["teacher_available"] = args["drift_active"] = None
+        x = _cycling_x(device, s, n_in)
+        out = {}
+        for mode in modes:
+            def kernel(mode=mode):
+                return plan_rows.plan_rows(**dict(args, x=x()), cfg=cfg, mode=mode)
 
-        def plain(mode=mode):
-            return ref.plan_rows_ref(**dict(args, x=x()), cfg=cfg, mode=mode)
+            def plain(mode=mode):
+                return ref.plan_rows_ref(**dict(args, x=x()), cfg=cfg, mode=mode)
 
-        r = kernel()
-        reads = nbytes(h, beta, args["count"], args["prune"], args["drift"], args["meter"])
-        if mode == "algo1":
-            reads += nbytes(args["x"])
-        writes = nbytes(tuple(r[:7]), r.prune, r.meter) + (
-            nbytes(r.drift) if mode == "algo1" else 0.0)
-        ops_ = 2.0 * s * n * m + (2.0 * s * n_in if mode == "algo1" else 0.0)
-        fused[mode] = dict(
-            ms=_device_ms(kernel), plain_ms=_device_ms(plain, reps=PLAIN_REPS),
-            bytes=reads + writes,
-            **dict(zip(("bound_ms", "bound_by"), _bound(flops=ops_, nbytes=reads + writes))))
+            r = kernel()
+            reads_x = mode != "train_phase"
+            reads = nbytes(args["h"], args["beta"], args["count"], args["prune"], args["drift"],
+                           args["meter"]) + (nbytes(args["x"]) if reads_x else 0.0)
+            writes = nbytes(tuple(r[:7]), r.prune, r.meter) + (
+                nbytes(r.drift) if reads_x else 0.0)
+            ops_ = 2.0 * s * n * m + (2.0 * s * n_in if reads_x else 0.0)
+            out[mode] = dict(
+                shape=list(shape), ms=_device_ms(kernel),
+                plain_ms=_device_ms(plain, reps=PLAIN_REPS), bytes=reads + writes,
+                **dict(zip(("bound_ms", "bound_by"), _bound(flops=ops_, nbytes=reads + writes))))
+        return out, args, x
+
+    fused, args, x = pass_times(PLAN_SHAPES[0], ("algo1", "train_phase"), SEED + 8)
+    s, n, m, n_in = PLAN_SHAPES[0]
+    h, beta = args["h"], args["beta"]
     rows.append(dict(
         name="plan_rows", **fused["algo1"], library_ms=None,
         library="none (no one call computes the pass; readout and feature mean alone below)",
@@ -3247,6 +3679,38 @@ def phase_times(device="cuda"):
                                                      nbytes=4.0 * (s * n_in + s)))),
     ))
     del h, beta, x, args
+    # The three path kernels at the dense backbone's serving shape (phase
+    # 6k: 256 streams of qwen3-4b's d_model), and the plan's pass at the
+    # widest dense d_model, whose x rows are read from device memory.
+    by_name = {r["name"]: r for r in rows}
+    b, n_in, n = K1_BACKBONE
+    x = _cycling_x(device, b, n_in)
+    alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
+    c = float(1.0 / n_in ** 0.5)
+    by_name["xorshift_projection"]["backbone"] = dict(
+        shape=list(K1_BACKBONE),
+        ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
+        plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
+        library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
+            peak_flops=PEAK_TF32_FLOPS))),
+    )
+    del x, alpha
+    s, n, k, m = K2_BACKBONE
+    P, beta, H, Y = _rls_inputs(s, n, k, m, device, SEED + 10)
+    by_name["oselm_rls_update_fleet"]["backbone"] = dict(
+        shape=list(K2_BACKBONE),
+        ms=_device_ms(lambda: oselm_update.rls_single(P, beta, H, Y)),
+        plain_ms=_device_ms(lambda: ref.rls_update_ref(P, beta, H, Y), reps=PLAIN_REPS),
+        library_ms=_device_ms(lambda: _rls_composite(P, beta, H, Y), reps=PLAIN_REPS),
+        **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))),
+    )
+    del P, beta, H, Y
+    served, _, _ = pass_times(PLAN_BACKBONE, ("serve",), SEED + 11)
+    wide, _, _ = pass_times(PLAN_WIDE, ("serve",), SEED + 12)
+    by_name["plan_rows"]["backbone"] = dict(served["serve"], library_ms=None)
+    by_name["plan_rows"]["wide"] = dict(wide["serve"], library_ms=None)
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -3258,6 +3722,16 @@ def phase_times(device="cuda"):
           f"{100 * t['bound_ms'] / t['ms']:.1f} % of it reached); bytes per call: algo1 "
           f"{rows[-3]['bytes']:.0f}, train_phase {t['bytes']:.0f}")
     print(f"time the two-stage route at the fleet shape: {rows[1]['two_stage_ms']:.4f} ms")
+    for name in ("xorshift_projection", "oselm_rls_update_fleet", "plan_rows"):
+        for key in ("backbone", "wide"):
+            w = by_name[name].get(key)
+            if w is None:
+                continue
+            lib = "none" if w["library_ms"] is None else f"{w['library_ms']:.4f} ms"
+            print(f"time {name} at the backbone's {'serve' if key == 'backbone' else 'widest'} "
+                  f"shape {w['shape']}: kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f} ms, "
+                  f"library {lib}, bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
+                  f"{100 * w['bound_ms'] / w['ms']:.1f} % of it reached)")
     for r in rows[:2]:
         w = r["n256"]
         events = f" (batched {w['batched_ms']:.4f} ms)" if "batched_ms" in w else ""
@@ -3408,6 +3882,7 @@ def main(argv=None) -> int:
     elastic_res = phase_elastic()
     sharded = phase_sharding(fleet, fleet_runs, streamed, zero_runs)
     del fleet_runs, zero_runs
+    backbone = phase_backbone()
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -3484,6 +3959,13 @@ def main(argv=None) -> int:
             # from 0 around each; the unsharded runs they are held to apart.
             "sharded_launches": sharded["launches"].get(name, 0),
             "sharded_replays": sharded["replays"].get(name, 0),
+            # The dense backbone's serving path (phase 6k): eager launches and
+            # graph replays in this process, and, apart, in its two workers
+            # (summed from their own scrapes).
+            "backbone_launches": backbone["launches"].get(name, 0),
+            "backbone_replays": backbone["replays"].get(name, 0),
+            "backbone_worker_launches": backbone["worker_launches"].get(name, 0),
+            "backbone_worker_replays": backbone["worker_replays"].get(name, 0),
             # The paper's tables (phase 5b): eager launches, both widths.
             "paper_launches": paper["launches"].get(name, 0),
             "paper_max_abs_err": paper["errs"].get(name),
@@ -3498,6 +3980,10 @@ def main(argv=None) -> int:
             "n256": t.get("n256"),
             # The plan's pass in train_phase (no x read), where timed.
             "train_phase": t.get("train_phase"),
+            # Phase 7 at the backbone's serving shape (6k), and the plan's
+            # pass at the widest dense d_model, where timed.
+            "backbone": t.get("backbone"),
+            "wide": t.get("wide"),
             "ok": True,
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s")

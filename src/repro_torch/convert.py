@@ -5,6 +5,12 @@ State crosses as numpy, flattened under dotted leaf names (``elm.P``,
 packages' ``EngineState`` trees have the same leaf names and dtypes, so one
 flat dict describes either.  Configs cross as the nested dict of their field
 values (``dataclasses.asdict`` of an ``EngineConfig`` from either package).
+
+A backbone's params cross as the reference's nested dict of arrays
+(``lm_params_from_numpy``), checked leaf by leaf against the port's schema,
+and a serving state with its caches as ``serve_state_from_numpy``: the
+JAX package's ``jax.random`` draws cannot be reproduced, so the parity tests
+load its params through these.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from repro_torch.core import labels as labels_mod
 from repro_torch.core import oselm, pruning
 from repro_torch.engine.fleet import FleetShards
 from repro_torch.engine.types import EngineConfig, EngineState
+from repro_torch.models import layers as layers_mod
+from repro_torch.models import model as model_mod
 
 _GROUPS = {
     "elm": oselm.OSELMState,
@@ -101,3 +109,58 @@ def engine_config_from_dict(fields: dict) -> EngineConfig:
         drift=drift_mod.DriftConfig(**fields["drift"]),
     )
 
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    """A numpy-convertible array (bf16 ones included) as a tensor on
+    ``device``; bf16 crosses through f32, which holds it exactly."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        t = torch.as_tensor(np.array(arr, np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.as_tensor(np.array(arr))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device | None = None) -> dict:
+    """A serving model's params from the JAX package's params (a nested dict
+    of arrays, any leaf ``np.asarray`` takes), on CUDA unless ``device``
+    says otherwise: every leaf of ``model.build_schema(cfg)`` with its shape
+    checked, matmul and embedding weights cast to bf16 as the reference
+    casts them at use (``layers.serving_dtype``).  Raises on a missing,
+    extra or misshapen leaf."""
+    device = resolve_device(device)
+    schema = model_mod.build_schema(cfg)
+
+    def walk(sub, sch, path):
+        if set(sub) != set(sch):
+            raise KeyError(f"params at {'/'.join(path) or '<root>'} differ: missing "
+                           f"{sorted(set(sch) - set(sub))}, extra {sorted(set(sub) - set(sch))}")
+        out = {}
+        for k, leaf in sch.items():
+            if not isinstance(leaf, layers_mod.Leaf):
+                out[k] = walk(sub[k], leaf, path + (k,))
+                continue
+            arr = np.asarray(sub[k])
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"{'/'.join(path + (k,))}: shape {arr.shape}, schema {leaf.shape}")
+            out[k] = _tensor(np.asarray(arr, np.float32), device, layers_mod.serving_dtype(leaf))
+        return out
+
+    return walk(tree, schema, ())
+
+
+def serve_state_from_numpy(state, device: str | torch.device | None = None):
+    """The port's ``model.ServeState`` from the JAX package's (``caches`` a
+    nested dict of arrays, ``pos``, ``odl`` an engine state), on CUDA unless
+    ``device`` says otherwise; cache leaves keep their dtype (bf16)."""
+    device = resolve_device(device)
+
+    def walk(sub):
+        return {k: walk(v) if isinstance(v, dict) else _tensor(v, device) for k, v in sub.items()}
+
+    return model_mod.ServeState(
+        caches=walk(state.caches),
+        pos=_tensor(state.pos, device, torch.int32),
+        odl=engine_state_from_numpy(engine_state_to_numpy(state.odl), device),
+    )

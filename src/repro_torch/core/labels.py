@@ -1,14 +1,16 @@
-"""Label acquisition metering (paper §2.2, Fig. 2(c)).
+"""Label acquisition via a teacher device (paper §2.2, Fig. 2(c)).
 
-PyTorch counterpart of ``CommMeter`` and ``one_hot`` in
-``repro/core/labels.py``.  One query uploads the feature vector (n * 4
-bytes, 32-bit values) and downloads one label byte — the paper's BLE
-accounting.
+PyTorch counterpart of ``repro/core/labels.py``.  One query uploads the
+feature vector (n * 4 bytes, 32-bit values) and downloads one label byte —
+the paper's BLE accounting.  In the paper's evaluation the dataset's labels
+play the teacher (``ArrayTeacher``); ``ModelTeacher`` wraps any predictor,
+such as a backbone ensemble.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -46,3 +48,44 @@ class CommMeter(NamedTuple):
 
 def one_hot(t: torch.Tensor, n_classes: int) -> torch.Tensor:
     return torch.nn.functional.one_hot(t.long(), n_classes).to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrayTeacher:
+    """Teacher whose answers are a precomputed label array (paper's eval)."""
+
+    labels: torch.Tensor  # (T,) int32
+
+    def __call__(self, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        del x
+        return self.labels[idx]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelTeacher:
+    """Teacher backed by a predictor fn(x) -> class (e.g. a backbone ensemble)."""
+
+    predict_fn: Callable[[torch.Tensor], torch.Tensor]
+
+    def __call__(self, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        del idx
+        return self.predict_fn(x)
+
+
+def acquire(
+    teacher: Callable,
+    idx: torch.Tensor,
+    x: torch.Tensor,
+    queried: torch.Tensor,
+    n_classes: int,
+    meter: CommMeter,
+) -> tuple[torch.Tensor, torch.Tensor, CommMeter]:
+    """Fig. 2(c): returns (t, y_onehot, meter').
+
+    The teacher is always asked (the reference traces it under jit, so its
+    shapes stay static), but communication is charged only where
+    ``queried``."""
+    t = teacher(idx, x)
+    y = one_hot(t, n_classes)
+    meter = meter.charge_query(x.shape[-1], queried)
+    return t, y, meter

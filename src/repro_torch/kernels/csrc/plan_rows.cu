@@ -30,8 +30,9 @@
 // row).  So transfer and arithmetic are apart.  Each stream's beta block,
 // h row and (where the detector reads features) x row are copied into shared
 // memory by cp.async.bulk, each as the 16-byte-aligned span that encloses
-// it, completing on an mbarrier; the sums then run from shared memory in
-// one order fixed by (N, m, n_in) alone: lane l sums the terms l, l + 32,
+// it, completing on an mbarrier (an x row too long for a stage, at a wide
+// backbone's d_model, is read from device memory instead); the sums then
+// run in one order fixed by (N, m, n_in) alone: lane l sums the terms l, l + 32,
 // ... with fmaf (the readout) or in order (the feature mean), and a fixed
 // xor butterfly adds the 32 partials.  The readout's m columns share one
 // butterfly: at each of its first levels a lane keeps half of its columns
@@ -135,7 +136,9 @@ struct Params {
   // off_h, x at off_x; the number of stages per warp.
   int off_h, off_x, stage_floats, stages;
   int scratch_floats;  // the fused kinds' per-block scratch, after the stages
-  bool reads_rows, reads_x;
+  // stage_x: the x row is copied into the stage; false where a stream's x
+  // row does not fit one (the warp then reads it from device memory).
+  bool reads_rows, reads_x, stage_x;
 };
 
 __host__ __device__ constexpr int span_floats(int n) {
@@ -416,12 +419,13 @@ __global__ void __launch_bounds__(THREADS) plan_rows_kernel(const Params p) {
   const int col = lane / LPC;
 
   // The i-th stream's spans into stage i % NS: lane 0 copies beta, lane 1
-  // h, lane 2 x, each arriving on the stage's barrier with its bytes.
-  const int copiers = (p.reads_rows ? 2 : 0) + (p.reads_x ? 1 : 0);
+  // h, lane 2 x (where staged), each arriving on the stage's barrier with
+  // its bytes.
+  const int copiers = (p.reads_rows ? 2 : 0) + (p.stage_x ? 1 : 0);
   auto fetch = [&](int i) {
     const long long s = stream_of(i);
     const uint32_t bar = smem_addr(bars + i % NS);
-    const bool copies = lane < 2 ? p.reads_rows : (lane == 2 && p.reads_x);
+    const bool copies = lane < 2 ? p.reads_rows : (lane == 2 && p.stage_x);
     const char* start = nullptr;
     uint32_t bytes = 0;
     float* dst = stages + (i % NS) * p.stage_floats;
@@ -468,7 +472,9 @@ __global__ void __launch_bounds__(THREADS) plan_rows_kernel(const Params p) {
 
       float a = 0.0f;
       if (p.reads_x) {
-        const float* xs = in_span(stage + p.off_x, p.x + s * n_in);
+        // Staged or not, lane l sums the terms l, l + 32, ... in order.
+        const float* xg = p.x + s * n_in;
+        const float* xs = p.stage_x ? in_span(stage + p.off_x, xg) : xg;
         for (int j = lane; j < n_in; j += 32) a = __fadd_rn(a, fabsf(xs[j]));
       }
       float acc[MC];
@@ -541,20 +547,29 @@ const KernelFn KERNELS[N_KINDS][2] = {
 int columns_per_pass(int m) { return m <= 8 ? 8 : 16; }
 
 // The stage layout and the stages per warp of a launch; false where one
-// stage per warp does not fit in a block's shared memory.
+// stage per warp does not fit in a block's shared memory.  A fused kind
+// whose x row does not fit a stage (n_in above about 6,000 floats at N=128,
+// m=6: the widest dense backbones) leaves x out of the stage and reads it
+// from device memory in the same order, so its sums are unchanged.
 bool layout(Params& p, int kind) {
   p.reads_rows = kind != MEAN;
   p.reads_x = kind == MEAN || ((kind == ALGO1 || kind == SERVE) && p.use_features);
-  p.off_h = p.reads_rows ? span_floats(p.N * p.m) : 0;
-  p.off_x = p.off_h + (p.reads_rows ? span_floats(p.N) : 0);
-  p.stage_floats = p.off_x + (p.reads_x ? span_floats(p.n_in) : 0);
   p.scratch_floats = kind <= TRAIN_PHASE ? WARPS * 32 * (columns_per_pass(p.m) + 1) : 0;
-  const long long stage_bytes = 4LL * p.stage_floats;
-  p.stages = MAX_STAGES;
-  while (p.stages > 1 &&
-         BAR_BYTES + WARPS * p.stages * stage_bytes + 4LL * p.scratch_floats > SMEM_BUDGET)
-    --p.stages;
-  return BAR_BYTES + WARPS * p.stages * stage_bytes + 4LL * p.scratch_floats <= SMEM_MAX;
+  for (p.stage_x = p.reads_x;; p.stage_x = false) {
+    p.off_h = p.reads_rows ? span_floats(p.N * p.m) : 0;
+    p.off_x = p.off_h + (p.reads_rows ? span_floats(p.N) : 0);
+    p.stage_floats = p.off_x + (p.stage_x ? span_floats(p.n_in) : 0);
+    const long long stage_bytes = 4LL * p.stage_floats;
+    p.stages = MAX_STAGES;
+    while (p.stages > 1 &&
+           BAR_BYTES + WARPS * p.stages * stage_bytes + 4LL * p.scratch_floats > SMEM_BUDGET)
+      --p.stages;
+    if (BAR_BYTES + WARPS * p.stages * stage_bytes + 4LL * p.scratch_floats <= SMEM_MAX)
+      return true;
+    // The feature mean alone has nothing else to stage: it takes n_in as
+    // far as its stage fits.
+    if (!p.stage_x || !p.reads_rows) return false;
+  }
 }
 
 int smem_bytes(const Params& p) {

@@ -50,9 +50,12 @@ teacher, so both sides of a migration can rebuild identical Python objects.
 Tick sources are always seekable (``snapshot.ResumableTicks``): the
 destination worker seeks to the snapshot's cursor, never replays ticks.
 Tick kinds: ``synth`` (features seeded per tick, byte for byte the JAX
-package's) and ``decode`` (a backbone's decode steps: the spec is accepted,
-so specs interoperate, but building the source raises, because the port has
-no backbones yet; the worker answers that as an error frame and stays up).
+package's) and ``decode`` (one backbone decode step per tick, the serve
+path's tick source, ``launch.serve._decode_feats``).  A worker builds each
+distinct backbone spec once (``Worker._decode_cache``) and every tenant and
+every seek of that spec shares it; the weights are drawn from the spec's
+seed with process-stable generators, so two workers given one spec build
+the same backbone and a decode tenant migrates bit for bit.
 Teacher kinds:
 
   * ``latency`` — in-process ``stream.LatencyTeacher`` answering the same
@@ -81,6 +84,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import itertools
 import json
 import socket
 import threading
@@ -173,30 +177,60 @@ def rpc_teacher_spec(host: str, port: int, timeout_s: float = 5.0,
             "compress": bool(compress)}
 
 
-def _build_ticks(spec: dict) -> snapshot.ResumableTicks:
-    """The spec's tick source."""
+def _build_ticks(spec: dict, decode_cache: Optional[dict] = None,
+                 device: str | torch.device | None = None) -> snapshot.ResumableTicks:
+    """The spec's tick source; ``decode`` ticks run the backbone on
+    ``device`` (CUDA unless named), built once per distinct backbone spec
+    into ``decode_cache``."""
     t = spec["ticks"]
-    if t["kind"] == "decode":
-        raise NotImplementedError(
-            "decode tick sources need the serving backbones (models/, "
-            "launch/serve.py), which repro_torch does not have yet; use "
-            "'synth' ticks on this worker"
-        )
     sleep_s = float(t.get("tick_sleep_ms", 0.0)) / 1e3
-    # Per-tick seeded features: O(1) seek (no replay), identical in any
-    # process and in either package, which the cross-process references of
-    # the fleet tests depend on.
-    s, n_in = spec["s"], int(spec["cfg"]["elm"]["n_in"])
-    seed, t_total = int(t["seed"]), int(t["t_total"])
+    if t["kind"] == "synth":
+        # Per-tick seeded features: O(1) seek (no replay), identical in any
+        # process and in either package, which the cross-process references
+        # of the fleet tests depend on.
+        s, n_in = spec["s"], int(spec["cfg"]["elm"]["n_in"])
+        seed, t_total = int(t["seed"]), int(t["t_total"])
 
-    def factory(start):
-        for tick in range(start, t_total):
+        def factory(start):
+            for tick in range(start, t_total):
+                if sleep_s > 0:
+                    time.sleep(sleep_s)
+                rng = np.random.default_rng((seed, tick))
+                yield np.tanh(rng.normal(size=(s, n_in))).astype(np.float32)
+
+        return snapshot.ResumableTicks(factory)
+
+    # "decode": one backbone decode step per tick.  The decode replays bit
+    # for bit, so seek(k) replays it to tick k; params and the prefill are
+    # built once per distinct backbone spec and shared by every tenant (and
+    # every seek) on this worker.
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_lib
+
+    device = resolve_device(device)
+    if decode_cache is None:
+        decode_cache = {}
+    key_fields = ("arch", "variant", "batch", "prompt_len", "max_len", "seed")
+    cache_key = tuple(t.get(k) for k in key_fields)
+    entry = decode_cache.get(cache_key)
+    if entry is None:
+        cfg = configs.get_config(t["arch"], t.get("variant", "smoke"))
+        params, prompts, state = serve_lib.build_backbone(
+            cfg, int(t["batch"]), int(t.get("prompt_len", 16)), int(t.get("max_len", 128)),
+            int(t.get("seed", 0)), device)
+        entry = decode_cache[cache_key] = (cfg, params, state, prompts)
+    cfg, params, state, prompts = entry
+    t_total = int(t["t_total"])
+
+    def decode_factory(start):
+        it = itertools.islice(
+            serve_lib._decode_feats(params, state, prompts, cfg, t_total), start, None)
+        for x in it:
             if sleep_s > 0:
                 time.sleep(sleep_s)
-            rng = np.random.default_rng((seed, tick))
-            yield np.tanh(rng.normal(size=(s, n_in))).astype(np.float32)
+            yield x
 
-    return snapshot.ResumableTicks(factory)
+    return snapshot.ResumableTicks(decode_factory)
 
 
 def _build_teacher(spec: dict, rpc_clients: dict):
@@ -308,6 +342,8 @@ class Worker:
             snapshot_full_every=snapshot_full_every,
         )
         self._specs: dict[str, dict] = {}
+        # Decode backbones built by this worker, one per distinct spec.
+        self._decode_cache: dict = {}
         self._rpc_clients: dict = {}
         # Commands waiting for the scheduler thread, oldest first.
         self._cmd_cond = lockdebug.make_condition("worker.Worker._cmd_cond")
@@ -496,7 +532,7 @@ class Worker:
             name=spec["name"],
             # A migrated-in tenant's state rides the snapshot.
             state=None if tree is not None else fleet_mod.init_fleet(cfg, spec["s"], self.device),
-            ticks=_build_ticks(spec),
+            ticks=_build_ticks(spec, self._decode_cache, self.device),
             cfg=cfg,
             teacher=_build_teacher(spec, self._rpc_clients),
             mode=spec.get("mode", "algo1"),

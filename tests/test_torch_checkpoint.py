@@ -1,7 +1,7 @@
 """The port's checkpointing and fault tolerance (``repro_torch.runtime.
 checkpoint`` / ``fault``), mirroring ``tests/test_checkpoint.py`` test for
 test on trees of torch tensors (``test_token_stream_determinism_and_sharding``
-is left out: ``data/tokens.py`` is not ported).  Reading the JAX package's
+runs on the port's copy of ``data/tokens.py``).  Reading the JAX package's
 directories and the reverse is checked in
 ``tests/test_torch_snapshot_interop.py``.
 
@@ -337,3 +337,20 @@ def test_cuda_tensors_save_after_the_queued_work(cuda_device, tmp_path):
     mgr.save(2, {"big": big, "small": torch.ones(3, device="cuda")})
     assert _npy_names(tmp_path, 2) == ["big.npy"]
     np.testing.assert_array_equal(mgr.restore()[1]["big"], 2.0)
+
+
+def test_token_stream_determinism_and_sharding():
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+
+    cfg = TokenStreamConfig(vocab_size=128, seq_len=16, global_batch=8)
+    a = TokenStream(cfg).batch(3)
+    b = TokenStream(cfg).batch(3)
+    np.testing.assert_array_equal(a["tokens"], b["tokens"])  # seekable/deterministic
+    assert a["tokens"].shape == (8, 16)
+    assert (a["labels"][:, :-1] == a["tokens"][:, 1:]).all()
+
+    # Host sharding: two hosts' batches differ, shapes halve.
+    h0 = TokenStream(TokenStreamConfig(128, 16, 8, n_hosts=2, host=0)).batch(3)
+    h1 = TokenStream(TokenStreamConfig(128, 16, 8, n_hosts=2, host=1)).batch(3)
+    assert h0["tokens"].shape == (4, 16)
+    assert not (h0["tokens"] == h1["tokens"]).all()

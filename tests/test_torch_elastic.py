@@ -22,6 +22,11 @@ within the ROADMAP's tolerances (integers exact, floats rtol and atol 2e-3:
 P starts at I/ridge), and the state of an in-process JAX-to-port restore of
 the same cut, bit for bit.
 
+A ``decode`` tenant (one smoke-width backbone decode step per tick) moves
+between two port workers and ends bit for bit as the in-process session
+fed by ``launch.serve._decode_feats``: both workers draw the backbone from
+the spec's seed with process-stable generators.
+
 The port's worker runs every control command on its scheduler thread
 between two rounds, so a command never waits out a tenant's run (the
 reference's worker can make it, hence that file's races); the cuts below
@@ -307,24 +312,72 @@ def test_unknown_tenant_errors_do_not_kill_worker(fleet):
     assert w_a.status()["kind"] == "status_ok"  # connection still live
 
 
-def test_decode_ticks_are_refused_and_the_worker_stays_up(fleet):
-    """A ``decode`` spec is a valid spec (so specs interoperate), but the
-    port has no backbones: building its ticks raises, the worker answers an
-    error frame naming what is missing, and goes on serving."""
-    w_a, _ = fleet
-    spec = worker_mod.tenant_spec(
-        "decoder", _cfg(), s=4,
-        ticks={"kind": "decode", "arch": "qwen3-4b", "batch": 4, "t_total": 8},
-        teacher=worker_mod.latency_teacher_spec(n_out=4),
+def _decode_solo(spec, t_total):
+    """The decode tenant's uninterrupted run in this process: a session fed
+    by ``launch.serve._decode_feats`` over the spec's backbone, built here."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_lib
+
+    t = spec["ticks"]
+    model_cfg = configs.get_config(t["arch"], t["variant"])
+    params, prompts, state = serve_lib.build_backbone(
+        model_cfg, t["batch"], t["prompt_len"], t["max_len"], t["seed"], CPU)
+    feats = list(serve_lib._decode_feats(params, state, prompts, model_cfg, t_total))
+    cfg = snapshot.config_from_dict(spec["cfg"])
+    sess = stream.StreamSession(
+        engine.init_fleet(cfg, spec["s"], CPU), cfg, worker_mod._build_teacher(spec, {}),
+        mode=spec["mode"], capacity=spec["capacity"], backpressure=spec["backpressure"],
     )
-    with pytest.raises(NotImplementedError, match="backbones"):
-        worker_mod._build_ticks(spec)
-    with pytest.raises(elastic.WorkerError, match="NotImplementedError.*backbones"):
-        w_a.admit(spec)
-    status = w_a.status()
-    assert status["kind"] == "status_ok"
-    assert "decoder" not in [t["name"] for t in status["live"]]
-    assert "decoder" not in status["finished"]
+    it = iter(feats)
+    sess.start(next(it))
+    while sess._p is not None:
+        sess.advance(next(it, None))
+    sess.drain_replies()
+    state_out, _, stats = sess.finish()
+    return state_out, stats, feats
+
+
+def test_decode_ticks_run_on_a_port_worker(fleet):
+    """A ``decode`` spec (``serve_fleet --fleet-ticks decode`` at smoke
+    width) runs on port workers: admitted on one, migrated to the other
+    mid-stream, it ends bit for bit as the in-process session fed by
+    ``_decode_feats`` (state and counters: both workers build the backbone
+    from the spec's seed with process-stable generators), and ``seek(k)``
+    of its tick source equals the tail of the full decode."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model as model_lib
+
+    w_a, w_b = fleet
+    t_total, cut = 16, 4
+    odl_cfg = model_lib.core_config(configs.get_config("qwen3-4b", "smoke"))
+    spec = worker_mod.tenant_spec(
+        "decoder", odl_cfg, s=4, mode="serve", capacity=4, backpressure="drop_oldest",
+        ticks=serve_lib.decode_ticks_spec("qwen3-4b", "smoke", batch=4, seed=3,
+                                          t_total=t_total, tick_sleep_ms=20.0),
+        teacher=worker_mod.latency_teacher_spec(n_out=odl_cfg.elm.n_out, latency=2,
+                                                jitter=1, seed=3),
+    )
+    w_a.admit(spec)
+    _wait_live_at(w_a, ["decoder"], cut)
+    sent_spec, wire = w_a.extract("decoder")
+    moved_at = snapshot.ticks_consumed(snapshot.decode_snapshot(wire))
+    assert cut <= moved_at < t_total
+    assert w_b.admit(sent_spec, wire)["migrated"] is True
+    elastic.Router([w_b]).wait_finished(["decoder"], timeout_s=120)
+    stats_wire, tree = w_b.result("decoder")
+
+    solo_state, solo_stats, feats = _decode_solo(spec, t_total)
+    _assert_state_trees_equal(snapshot.state_to_tree(solo_state), tree["state"], "decode tenant")
+    _assert_stats_equal(stats_wire, solo_stats, "decode tenant")
+    assert stats_wire["stream_steps"] == t_total * spec["s"]
+
+    ticks = worker_mod._build_ticks(dict(spec, ticks=dict(spec["ticks"], tick_sleep_ms=0.0)),
+                                    {}, CPU)
+    tail = list(ticks.seek(moved_at))
+    assert len(tail) == t_total - moved_at
+    for got, want in zip(tail, feats[moved_at:]):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
 def test_worker_without_cuda_or_device_fails_to_spawn():

@@ -412,6 +412,18 @@ def test_cuda_rows_do_not_depend_on_neighbours_index_or_alignment(cuda_device, m
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["serve", "algo1"])
+@pytest.mark.parametrize("n_in", [2560, 7168, 8192])
+def test_cuda_pass_takes_any_dense_d_model(cuda_device, mode, n_in):
+    """The backbones' d_model as n_in (qwen3-4b's 2,560; deepseek-coder-33b's
+    7,168 and chameleon-34b's 8,192, whose x rows do not fit a stage and are
+    read from device memory in the same order): bit for bit the plain
+    version, fed the kernel's own readout and feature mean."""
+    cfg = _cfg(n_in=n_in, n_hidden=128, n_out=6)
+    _kernel_vs_plain(cfg, mode, 64, seed=n_in, device=cuda_device)
+
+
+@pytest.mark.cuda
 def test_cuda_plan_launches_only_the_projection_and_the_pass(cuda_device):
     cfg = _cfg(n_in=561, n_hidden=128, n_out=6)
     state, _, x, avail, _ = _card_inputs(cfg, 64, seed=2, device=cuda_device)

@@ -158,6 +158,11 @@ sys.path.insert(0, {str(ROOT / 'src')!r})
 sys.path.insert(0, {str(ROOT)!r})
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+need = {{"repro_torch.models.layers", "repro_torch.models.attention",
+        "repro_torch.models.transformer", "repro_torch.models.model",
+        "repro_torch.launch.serve", "repro_torch.configs.base", "repro_torch.configs.qwen3_4b",
+        "repro_torch.data.tokens", "repro_torch.examples.serve_cascade"}}
+assert need <= set(names), sorted(need - set(names))
 for name in names:
     importlib.import_module(name)
 import chip_smoke
