@@ -148,10 +148,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    workers spawned on the card, migrated after tick 16, bit for bit its solo
    run in this process, with each worker's path kernels from its own scrape.
    Every shape 6k launched a kernel at must be one phases 2-4 held;
+6l. the dense backbone's training path (``optim/adam.py``, ``models/model.py``
+   ``train_step``/``odl_update``, ``launch/train.py``) at qwen3-4b's full
+   width, after every earlier phase has freed its memory: (a) the
+   ``TrainState`` built on the card from the seed (4,411,424,256 f32 params,
+   m and v), the allocator's bytes before and after; (b)
+   ``launch.train.train`` for 12 steps at B=32, S=64 with remat and the
+   default ``TrainConfig`` (32 ODL rows a step: the head passes
+   min_trained = 288 after step 9): every loss finite, every param slice
+   moved, the head's count equal to the queried rows, per step
+   ``odl_query_frac``, ``odl_theta`` and seconds, the steady s/step and
+   tokens/s (host clock, synchronised), the allocator's peak and the model
+   FLOPs as a share of the bf16 peak; the projection and the one-head RLS
+   kernel must have launched; (c) at smoke width, two ``train_step``s from
+   one state bit for bit, and 4 steps + resume to 8 bit for bit 8
+   uninterrupted ones (params, moments, head, losses); (d) ``odl_update`` at
+   n_in 2,560 from a head warmed on the CPU, one batch on the card and on the
+   CPU: some rows prune, decisions, count and ``PruneState`` exact, P within
+   2e-5 in units of I/ridge and beta within 2e-4.  Every shape 6l launched a
+   kernel at must be one phases 2-4 held;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
    N=256 (S=16,384, P 4 GiB) and, with the plan's pass in ``serve``, at 6k's
-   serving shape (256 streams, n_in 2,560); the plan's pass in ``algo1``
+   serving shape (256 streams, n_in 2,560); the projection and the one-head
+   RLS update at 6l's training shape (32 rows of 2,560; k = 32); the plan's pass in ``algo1``
    (reads x) and ``train_phase`` (reads no x), in ``serve`` at n_in 8,192
    (x read from device memory), and its reduced instances alone.
 
@@ -210,7 +230,7 @@ K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 1
              (130, 100, 72), (1, 16, 16), (4096, 561, 128), (64, 64, 64), (256, 64, 64),
              (48, 561, 33), (3, 561, 33), (8192, 561, 128), (12288, 561, 128),
              (1024, 561, 128), (2048, 561, 128), (3072, 561, 128), (512, 561, 128),
-             (256, 2560, 128), (512, 2560, 128), (4, 64, 128),
+             (256, 2560, 128), (512, 2560, 128), (4, 64, 128), (32, 2560, 128), (8, 64, 128),
              (FLEET_STREAMS, 561, 256)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
              (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (8192, 128, 1, 6),
@@ -224,6 +244,9 @@ K1_N256, K2_N256 = K1_SHAPES[-1], K2_SHAPES[-1]
 # by phases 2-4 and timed by phase 7; the plan's pass also at the widest
 # dense d_model (chameleon-34b's 8,192), where x rows do not fit a stage.
 K1_BACKBONE, K2_BACKBONE = (256, 2560, 128), (256, 128, 1, 6)
+# Phase 6l's full-width training shape of the projection (B = 32 pooled rows
+# of d_model 2,560), held by phase 2 and timed by phase 7 with K3_TRAIN.
+K1_TRAIN = (32, 2560, 128)
 PLAN_BACKBONE, PLAN_WIDE = (256, 128, 6, 2560), (256, 128, 6, 8192)
 # Phase 5b, the paper's tables on the card: one trial per drift row (the
 # reference runs 3 for Table 2 and Fig 4, 5 for Table 3 and Fig 3), so 18
@@ -234,7 +257,11 @@ PAPER_WIDTHS = (128, 256)
 PAPER_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet", "plan_rows")
 # Shapes the single pass does not take go to the two-stage route.
 K2_EXTRA_SHAPES = [(64, 384, 1, 6), (4, 64, 64, 3)]
-K3_SHAPE = (128, 16, 6)  # one head: N, k, m
+# The one-head entry (kernel 3), (1, N, k, m): the first is the one phase 7
+# times; phase 6l's training path (k = B rows a step: 32 at full width, 8 at
+# smoke width) launches at the others, and 6l fails on a shape not here.
+K3_SHAPES = [(1, 128, 16, 6), (1, 128, 32, 6), (1, 128, 8, 6)]
+K3_TRAIN = (1, 128, 32, 6)
 TWO_STAGE_SHAPE = (64, 384, 1, 6)
 # The kernels the fleet path launches every tick (``ops.launch_counts`` keys),
 # in every mode: the projection, the RLS update and the plan's per-stream pass.
@@ -335,6 +362,17 @@ BACKBONE = dict(arch="qwen3-4b", variant="full", params=4_411_424_256, batch=256
                 chunk_batch=2, chunk_prompt=1024, chunk=256, chunk_depth=2, replay_ticks=16,
                 cascade_ticks=64,
                 profile_ticks=8, serve_tokens=64, worker_ticks=48, worker_cut=16)
+# Phase 6l, the dense backbone's training path at qwen3-4b's full width (12
+# bytes a parameter for params, m and v, 4 more for the gradients): (b)
+# ``launch.train.train`` for ``steps`` at ``batch`` x ``seq`` (``batch`` ODL
+# rows a step: the head passes min_trained = 288 after step 9); (c) at smoke
+# width ``smoke_batch`` x ``smoke_seq``, two steps from one state and
+# ``resume_at`` steps + resume against 2 ``resume_at`` uninterrupted; (d) a
+# head warmed on the CPU by ``warm_calls`` updates of ``batch`` rows.
+TRAIN = dict(arch="qwen3-4b", variant="full", params=4_411_424_256, batch=32, seq=64, steps=12,
+             smoke_batch=8, smoke_seq=32, resume_at=4, warm_calls=12)
+# The kernels the training path launches every step.
+TRAIN_KERNELS = ("xorshift_projection", "oselm_rls_update")
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
             "tickets_dropped", "queries_dropped", "replies_orphaned", "tickets_lost",
             "queries_lost", "tickets_coalesced", "queries_coalesced", "asks_deferred",
@@ -346,6 +384,7 @@ ACTIVATIONS = ("sigmoid", "relu", "tanh", "identity")
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 SLEEP_CYCLES = 400_000_000  # about 0.2 s of device time ahead of each timed batch
 # Calls per timed batch of a plain version or composite: each launches tens of
 # kernels, and a batch must not fill the launch queue behind the sleep.
@@ -480,18 +519,23 @@ def phase_kernel2(device="cuda"):
               f"P |err| {ep:.3e}, beta |err| {eb:.3e}, masked stream exact")
         errs[counter] = max(errs.get(counter, 0.0), ep, eb)
         del P, beta, H, Y, p_got, b_got, p_want, b_want
-    # Kernel 3: the one-head entry (S = 1, k up to 64).
-    n, k, m = K3_SHAPE
-    P, beta, H, Y = (a[0] for a in _rls_inputs(1, n, k, m, device, SEED + 3))
-    before = ops.launch_counts["oselm_rls_update"]
-    p_got, b_got = ops.oselm_rls_update(P, beta, H, Y)
-    check(ops.launch_counts["oselm_rls_update"] == before + 1, "rls one head: kernel not launched")
-    p_want, b_want = (a[0] for a in ref.rls_update_ref(P[None], beta[None], H[None], Y[None]))
-    ep = (p_got - p_want).abs().max().item()
-    eb = (b_got - b_want).abs().max().item()
-    check(ep <= 2e-5 and eb <= 2e-4, f"rls one head N={n} k={k}: P err {ep}, beta err {eb}")
-    print(f"kernel 3 oselm_rls_update N={n} k={k} m={m}: P |err| {ep:.3e}, beta |err| {eb:.3e}")
-    errs["oselm_rls_update"] = max(ep, eb)
+    # Kernel 3: the one-head entry (S = 1, k up to 64), at each K3_SHAPES
+    # entry (phase 6l's training steps among them).
+    errs["oselm_rls_update"] = 0.0
+    for _, n, k, m in K3_SHAPES:
+        P, beta, H, Y = (a[0] for a in _rls_inputs(1, n, k, m, device, SEED + 3 + k))
+        check(ops.rls_route(n, k, m) == "single", f"one head N={n} k={k}: not a single pass")
+        before = ops.launch_counts["oselm_rls_update"]
+        p_got, b_got = ops.oselm_rls_update(P, beta, H, Y)
+        check(ops.launch_counts["oselm_rls_update"] == before + 1,
+              "rls one head: kernel not launched")
+        p_want, b_want = (a[0] for a in ref.rls_update_ref(P[None], beta[None], H[None], Y[None]))
+        ep = (p_got - p_want).abs().max().item()
+        eb = (b_got - b_want).abs().max().item()
+        check(ep <= 2e-5 and eb <= 2e-4, f"rls one head N={n} k={k}: P err {ep}, beta err {eb}")
+        print(f"kernel 3 oselm_rls_update N={n} k={k} m={m}: P |err| {ep:.3e}, "
+              f"beta |err| {eb:.3e}")
+        errs["oselm_rls_update"] = max(errs["oselm_rls_update"], ep, eb)
     return errs
 
 
@@ -2237,12 +2281,13 @@ class _ShapeLog:
                                                out.shape[-1]),
         "oselm_rls_update_fleet": lambda a, out: (a[0].shape[0], a[0].shape[1], a[2].shape[1],
                                                   a[1].shape[2]),
+        "oselm_rls_update": lambda a, out: (1, a[0].shape[0], a[2].shape[0], a[1].shape[1]),
         "plan_rows": lambda a, out: (*a[1].shape, a[2].shape[-1]),
         "readout": lambda a, out: tuple(a[1].shape),
         "row_abs_mean": lambda a, out: (math.prod(a[0].shape[:-1]), a[0].shape[-1]),
     }
     HELD = {"xorshift_projection": K1_SHAPES, "oselm_rls_update_fleet": K2_SHAPES,
-            "plan_rows": PLAN_SHAPES, "readout": READOUT_SHAPES,
+            "oselm_rls_update": K3_SHAPES, "plan_rows": PLAN_SHAPES, "readout": READOUT_SHAPES,
             "row_abs_mean": ROW_MEAN_SHAPES}
 
     def __enter__(self):
@@ -3406,6 +3451,214 @@ def phase_backbone(device="cuda"):
     return res
 
 
+def _param_slice_sums(params):
+    """One f64 sum per param slice (each layer of a stacked leaf, each other
+    leaf whole), in a fixed order, on the host: a slice whose sum changed has
+    moved."""
+    import torch
+
+    sums = [t.double().sum() for k, t in params.items() if k != "layers"]
+    for t in _model_leaves(params["layers"]):
+        sums.extend(s.double().sum() for s in t.unbind(0))
+    return torch.stack(sums).cpu()
+
+
+def _clustered_feats(rng, n, centers, ambiguous=False):
+    """``n`` rows around the class ``centers`` (m, d) and their labels;
+    ``ambiguous`` moves every other row halfway to the next class's centre,
+    so that a warm head is sure of some rows (they prune) and not of the
+    others (they train)."""
+    import numpy as np
+
+    m = centers.shape[0]
+    labels = rng.integers(0, m, n).astype(np.int32)
+    feats = centers[labels] + 0.5 * rng.standard_normal((n, centers.shape[1]))
+    if ambiguous:
+        a = labels[1::2]
+        feats[1::2] = 0.5 * (centers[a] + centers[(a + 1) % m]) \
+            + 0.5 * rng.standard_normal((len(a), centers.shape[1]))
+    return feats.astype(np.float32), labels
+
+
+def phase_train(device="cuda"):
+    """6l: the dense backbones' training path at qwen3-4b's full width (see
+    the module docstring)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs, convert
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+
+    t_phase = time.perf_counter()
+    card = _card()
+    torch.cuda.empty_cache()
+    tr = TRAIN
+    cfg = configs.get_config(tr["arch"], tr["variant"])
+    tcfg = TrainConfig()
+    b, seq = tr["batch"], tr["seq"]
+    res = {"allocated_before": torch.cuda.memory_allocated()}
+    graphs.reset_replay_counts()
+    ops.reset_launch_counts()
+    with _ShapeLog() as log:
+        # (a) the TrainState on the card, from the seed; each slice's sum.
+        t0 = time.perf_counter()
+        state = model_lib.init_train_state(cfg, SEED, tcfg, device)
+        _sync(device)
+        res["build_s"] = time.perf_counter() - t0
+        res["allocated_after_build"] = torch.cuda.memory_allocated()
+        res["params"] = sum(t.numel() for t in _model_leaves(state.params))
+        schema_count = layers.count_params(model_lib.build_schema(cfg))
+        check(res["params"] == schema_count == tr["params"],
+              f"train (a): {res['params']} params built, schema {schema_count}")
+        tensor_bytes = 4 * res["params"]
+        check(res["allocated_after_build"] - res["allocated_before"] >= 3 * tensor_bytes,
+              f"train (a): {res['allocated_after_build']} bytes after the build")
+        before = _param_slice_sums(state.params)
+        del state
+        torch.cuda.empty_cache()
+        print(f"training (6l, {tr['arch']} {tr['variant']}, {tcfg.param_dtype} master params, "
+              f"remat {tcfg.remat}, lr {tcfg.learning_rate}, wd {tcfg.weight_decay}, clip "
+              f"{tcfg.grad_clip}) on {card}: {res['allocated_before']} bytes allocated before "
+              f"it; (a) {res['params']} parameters, allocator {res['allocated_after_build']} "
+              f"bytes after the build against 3 x {tensor_bytes} (params, m, v), built in "
+              f"{res['build_s']:.2f} s")
+
+        # (b) launch.train.train at full width: B x S tokens a step, B ODL rows.
+        steps = []
+        last = [time.perf_counter()]
+
+        def on_step(step, metrics):
+            _sync(device)
+            now = time.perf_counter()
+            steps.append({"step": step, "loss": float(metrics["loss"]),
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "odl_query_frac": float(metrics["odl_query_frac"]),
+                          "odl_theta": float(metrics["odl_theta"]), "s": now - last[0]})
+            last[0] = now
+
+        torch.cuda.reset_peak_memory_stats()
+        last[0] = time.perf_counter()
+        state, losses = train_lib.train(tr["arch"], tr["variant"], steps=tr["steps"], batch=b,
+                                        seq=seq, seed=SEED, log_every=1, device=device,
+                                        on_step=on_step)
+        _sync(device)
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["launches"] = dict(ops.launch_counts)
+        res["replays"] = dict(graphs.kernel_replays)
+        check(len(losses) == tr["steps"] and all(math.isfinite(x) for x in losses),
+              f"train (b): losses {losses}")
+        moved = _param_slice_sums(state.params) != before
+        check(bool(moved.all()), f"train (b): {int((~moved).sum())} of {moved.numel()} param "
+                                 f"slices did not move")
+        queried = sum(round(r["odl_query_frac"] * b) for r in steps)
+        count = int(state.odl.elm.count)
+        check(count == queried and count == int(state.odl.prune.queries),
+              f"train (b): odl count {count}, queried rows {queried}")
+        del state
+        torch.cuda.empty_cache()
+        per_step = [r["s"] for r in steps]
+        steady = sorted(per_step[1:])[len(per_step[1:]) // 2]
+        tokens = b * seq
+        flops = 6.0 * res["params"] * tokens  # model FLOPs; remat's recompute not counted
+        res.update(losses=losses, steps=steps, s_per_step=per_step, steady_s=steady,
+                   tokens_per_s=tokens / steady, model_flops=flops,
+                   bf16_peak_share=flops / steady / PEAK_BF16_FLOPS, odl_count=count,
+                   slices=moved.numel())
+        for name in TRAIN_KERNELS:
+            check(res["launches"].get(name, 0) > 0, f"train (b): {name} not launched")
+        print(f"  (b) launch.train.train({tr['arch']} {tr['variant']}, {tr['steps']} steps, B={b}, "
+              f"S={seq}): losses {[round(x, 4) for x in losses]}, all finite; all "
+              f"{moved.numel()} param slices moved; odl count {count} == {queried} queried rows; "
+              f"per step odl_query_frac {[r['odl_query_frac'] for r in steps]}, odl_theta "
+              f"{[r['odl_theta'] for r in steps]}, s/step {[round(x, 3) for x in per_step]} "
+              f"(step 1 includes the build); steady {steady:.3f} s (median of steps 2-"
+              f"{tr['steps']}, host clock, synchronised), {tokens / steady:.0f} tokens/s; "
+              f"allocator peak {res['peak_bytes']} bytes; model FLOPs a step 6 x N x tokens = "
+              f"{flops:.3e} ({100 * res['bf16_peak_share']:.1f} % of the bf16 dense peak, "
+              f"information) ({card})")
+
+        # (c) smoke width on the card: replay and resume, bit for bit.
+        scfg = configs.get_config(tr["arch"], "smoke")
+        sb, ss = tr["smoke_batch"], tr["smoke_seq"]
+        s0 = model_lib.init_train_state(scfg, SEED, tcfg, device)
+        stream_ = TokenStream(TokenStreamConfig(vocab_size=scfg.vocab_size, seq_len=ss,
+                                                global_batch=sb, n_domains=scfg.odl.n_out,
+                                                seed=SEED))
+        batch = {k: torch.as_tensor(v, device=device) for k, v in stream_.batch(1).items()}
+        one, m1 = model_lib.train_step(convert.train_state_from_numpy(s0, scfg, device), batch, scfg)
+        two, m2 = model_lib.train_step(convert.train_state_from_numpy(s0, scfg, device), batch, scfg)
+        check(_leaf_digests(one) == _leaf_digests(two)
+              and all(torch.equal(m1[k], m2[k]) for k in m1),
+              "train (c): two train_steps from one state differ")
+        del s0, one, two
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+        try:
+            kw = dict(steps=2 * tr["resume_at"], batch=sb, seq=ss, seed=SEED, log_every=100,
+                      device=device)
+            full, full_losses = train_lib.train(tr["arch"], "smoke", **kw)
+            _, first = train_lib.train(tr["arch"], "smoke", **dict(
+                kw, steps=tr["resume_at"], ckpt_dir=str(tmp), ckpt_every=tr["resume_at"]))
+            resumed, rest = train_lib.train(tr["arch"], "smoke", **dict(
+                kw, ckpt_dir=str(tmp), ckpt_every=tr["resume_at"]))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        check(_leaf_digests(resumed) == _leaf_digests(full) and first + rest == full_losses,
+              f"train (c): {tr['resume_at']} steps + resume to {2 * tr['resume_at']} differ "
+              f"from {2 * tr['resume_at']} uninterrupted")
+        del full, resumed
+        print(f"  (c) smoke width on the card (B={sb}, S={ss}): two train_steps from one state "
+              f"bit for bit; {tr['resume_at']} steps + resume to {2 * tr['resume_at']} == "
+              f"{2 * tr['resume_at']} uninterrupted, bit for bit (params, moments, ODL state, "
+              f"losses)")
+
+        # (d) odl_update at n_in = d_model from a warm head built on the CPU:
+        # rows prune; the card's decisions equal the CPU's.
+        rng = np.random.default_rng(SEED)
+        centers = 2.0 * rng.standard_normal((cfg.odl.n_out, cfg.d_model))
+        odl = model_lib.init_odl_state(cfg, "cpu")
+        for _ in range(tr["warm_calls"]):
+            f, y = _clustered_feats(rng, b, centers)
+            odl, _ = model_lib.odl_update(odl, torch.as_tensor(f), torch.as_tensor(y), cfg)
+        check(int(odl.elm.count) >= 288 and int(odl.prune.level) > 0,
+              f"train (d): the CPU's head is not warm: {odl.elm.count}, {odl.prune}")
+        f, y = _clustered_feats(rng, b, centers, ambiguous=True)
+        card_odl = model_lib.ODLState(*(type(g)(*(t.to(device) for t in g)) for g in odl))
+        host, mh = model_lib.odl_update(odl, torch.as_tensor(f), torch.as_tensor(y), cfg)
+        got, mc = model_lib.odl_update(card_odl, torch.as_tensor(f, device=device),
+                                       torch.as_tensor(y, device=device), cfg)
+        same = (all(round(float(mc[k]) * b) == round(float(mh[k]) * b)
+                    for k in ("odl_query_frac", "odl_acc"))
+                and float(mc["odl_theta"]) == float(mh["odl_theta"])
+                and int(got.elm.count) == int(host.elm.count)
+                and all(int(a) == int(c) for a, c in zip(got.prune, host.prune)))
+        dp = (got.elm.P.cpu() - host.elm.P).abs().max().item() * cfg.odl.ridge
+        db = (got.elm.beta.cpu() - host.elm.beta).abs().max().item()
+        check(same and 0.0 < float(mh["odl_query_frac"]) < 1.0 and dp < 2e-5 and db < 2e-4,
+              f"train (d): card {mc} against cpu {mh}, P {dp}, beta {db}")
+        print(f"  (d) odl_update at n_in {cfg.d_model} from a warm head built on the CPU (count "
+              f"{int(odl.elm.count)}, level {int(odl.prune.level)}): {round(float(mh['odl_query_frac']) * b)} "
+              f"of {b} rows queried on both; decisions, count and PruneState exact; P "
+              f"{dp:.2e} in units of I/ridge (< 2e-5), beta max |diff| {db:.2e} (< 2e-4)")
+    missing = log.missing()
+    check(not missing, f"train: shapes phases 2-4 did not hold: {missing}")
+    res["shapes"] = {k: sorted(v) for k, v in log.shapes.items() if v}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  kernel shapes on 6l's path, each held in phases 2-4: {res['shapes']}")
+    print(f"  kernels on 6l's main path (b) (launches + replays): "
+          + str({k: res['launches'].get(k, 0) + res['replays'].get(k, 0) for k in TRAIN_KERNELS}))
+    print(f"  phase 6l took {res['seconds']:.1f} s ({card})")
+    return res
+
+
 def _device_ms(fn, reps=20, rounds=3):
     """Device time of one call of ``fn``: CUDA events around a batch of
     calls, the median of ``rounds`` batches.  A sleep kernel keeps the card
@@ -3581,7 +3834,7 @@ def phase_times(device="cuda"):
     )
     del P, beta, H, Y
 
-    n, k, m = K3_SHAPE
+    _, n, k, m = K3_SHAPES[0]
     P, beta, H, Y = (a[0] for a in _rls_inputs(1, n, k, m, device, SEED + 3))
     rows.append(dict(
         name="oselm_rls_update",
@@ -3707,6 +3960,35 @@ def phase_times(device="cuda"):
         **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))),
     )
     del P, beta, H, Y
+    # The two kernels of the training path (phase 6l) at its full-width
+    # shape: the projection of B = 32 pooled rows of d_model 2,560, and the
+    # one-head RLS update of those 32 rows.
+    b, n_in, n = K1_TRAIN
+    x = _cycling_x(device, b, n_in)
+    alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
+    c = float(1.0 / n_in ** 0.5)
+    by_name["xorshift_projection"]["train"] = dict(
+        shape=list(K1_TRAIN),
+        ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
+        plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
+        library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
+            peak_flops=PEAK_TF32_FLOPS))),
+    )
+    del x, alpha
+    s, n, k, m = K3_TRAIN
+    P, beta, H, Y = (a[0] for a in _rls_inputs(s, n, k, m, device, SEED + 13))
+    by_name["oselm_rls_update"]["train"] = dict(
+        shape=list(K3_TRAIN),
+        ms=_device_ms(lambda: ops.oselm_rls_update(P, beta, H, Y)),
+        plain_ms=_device_ms(lambda: ref.rls_update_ref(P[None], beta[None], H[None], Y[None]),
+                            reps=PLAIN_REPS),
+        library_ms=_device_ms(lambda: _rls_composite(P[None], beta[None], H[None], Y[None]),
+                              reps=PLAIN_REPS),
+        **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))),
+    )
+    del P, beta, H, Y
     served, _, _ = pass_times(PLAN_BACKBONE, ("serve",), SEED + 11)
     wide, _, _ = pass_times(PLAN_WIDE, ("serve",), SEED + 12)
     by_name["plan_rows"]["backbone"] = dict(served["serve"], library_ms=None)
@@ -3722,13 +4004,15 @@ def phase_times(device="cuda"):
           f"{100 * t['bound_ms'] / t['ms']:.1f} % of it reached); bytes per call: algo1 "
           f"{rows[-3]['bytes']:.0f}, train_phase {t['bytes']:.0f}")
     print(f"time the two-stage route at the fleet shape: {rows[1]['two_stage_ms']:.4f} ms")
-    for name in ("xorshift_projection", "oselm_rls_update_fleet", "plan_rows"):
-        for key in ("backbone", "wide"):
+    for name in ("xorshift_projection", "oselm_rls_update_fleet", "oselm_rls_update",
+                 "plan_rows"):
+        for key in ("backbone", "wide", "train"):
             w = by_name[name].get(key)
             if w is None:
                 continue
             lib = "none" if w["library_ms"] is None else f"{w['library_ms']:.4f} ms"
-            print(f"time {name} at the backbone's {'serve' if key == 'backbone' else 'widest'} "
+            where = {"backbone": "serve", "wide": "widest", "train": "training"}[key]
+            print(f"time {name} at the backbone's {where} "
                   f"shape {w['shape']}: kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
                   f"{100 * w['bound_ms'] / w['ms']:.1f} % of it reached)")
@@ -3883,6 +4167,7 @@ def main(argv=None) -> int:
     sharded = phase_sharding(fleet, fleet_runs, streamed, zero_runs)
     del fleet_runs, zero_runs
     backbone = phase_backbone()
+    trained = phase_train()
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -3966,6 +4251,10 @@ def main(argv=None) -> int:
             "backbone_replays": backbone["replays"].get(name, 0),
             "backbone_worker_launches": backbone["worker_launches"].get(name, 0),
             "backbone_worker_replays": backbone["worker_replays"].get(name, 0),
+            # The dense backbone's training path (phase 6l (b)): eager
+            # launches (the training step captures no graph).
+            "train_launches": trained["launches"].get(name, 0),
+            "train_replays": trained["replays"].get(name, 0),
             # The paper's tables (phase 5b): eager launches, both widths.
             "paper_launches": paper["launches"].get(name, 0),
             "paper_max_abs_err": paper["errs"].get(name),
@@ -3984,6 +4273,8 @@ def main(argv=None) -> int:
             # pass at the widest dense d_model, where timed.
             "backbone": t.get("backbone"),
             "wide": t.get("wide"),
+            # Phase 7 at 6l's training shape, where timed.
+            "train": t.get("train"),
             "ok": True,
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s")

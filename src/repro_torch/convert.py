@@ -10,7 +10,11 @@ A backbone's params cross as the reference's nested dict of arrays
 (``lm_params_from_numpy``), checked leaf by leaf against the port's schema,
 and a serving state with its caches as ``serve_state_from_numpy``: the
 JAX package's ``jax.random`` draws cannot be reproduced, so the parity tests
-load its params through these.
+load its params through these.  A training state crosses whole
+(``train_state_to_numpy`` / ``train_state_from_numpy``): master params, the
+optimizer's step and moments, the head and its pruning controller, so both
+packages continue from one state; a checkpoint's restored tree takes the
+same road back onto a device.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import TrainConfig
 from repro_torch.core import drift as drift_mod
 from repro_torch.core import labels as labels_mod
 from repro_torch.core import oselm, pruning
@@ -28,6 +33,7 @@ from repro_torch.engine.fleet import FleetShards
 from repro_torch.engine.types import EngineConfig, EngineState
 from repro_torch.models import layers as layers_mod
 from repro_torch.models import model as model_mod
+from repro_torch.optim import adam
 
 _GROUPS = {
     "elm": oselm.OSELMState,
@@ -122,6 +128,14 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def _leaf(a, device, dtype) -> torch.Tensor:
+    """``_tensor``, or for a torch tensor a copy on ``device`` in ``dtype``
+    (never the tensor itself: a train step writes its state in place)."""
+    if torch.is_tensor(a):
+        return a.detach().to(device=device, dtype=dtype, copy=True)
+    return _tensor(a, device, dtype)
+
+
 def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device | None = None) -> dict:
     """A serving model's params from the JAX package's params (a nested dict
     of arrays, any leaf ``np.asarray`` takes), on CUDA unless ``device``
@@ -163,4 +177,71 @@ def serve_state_from_numpy(state, device: str | torch.device | None = None):
         caches=walk(state.caches),
         pos=_tensor(state.pos, device, torch.int32),
         odl=engine_state_from_numpy(engine_state_to_numpy(state.odl), device),
+    )
+
+
+def train_state_to_numpy(state):
+    """A ``TrainState`` of either package (or the nested tuples that
+    ``CheckpointManager.restore`` gives back) as the port's ``TrainState``
+    whose leaves are host numpy arrays: params and moments as nested dicts,
+    ``opt.step``, the head's beta/P/count and every prune leaf."""
+    params, (step, m, v), ((beta, p, count), prune) = state
+
+    def host(a):
+        return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+    def walk(tree):
+        return {k: walk(x) if isinstance(x, dict) else host(x) for k, x in tree.items()}
+
+    return model_mod.TrainState(
+        params=walk(params),
+        opt=adam.AdamState(step=host(step), m=walk(m), v=walk(v)),
+        odl=model_mod.ODLState(
+            elm=oselm.OSELMState(beta=host(beta), P=host(p), count=host(count)),
+            prune=pruning.PruneState(*map(host, prune))),
+    )
+
+
+def train_state_from_numpy(state, cfg, device: str | torch.device | None = None,
+                           tcfg: TrainConfig = TrainConfig()):
+    """The port's ``TrainState`` from one of either package (leaves any
+    array ``np.asarray`` takes), or from ``CheckpointManager.restore``'s
+    nested tuples, on CUDA unless ``device`` says otherwise.
+
+    Params come in ``tcfg.param_dtype`` (f32 master params by default, not
+    the serving dtypes of ``lm_params_from_numpy``), their shapes checked
+    against ``model.build_schema(cfg)``; moments in f32; the step, the
+    head's count and the prune leaves as 0-d int32 (a checkpoint stores a
+    0-d leaf as one element)."""
+    device = resolve_device(device)
+    dtype = getattr(torch, tcfg.param_dtype)
+    params, (step, m, v), ((beta, p, count), prune) = state
+    schema = model_mod.build_schema(cfg)
+
+    def walk(sub, sch, path, dt):
+        if set(sub) != set(sch):
+            raise KeyError(f"tree at {'/'.join(path) or '<root>'} differs: missing "
+                           f"{sorted(set(sch) - set(sub))}, extra {sorted(set(sub) - set(sch))}")
+        out = {}
+        for k, leaf in sch.items():
+            if not isinstance(leaf, layers_mod.Leaf):
+                out[k] = walk(sub[k], leaf, path + (k,), dt)
+                continue
+            if tuple(sub[k].shape) != tuple(leaf.shape):
+                raise ValueError(f"{'/'.join(path + (k,))}: shape {tuple(sub[k].shape)}, "
+                                 f"schema {leaf.shape}")
+            out[k] = _leaf(sub[k], device, dt)
+        return out
+
+    def scalar(a):
+        return _leaf(a, device, torch.int32).reshape(())
+
+    return model_mod.TrainState(
+        params=walk(params, schema, (), dtype),
+        opt=adam.AdamState(step=scalar(step), m=walk(m, schema, ("m",), torch.float32),
+                           v=walk(v, schema, ("v",), torch.float32)),
+        odl=model_mod.ODLState(
+            elm=oselm.OSELMState(beta=_leaf(beta, device, torch.float32),
+                                 P=_leaf(p, device, torch.float32), count=scalar(count)),
+            prune=pruning.PruneState(*map(scalar, prune))),
     )

@@ -142,6 +142,23 @@ def update(
     )
 
 
+def scan_update(
+    state: PruneState,
+    queried: torch.Tensor,  # (k,) bool
+    agree: torch.Tensor,  # (k,) bool
+    conf: torch.Tensor,  # (k,) f32
+    cfg: PruneConfig,
+) -> PruneState:
+    """Exact sequential controller semantics over a batch of k samples
+    (``train_step`` gates a whole batch against the batch-start theta, then
+    replays the controller sample by sample): ``update`` once per row, in
+    order, each against the theta of the level the rows before it left (the
+    reference's ``lax.scan``)."""
+    for q, a, c in zip(queried.unbind(0), agree.unbind(0), conf.unbind(0), strict=True):
+        state = update(state, q, a, c, cfg)
+    return state
+
+
 def select(cond: torch.Tensor, a: PruneState, b: PruneState) -> PruneState:
     """Per-stream choice between two fleet states: ``a``'s rows where
     ``cond`` (S,) holds, else ``b``'s."""

@@ -49,6 +49,11 @@
 //   (stream, 32-row tile), looping over 64-column tiles).
 //
 // P' and beta' go to separate buffers: the wrapper allocates them.
+//
+// Built with -DRLS_PHASE_CLOCKS (benchmarks/rls_breakdown.py does, into a
+// library of its own), the single pass notes the SM clock and the global
+// timer at each of its phase boundaries, for block 0's first stream; the
+// kernels' own build leaves every mark out.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -258,12 +263,30 @@ __device__ __forceinline__ void rank1_stream(const float* p_s, const float* h_s,
   }
 }
 
+#ifdef RLS_PHASE_CLOCKS
+constexpr int N_MARKS = 9;
+__device__ unsigned long long rls_marks[2 * N_MARKS];  // (clock64, globaltimer) per mark
+
+__device__ __forceinline__ void phase_mark(int at, int stream_i) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && stream_i == 0) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    rls_marks[2 * at] = static_cast<unsigned long long>(clock64());
+    rls_marks[2 * at + 1] = ns;
+  }
+}
+#define RLS_MARK(at, stream_i) phase_mark(at, stream_i)
+#else
+#define RLS_MARK(at, stream_i) ((void)0)
+#endif
+
 __global__ void __launch_bounds__(S_THREADS, 1)
     rls_single_kernel(const float* __restrict__ P, const float* __restrict__ beta,
                       const float* __restrict__ H, const float* __restrict__ Y,
                       float* __restrict__ p_out, float* __restrict__ beta_out, int S, int N,
                       int k, int m, int NS) {
   extern __shared__ __align__(128) unsigned char raw[];
+  RLS_MARK(0, 0);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -343,7 +366,9 @@ __global__ void __launch_bounds__(S_THREADS, 1)
     const float* b_s = p_s + L.bs;
     const float y_cur = y_next;
     if (i + 1 < count && tid < km) y_next = Y[(s + n_clusters) * km + tid];
+    RLS_MARK(1, i);
     mbar_wait(smem_addr(bars + st), (i / NS) & 1);
+    RLS_MARK(2, i);
 
     if (rank1) {
       rank1_stream(p_s, hg, b_s, pht, e_s, y_cur, p_out, beta_out, s, N, m, warp, lane);
@@ -370,6 +395,7 @@ __global__ void __launch_bounds__(S_THREADS, 1)
       if (tid < km) e_s[tid] = y_cur;
       for (int j = tid + S_THREADS; j < km; j += S_THREADS) e_s[j] = Y[s * km + j];
       __syncthreads();
+      RLS_MARK(3, i);
 
       // 2. This block's share of S = I + H PHt (a sum over its rows), and
       //    E = Y - H beta, then W^T = (H^T E)^T.
@@ -388,6 +414,7 @@ __global__ void __launch_bounds__(S_THREADS, 1)
         if (lane == 0) e_s[pair] -= acc;
       }
       __syncthreads();
+      RLS_MARK(4, i);
       for (int j = tid; j < m * N; j += S_THREADS) {
         const int jj = j / N, n = j % N;
         float acc = 0.0f;
@@ -400,6 +427,7 @@ __global__ void __launch_bounds__(S_THREADS, 1)
       //    The second barrier also keeps the other blocks from overwriting
       //    their PHt and S share (next stream) before this block has read them.
       sync_cluster();
+      RLS_MARK(5, i);
       for (int j = tid; j < k * k; j += S_THREADS) {
         float acc = 0.0f;
         for (int c = 0; c < C; ++c) acc += peer(s_part, c)[j];
@@ -410,6 +438,7 @@ __global__ void __launch_bounds__(S_THREADS, 1)
         hg[j] = peer(pht, owner)[(n - owner * R) * k + q];
       }
       sync_cluster();
+      RLS_MARK(6, i);
 
       // 4. G = S^-1 PHt^T in place: Gauss-Jordan without pivoting (S is SPD).
       //    Columns of S left of the pivot are never read again, so each step
@@ -431,6 +460,7 @@ __global__ void __launch_bounds__(S_THREADS, 1)
         }
         __syncthreads();
       }
+      RLS_MARK(7, i);
 
       // 5. One pass over this block's rows: P' = P - PHt G goes straight from
       //    registers to device memory (16-byte streaming stores), and its
@@ -495,6 +525,7 @@ __global__ void __launch_bounds__(S_THREADS, 1)
     //    ahead.
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
+    RLS_MARK(8, i);
     if (tid == 0 && i + NS < count) fetch(i + NS);
   }
 }
@@ -634,6 +665,18 @@ extern "C" int oselm_rls_single_launch(const void* P, const void* beta, const vo
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef RLS_PHASE_CLOCKS
+// The marks of the last launch (2 * N_MARKS values), and a reset to 0.
+extern "C" int oselm_rls_phase_marks(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, rls_marks, sizeof(rls_marks)));
+}
+
+extern "C" int oselm_rls_phase_reset() {
+  static const unsigned long long zeros[2 * N_MARKS] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(rls_marks, zeros, sizeof(zeros)));
+}
+#endif
 
 extern "C" int oselm_rls_fleet_smem_bytes(int k, int m) {
   return static_cast<int>(sizeof(float)) * (TR * k + k * TC + TC * m + TR * LD + TR * m);

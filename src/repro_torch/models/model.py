@@ -1,6 +1,15 @@
-"""Top-level model API, the serving half (PyTorch counterpart of
-``repro/models/model.py``): build / prefill / serve_step / decode_step /
-serve_apply_labels.
+"""Top-level model API (PyTorch counterpart of ``repro/models/model.py``):
+build / train_step / prefill / serve_step / decode_step / serve_apply_labels.
+
+``train_step`` is one optimizer step of the backbone (CE loss -> grads ->
+AdamW, ``optim/adam.py``), plus the OS-ELM head trained by rank-k RLS on the
+pooled features, with P1P2 pruning deciding which rows may skip the teacher
+(``odl_update``): a pruned row is masked out of the RLS update (the one-head
+RLS kernel on the card) and costs no label.  The head takes no gradient.
+Master params are f32 (``TrainConfig.param_dtype``); the backbone computes
+in bf16, as the reference does.  The step writes the new params and moments
+into the ``TrainState`` it is given (the reference's jitted step donates
+it): a caller that needs the old state clones it first.
 
 Every backbone carries the paper's ODL head: ``serve_step`` decodes one
 token, then the fleet engine's ``gate`` runs on each stream's last hidden
@@ -13,11 +22,8 @@ the same ``GateOutput``, so a delayed answer is judged at query-time
 context, and runs the fleet RLS kernel.  ``decode_step`` is the gate-free
 variant the multiplexed serving path uses.
 
-A step writes the KV caches in place: the ``ServeState`` passed in is
-consumed, as the reference's jitted serving loop donates it.
-
-Training (``train_step``, ``odl_update``, the optimizer) waits for a later
-slice (ROADMAP Queue 1 item 6).
+A serving step writes the KV caches in place: the ``ServeState`` passed in
+is consumed, as the reference's jitted serving loop donates it.
 """
 
 from __future__ import annotations
@@ -26,12 +32,15 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import engine, resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import drift as drift_mod
 from repro_torch.core import oselm, pruning
 from repro_torch.models import layers, transformer
+from repro_torch.models.layers import softmax_cross_entropy
+from repro_torch.optim import adam
 
 # ---------------------------------------------------------------------------
 # Schema / configs / params
@@ -70,6 +79,176 @@ def build_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """A serving model's params from ``seed`` on ``device`` (CUDA unless
     named): matmul and embedding weights in bf16, norm weights in f32."""
     return layers.init_params(build_schema(cfg), seed, device, dtype=layers.serving_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Training state
+# ---------------------------------------------------------------------------
+
+
+class ODLState(NamedTuple):
+    elm: oselm.OSELMState
+    prune: pruning.PruneState
+
+
+class TrainState(NamedTuple):
+    params: dict
+    opt: adam.AdamState
+    odl: ODLState
+
+
+def init_odl_state(cfg: ModelConfig, device=None) -> ODLState:
+    device = resolve_device(device)
+    return ODLState(elm=oselm.init_state(elm_config(cfg), device),
+                    prune=pruning.init_state(device))
+
+
+def init_train_state(cfg: ModelConfig, seed: int = 0, tcfg: TrainConfig = TrainConfig(),
+                     device=None) -> TrainState:
+    """Master params in ``tcfg.param_dtype`` (f32 by default) drawn from
+    ``seed`` on ``device`` (CUDA unless named), zero moments, a fresh head."""
+    device = resolve_device(device)
+    params = layers.init_params(build_schema(cfg), seed, device,
+                                dtype=getattr(torch, tcfg.param_dtype))
+    return TrainState(params=params, opt=adam.init(params), odl=init_odl_state(cfg, device))
+
+
+# ---------------------------------------------------------------------------
+# Loss and gradients
+# ---------------------------------------------------------------------------
+
+
+def _forward_loss(params, batch, cfg: ModelConfig, remat: bool, layer_params=None):
+    hidden, aux = transformer.lm_hidden(params, batch["tokens"], cfg, remat=remat,
+                                        layer_params=layer_params)
+    logits = transformer.lm_logits(params, hidden, cfg)
+    ce = softmax_cross_entropy(logits, batch["labels"])
+    loss = ce + 0.01 * aux
+    feats = torch.mean(hidden.float(), dim=1)  # (B, d) pooled
+    return loss, (ce, feats)
+
+
+def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, remat: bool = True):
+    """(loss, feats (B, d) f32 detached, grads): the gradient of the loss with
+    respect to every param, a tree like ``params`` in the params' dtype.
+
+    Autograd differentiates one view per layer of each stacked leaf, whose
+    ``.grad`` is preset to the matching slice of a zeroed stacked buffer, so
+    each layer's gradient is added into place: a stacked leaf's gradient is
+    never assembled from per-layer copies (at full width a layer-stacked
+    leaf is 3.6 GB in f32)."""
+    stacked = params["layers"]
+    grads = {"layers": _map(torch.zeros_like, stacked)}
+    views = []
+    for i in range(cfg.n_layers):
+        def one(p, g, i=i):
+            v = p[i].detach().requires_grad_()
+            v.grad = g[i]
+            return v
+
+        views.append(_map(one, stacked, grads["layers"]))
+    top = {k: v.detach().requires_grad_() for k, v in params.items() if k != "layers"}
+    loss, (_, feats) = _forward_loss(dict(top, layers=stacked), batch, cfg, remat, views)
+    loss.backward()
+    for k, v in top.items():
+        grads[k] = v.grad if v.grad is not None else torch.zeros_like(v)
+    return loss.detach(), feats.detach(), grads
+
+
+def _map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+# ---------------------------------------------------------------------------
+# ODL head update (the paper's technique, fused into the train step)
+# ---------------------------------------------------------------------------
+
+
+def odl_update(
+    odl: ODLState,
+    feats: torch.Tensor,  # (B, d_model) f32
+    odl_labels: torch.Tensor,  # (B,) int teacher labels
+    cfg: ModelConfig,
+    drift_active: Optional[torch.Tensor] = None,
+) -> tuple[ODLState, dict]:
+    """Predict, gate against the batch-start theta, RLS-train the head on
+    the queried rows (the pruned ones masked out), then replay the ladder
+    row by row (``pruning.scan_update``)."""
+    ecfg = elm_config(cfg)
+    pcfg = pruning.PruneConfig.for_hidden(ecfg.n_hidden)
+    if drift_active is None:
+        drift_active = torch.zeros((), dtype=torch.bool, device=feats.device)
+
+    preds, outs = oselm.predict(odl.elm, feats, ecfg)  # (B,), (B, m)
+    conf = pruning.confidence(outs)
+    theta = pruning.theta_of(odl.prune, pcfg)
+    warm = odl.elm.count >= pcfg.min_trained
+    prune_mask = warm & ~drift_active & (conf > theta)
+    queried = ~prune_mask  # (B,)
+
+    y = F.one_hot(odl_labels.long(), ecfg.n_out).to(torch.float32)
+    new_elm = oselm.sequential_update(odl.elm, feats, y, ecfg, mask=queried.to(torch.float32))
+    agree = preds == odl_labels
+    new_prune = pruning.scan_update(odl.prune, queried, agree, conf, pcfg)
+
+    metrics = {
+        "odl_query_frac": torch.mean(queried.to(torch.float32)),
+        "odl_acc": torch.mean(agree.to(torch.float32)),
+        "odl_theta": theta,
+    }
+    return ODLState(elm=new_elm, prune=new_prune), metrics
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+
+def accumulate_grads(params: dict, batch: dict, cfg: ModelConfig,
+                     tcfg: TrainConfig = TrainConfig()):
+    """(loss, feats (B, d) f32, grads) of one batch: ``loss_and_grads``, or
+    with ``tcfg.microbatches`` = mb > 1 over mb slices along B, the
+    gradients summed in f32, each divided by mb, and the slices' features
+    concatenated."""
+    mb = tcfg.microbatches
+    if mb == 1:
+        return loss_and_grads(params, batch, cfg, tcfg.remat)
+
+    def split(x, i):
+        return x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))[i]
+
+    grads = _map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    loss, feats_mb = 0.0, []
+    for i in range(mb):
+        loss_i, feats_i, g = loss_and_grads(
+            params, {k: split(v, i) for k, v in batch.items()}, cfg, tcfg.remat)
+        _map(lambda a, b: a.add_(b.float() / mb), grads, g)
+        loss = loss + loss_i / mb
+        feats_mb.append(feats_i)
+        del g  # before the next slice's gradients exist
+    return loss, torch.cat(feats_mb), grads
+
+
+def train_step(
+    state: TrainState,
+    batch: dict,
+    cfg: ModelConfig,
+    tcfg: TrainConfig = TrainConfig(),
+) -> tuple[TrainState, dict]:
+    """One optimizer step with optional gradient accumulation.
+
+    batch: tokens/labels (B, S) + odl_labels (B,), tensors on the state's
+    device.  The gradients are ``accumulate_grads``'s; the head trains on
+    all B rows' features at once.  The params and moments of ``state`` are
+    updated in place.
+    """
+    loss, feats, grads = accumulate_grads(state.params, batch, cfg, tcfg)
+    new_params, new_opt, gnorm = adam.update(grads, state.opt, state.params, tcfg)
+    new_odl, odl_metrics = odl_update(state.odl, feats, batch["odl_labels"], cfg)
+    metrics = {"loss": loss, "grad_norm": gnorm, **odl_metrics}
+    return TrainState(params=new_params, opt=new_opt, odl=new_odl), metrics
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ mistral-nemo-12b, qwen3-4b and chameleon-34b (a dense stack behind a
 frontend stub).  Layers keep the reference's stacked layout (a leading L
 dim on every layer leaf, so a converted param tree is a plain copy) and run
 as a loop over that dim; caches keep the reference's structure too
-(``{"layers": {"k": (L, B, S, KV, hd), "v": ...}}``).
+(``{"layers": {"k": (L, B, S, KV, hd), "v": ...}}``).  ``lm_hidden`` is
+the training forward too, with the reference's remat.
 
 Experts, MLA, the SSD scan and hybrid RG-LRU stacks raise
 ``NotImplementedError``: ROADMAP Queue 1 item 6 ports them in later slices.
@@ -18,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention
@@ -107,17 +109,32 @@ def lm_hidden(
     cfg: ModelConfig,
     positions: Optional[torch.Tensor] = None,
     remat: bool = True,
+    layer_params: Optional[list] = None,
 ) -> tuple[torch.Tensor, float]:
     """Token ids -> final hidden states (B, S, d) [compute dtype], aux loss
-    (0.0: a dense stack has none).  ``remat`` is the reference's training
-    switch and does nothing when serving."""
-    del remat
+    (0.0: a dense stack has none).
+
+    ``layer_params`` holds each layer's params; by default they are views of
+    the stacked leaves at each index.  A training step passes views of its
+    own, whose gradients it gathers (``model.loss_and_grads``).
+
+    ``remat`` recomputes each layer in the backward pass instead of keeping
+    its activations (``torch.utils.checkpoint``, the counterpart of the
+    reference's ``jax.checkpoint`` with ``nothing_saveable``): it applies
+    only where autograd records the stack, so serving runs as it did."""
     require_dense(cfg)
     if positions is None:
         positions = _positions(tokens)
+    if layer_params is None:
+        layer_params = [_layer(params["layers"], i) for i in range(cfg.n_layers)]
     h = _embed(params, tokens)
-    for i in range(cfg.n_layers):
-        h = _dense_layer(h, _layer(params["layers"], i), cfg, positions)
+    recompute = remat and torch.is_grad_enabled() and h.requires_grad
+    for lp in layer_params:
+        if recompute:
+            h = checkpoint(_dense_layer, h, lp, cfg, positions, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _dense_layer(h, lp, cfg, positions)
     return rmsnorm(h, params["final_norm"]), 0.0
 
 

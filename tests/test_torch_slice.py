@@ -161,7 +161,8 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__p
 need = {{"repro_torch.models.layers", "repro_torch.models.attention",
         "repro_torch.models.transformer", "repro_torch.models.model",
         "repro_torch.launch.serve", "repro_torch.configs.base", "repro_torch.configs.qwen3_4b",
-        "repro_torch.data.tokens", "repro_torch.examples.serve_cascade"}}
+        "repro_torch.data.tokens", "repro_torch.examples.serve_cascade",
+        "repro_torch.optim.adam", "repro_torch.launch.train", "repro_torch.examples.train_lm_odl"}}
 assert need <= set(names), sorted(need - set(names))
 for name in names:
     importlib.import_module(name)
