@@ -45,7 +45,7 @@ class ModelConfig:
     capacity_factor: float = 1.25
     # 'dense': scatter-dispatch; 'ep': explicit expert parallelism with
     # all-to-all dispatch (the reference's two MoE implementations; the
-    # port has no MoE yet).
+    # port runs 'ep' as 'dense', having no mesh with a 'model' axis).
     moe_impl: str = "dense"
 
     # --- MLA (deepseek-v2) ---

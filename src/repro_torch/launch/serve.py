@@ -81,13 +81,16 @@ class _Decoded(NamedTuple):
     next_token: torch.Tensor  # (B, 1) greedy feedback
 
 
-def _decode_tick(params, cfg):
+def _decode_tick(params, cfg, names):
     """One decode step as a tick function of ``engine.graphs``: it writes
-    the caches (fixed buffers) at ``pos`` in place and returns the features
-    and the next token.  Run twice on the same inputs it writes the same
-    values, so a graph's warm-up call leaves nothing its replays depend on."""
-    def tick(k_cache, v_cache, pos, token):
-        state = model_lib.ServeState(caches={"layers": {"k": k_cache, "v": v_cache}}, pos=pos,
+    the caches (fixed buffers: the stacked cache leaves ``names``, in that
+    order: K and V, or MLA's latent and rope key) at ``pos`` in place and
+    returns the features and the next token.  Run twice on the same inputs
+    it writes the same values, so a graph's warm-up call leaves nothing its
+    replays depend on."""
+    def tick(*args):
+        *leaves, pos, token = args
+        state = model_lib.ServeState(caches={"layers": dict(zip(names, leaves))}, pos=pos,
                                      odl=None)
         logits, feats, _ = model_lib.decode_step(params, state, token, cfg)
         return _Decoded(feats, torch.argmax(logits, -1)[:, None])
@@ -104,13 +107,13 @@ def _decode_feats(params, state, prompts, cfg, gen_tokens):
     each step replays one CUDA graph of the whole step (``engine.graphs``):
     an eager step is some 18,000 dispatches from the host; on the CPU the
     step runs eagerly."""
-    caches = state.caches["layers"]
-    fixed = (caches["k"].clone(), caches["v"].clone())
+    names = tuple(sorted(state.caches["layers"]))
+    fixed = tuple(state.caches["layers"][n].clone() for n in names)
     pos, token = state.pos, prompts[:, -1:]
+    tick = _decode_tick(params, cfg, names)
     graph_cache: dict = {}
     for _ in range(gen_tokens):
-        out = graphs.run(graph_cache, "decode", "decode", _decode_tick(params, cfg), fixed,
-                         [pos, token])
+        out = graphs.run(graph_cache, "decode", "decode", tick, fixed, [pos, token])
         pos, token = pos + 1, out.next_token
         yield out.feats
 
@@ -391,7 +394,10 @@ def serve_fleet(workers: int = 2, tenants: int = 4, batch: int = 4,
                   f"(migrated {moved or 'nothing'}; "
                   f"{len(finished)} finished there)")
 
-        router.wait_finished([s["name"] for s in specs], timeout_s=600)
+        # A tenant that finished on the drained worker left the fleet with it:
+        # its stats are already collected, and no live worker will list it.
+        router.wait_finished([s["name"] for s in specs if s["name"] not in collected],
+                             timeout_s=600)
 
         # Final scrape BEFORE the workers go away, then ONE render over the
         # collected stats (the solo and mesh paths' `_print_stream_report`).

@@ -1,5 +1,6 @@
-"""Backbones (PyTorch counterpart of ``repro.models``): the dense GQA family's
-serving path — ``layers``, ``attention`` (GQA, naive and chunked),
-``transformer`` (the stacked decoder, prefill and KV-cache decode) and
-``model`` (``prefill``, ``serve_step``, ``decode_step``,
-``serve_apply_labels``)."""
+"""Backbones (PyTorch counterpart of ``repro.models``): the dense and MoE
+families' serving path — ``layers``, ``attention`` (GQA, naive and chunked;
+MLA with its latent cache), ``moe`` (DeepSeekMoE's routed and shared
+experts), ``transformer`` (the stacked decoder, prefill and cache decode)
+and ``model`` (``prefill``, ``serve_step``, ``decode_step``,
+``serve_apply_labels``; ``train_step`` for the dense stacks)."""

@@ -1,9 +1,15 @@
-"""Grouped-query attention, full or sliding-window (PyTorch counterpart of
-the GQA half of ``repro/models/attention.py``).
+"""Grouped-query attention (full or sliding-window) and DeepSeek-V2's
+multi-head latent attention (PyTorch counterpart of
+``repro/models/attention.py``).
 
-One KV-cache convention for decode::
+The KV-cache conventions for decode::
 
   GQA cache:  {"k": (B, S_max, KV, hd), "v": (B, S_max, KV, hd)}
+  MLA cache:  {"ckv": (B, S_max, kv_lora), "k_rope": (B, S_max, rope_dim)}
+
+MLA caches the *compressed* latent (576 values a token at deepseek-v2's
+width against 2 * KV * hd) and expands it to per-head K and V at every
+step, as the reference does.
 
 Grouped einsums keep K/V un-repeated (no head replication).  The score and
 PV products take bf16 operands and accumulate and return f32, as the
@@ -18,7 +24,8 @@ same tensors: a serving loop consumes its cache, as the reference's jitted
 loop donates it.  Callers that replay a decode from one prefill clone the
 prefill's caches first (``launch.serve._decode_feats`` does).
 
-MLA and cross-attention are not ported yet (ROADMAP Queue 1 item 6).
+Cross-attention is not ported yet (ROADMAP Queue 1 item 6.4, with the
+encoder-decoder).
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ from repro_torch.models.layers import Leaf, apply_rope, cast, rmsnorm
 
 NEG_INF = -1e9  # bf16-safe large negative
 
-_NOT_PORTED = ("{} is not ported yet: ROADMAP Queue 1 item 6 takes MLA with MoE "
-               "and cross-attention with enc-dec (whisper) in later slices")
+_NOT_PORTED = ("{} is not ported yet: ROADMAP Queue 1 item 6 takes cross-attention "
+               "with enc-dec (whisper) in a later slice")
 
 
 # ---------------------------------------------------------------------------
@@ -57,6 +64,24 @@ def gqa_schema(cfg: ModelConfig) -> dict:
         s["q_norm"] = Leaf((hd,), ("head_dim",), init="zeros")
         s["k_norm"] = Leaf((hd,), ("head_dim",), init="zeros")
     return s
+
+
+def mla_schema(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    qk = cfg.qk_nope_dim
+    return {
+        "wq_a": Leaf((d, cfg.q_lora_rank), ("embed", None)),
+        "q_a_norm": Leaf((cfg.q_lora_rank,), (None,), init="zeros"),
+        "wq_b": Leaf(
+            (cfg.q_lora_rank, h, qk + cfg.qk_rope_dim), (None, "heads", "head_dim")
+        ),
+        "wkv_a": Leaf((d, cfg.kv_lora_rank + cfg.qk_rope_dim), ("embed", None)),
+        "kv_a_norm": Leaf((cfg.kv_lora_rank,), (None,), init="zeros"),
+        "wkv_b": Leaf(
+            (cfg.kv_lora_rank, h, qk + cfg.v_head_dim), (None, "heads", "head_dim")
+        ),
+        "wo": Leaf((h, cfg.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +232,7 @@ def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=layers.COMP
 
 
 def _scatter_cache(buf, new, slot):
-    """Write new (B,1,KV,hd) into buf (B,S,KV,hd) at each row's slot, in place.
+    """Write new (B,1,...) into buf (B,S,...) at each row's slot, in place.
 
     What the reference's one-hot blend ``buf * (1 - oh) + oh * new`` writes:
     the new row where the slot is in range, the old rows everywhere else
@@ -217,8 +242,18 @@ def _scatter_cache(buf, new, slot):
     in_range = (slot >= 0) & (slot < s)
     idx = slot.clamp(0, s - 1).long()
     old = buf[rows, idx]
-    buf[rows, idx] = torch.where(in_range[:, None, None], new[:, 0].to(buf.dtype), old)
+    keep_new = in_range.view((b,) + (1,) * (old.dim() - 1))
+    buf[rows, idx] = torch.where(keep_new, new[:, 0].to(buf.dtype), old)
     return buf
+
+
+def _write_at_first(buf, new, slot):
+    """The ``dus`` write: every stream's new row at the first stream's slot
+    (synchronized positions), the start clamped into the cache as
+    ``dynamic_update_slice`` clamps it.  An index tensor, never a Python
+    int, so a captured graph replays it at each step's slot."""
+    at = slot[:1].clamp(0, buf.shape[1] - 1).long()
+    buf.index_copy_(1, at, new.to(buf.dtype))
 
 
 def decode_bias(cfg: ModelConfig, pos: torch.Tensor, cache_len: int, ring: bool,
@@ -263,11 +298,8 @@ def gqa_decode(
     q, k_new, v_new = _qkv(x, p, cfg, pos[:, None])  # RoPE at absolute pos
     slot = torch.remainder(pos, cache_len) if ring else pos
     if cfg.cache_update == "dus":
-        # Every stream at the first stream's slot (synchronized positions),
-        # the start clamped into the cache as dynamic_update_slice clamps it.
-        at = slot[:1].clamp(0, cache_len - 1).long()
-        k.index_copy_(1, at, k_new.to(k.dtype))
-        v.index_copy_(1, at, v_new.to(v.dtype))
+        _write_at_first(k, k_new, slot)
+        _write_at_first(v, v_new, slot)
     else:
         _scatter_cache(k, k_new, slot)
         _scatter_cache(v, v_new, slot)
@@ -279,16 +311,98 @@ def gqa_decode(
 
 
 # ---------------------------------------------------------------------------
-# Not ported yet
+# MLA (DeepSeek-V2 multi-head latent attention)
 # ---------------------------------------------------------------------------
 
 
-def mla_attention(*args, **kwargs):
-    raise NotImplementedError(_NOT_PORTED.format("MLA attention"))
+def _mla_q(x, p, cfg: ModelConfig, positions):
+    q_a = rmsnorm(x @ cast(p["wq_a"]), p["q_a_norm"])
+    q = _proj(q_a, p["wq_b"])
+    q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
 
-def mla_decode(*args, **kwargs):
-    raise NotImplementedError(_NOT_PORTED.format("MLA decode"))
+def _mla_kv(ckv, p, cfg: ModelConfig):
+    """Expand the compressed latent (B,S,kv_lora) -> per-head k_nope, v."""
+    kv = _proj(ckv, p["wkv_b"])
+    return kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
+
+
+def _mla_latent(x, p, cfg: ModelConfig, positions):
+    """The token's cache entries: (ckv (B,S,kv_lora) normed, k_rope
+    (B,S,rope_dim) rotated; one rope key shared by every head)."""
+    kv_a = x @ cast(p["wkv_a"])
+    ckv, k_rope = kv_a.split([cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    ckv = rmsnorm(ckv, p["kv_a_norm"])
+    return ckv, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+
+def _mla_scores(q_nope, q_rope, k_nope, k_rope, cfg: ModelConfig, bias):
+    """(B,H,Sq,Sk) f32 scores, both products taken in f32 as the
+    reference's ``preferred_element_type`` asks; bias (B,1,1,Sq,Sk)."""
+    scale = float(1.0 / np.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim))
+    scores = (torch.einsum("bqhe,bkhe->bhqk", q_nope.float(), k_nope.float())
+              + torch.einsum("bqhe,bke->bhqk", q_rope.float(), k_rope.float()))
+    return scores * scale + bias[:, 0]
+
+
+def _mla_out(o, p, cfg: ModelConfig, dtype):
+    """(B,S,H,v_head_dim) -> einsum('bshe,hed->bsd', o, cast(wo)) in bf16."""
+    b, s = o.shape[:2]
+    return o.reshape(b, s, -1).to(dtype) @ cast(p["wo"]).reshape(-1, cfg.d_model)
+
+
+def mla_attention(x, p, cfg: ModelConfig, positions, causal: bool = True,
+                  return_kv: bool = False):
+    q_nope, q_rope = _mla_q(x, p, cfg, positions)
+    ckv, k_rope = _mla_latent(x, p, cfg, positions)
+    k_nope, v = _mla_kv(ckv, p, cfg)
+    bias = _mask_bias(positions, positions, causal, None)
+    probs = torch.softmax(_mla_scores(q_nope, q_rope, k_nope, k_rope, cfg, bias), -1)
+    o = torch.einsum("bhqk,bkhe->bqhe", probs.to(v.dtype).float(), v.float())
+    out = _mla_out(o, p, cfg, x.dtype)
+    if return_kv:
+        return out, (ckv, k_rope)
+    return out
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=layers.COMPUTE_DTYPE,
+                   device=None) -> dict:
+    return {
+        "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype, device=device),
+    }
+
+
+def mla_decode(x, p, cfg: ModelConfig, cache: dict, pos: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
+    """One decode step; writes the latent cache in place and returns it.
+    The whole cache is expanded to per-head K and V every step, as the
+    reference does.  ``bias`` is ``decode_bias`` of this step, where the
+    caller made it once for every layer."""
+    ckv, k_rope = cache["ckv"], cache["k_rope"]
+    q_nope, q_rope = _mla_q(x, p, cfg, pos[:, None])
+    ckv_new, k_rope_new = _mla_latent(x, p, cfg, pos[:, None])
+    if cfg.cache_update == "dus":
+        _write_at_first(ckv, ckv_new, pos)
+        _write_at_first(k_rope, k_rope_new, pos)
+    else:
+        _scatter_cache(ckv, ckv_new, pos)
+        _scatter_cache(k_rope, k_rope_new, pos)
+
+    k_nope, v = _mla_kv(ckv.to(x.dtype), p, cfg)
+    if bias is None:
+        bias = decode_bias(cfg, pos, ckv.shape[1], ring=False)
+    scores = _mla_scores(q_nope, q_rope, k_nope, k_rope.to(x.dtype), cfg, bias)
+    probs = torch.softmax(scores, -1).to(x.dtype)
+    # A bf16 product in the reference: accumulated in f32, rounded once.
+    o = torch.einsum("bhqk,bkhe->bqhe", probs.float(), v.float()).to(x.dtype)
+    return _mla_out(o, p, cfg, x.dtype), {"ckv": ckv, "k_rope": k_rope}
+
+
+# ---------------------------------------------------------------------------
+# Not ported yet
+# ---------------------------------------------------------------------------
 
 
 def cross_attention(*args, **kwargs):

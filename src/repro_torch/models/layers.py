@@ -53,7 +53,9 @@ class Leaf:
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dtype, device=device)
         z = torch.randn(self.shape, generator=generator, dtype=torch.float32, device=device)
-        return (z * self.std).to(dtype)
+        # Scaled in place: one f32 copy of the leaf at a time (deepseek-moe-16b's
+        # moe/wg is 20.7 GB in f32).
+        return z.mul_(self.std).to(dtype)
 
 
 def _iter_leaves(schema, path=()):

@@ -9,7 +9,9 @@ RLS kernel on the card) and costs no label.  The head takes no gradient.
 Master params are f32 (``TrainConfig.param_dtype``); the backbone computes
 in bf16, as the reference does.  The step writes the new params and moments
 into the ``TrainState`` it is given (the reference's jitted step donates
-it): a caller that needs the old state clones it first.
+it): a caller that needs the old state clones it first.  Dense and MoE
+stacks (GQA or MLA attention) serve; only the dense ones train yet
+(``require_trainable``).
 
 Every backbone carries the paper's ODL head: ``serve_step`` decodes one
 token, then the fleet engine's ``gate`` runs on each stream's last hidden
@@ -48,8 +50,17 @@ from repro_torch.optim import adam
 
 
 def build_schema(cfg: ModelConfig) -> dict:
-    transformer.require_dense(cfg)
     return transformer.lm_schema(cfg)
+
+
+def require_trainable(cfg: ModelConfig) -> None:
+    """Raise for the stacks the port serves but cannot train yet: MoE (the
+    aux loss in the step) and MLA."""
+    transformer.require_dense(cfg)
+    if cfg.n_experts or cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: training MoE and MLA stacks is not ported yet; ROADMAP "
+            "Queue 1 item 6 lists it after their serving path")
 
 
 def elm_config(cfg: ModelConfig) -> oselm.OSELMConfig:
@@ -107,6 +118,7 @@ def init_train_state(cfg: ModelConfig, seed: int = 0, tcfg: TrainConfig = TrainC
                      device=None) -> TrainState:
     """Master params in ``tcfg.param_dtype`` (f32 by default) drawn from
     ``seed`` on ``device`` (CUDA unless named), zero moments, a fresh head."""
+    require_trainable(cfg)
     device = resolve_device(device)
     params = layers.init_params(build_schema(cfg), seed, device,
                                 dtype=getattr(torch, tcfg.param_dtype))
@@ -137,6 +149,7 @@ def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, remat: bool = Tr
     each layer's gradient is added into place: a stacked leaf's gradient is
     never assembled from per-layer copies (at full width a layer-stacked
     leaf is 3.6 GB in f32)."""
+    require_trainable(cfg)
     stacked = params["layers"]
     grads = {"layers": _map(torch.zeros_like, stacked)}
     views = []
@@ -244,6 +257,7 @@ def train_step(
     all B rows' features at once.  The params and moments of ``state`` are
     updated in place.
     """
+    require_trainable(cfg)
     loss, feats, grads = accumulate_grads(state.params, batch, cfg, tcfg)
     new_params, new_opt, gnorm = adam.update(grads, state.opt, state.params, tcfg)
     new_odl, odl_metrics = odl_update(state.odl, feats, batch["odl_labels"], cfg)

@@ -1,16 +1,23 @@
-"""Decoder-only LM assembly, the dense path (PyTorch counterpart of
-``repro/models/transformer.py``).
+"""Decoder-only LM assembly, the dense and MoE paths (PyTorch counterpart
+of ``repro/models/transformer.py``).
 
-One code path serves the dense archs: GQA attention (+ optional sliding
-window / qk_norm) + SwiGLU — h2o-danube-1.8b, deepseek-coder-33b,
-mistral-nemo-12b, qwen3-4b and chameleon-34b (a dense stack behind a
-frontend stub).  Layers keep the reference's stacked layout (a leading L
-dim on every layer leaf, so a converted param tree is a plain copy) and run
-as a loop over that dim; caches keep the reference's structure too
-(``{"layers": {"k": (L, B, S, KV, hd), "v": ...}}``).  ``lm_hidden`` is
-the training forward too, with the reference's remat.
+One code path serves the seven decoder-only archs of two families:
 
-Experts, MLA, the SSD scan and hybrid RG-LRU stacks raise
+  dense — GQA attention (+ optional sliding window / qk_norm) + SwiGLU:
+          h2o-danube-1.8b, deepseek-coder-33b, mistral-nemo-12b, qwen3-4b
+          and chameleon-34b (a dense stack behind a frontend stub);
+  moe   — GQA or MLA attention + fine-grained MoE: deepseek-moe-16b,
+          deepseek-v2-236b (every layer MoE, as the reference's configs).
+
+Layers keep the reference's stacked layout (a leading L dim on every layer
+leaf, so a converted param tree is a plain copy) and run as a loop over
+that dim; caches keep the reference's structure too (``{"layers": {"k":
+(L, B, S, KV, hd), "v": ...}}``, or ``{"layers": {"ckv": (L, B, S,
+kv_lora), "k_rope": ...}}`` with MLA).  ``lm_hidden`` is the training
+forward too, with the reference's remat, and sums the MoE layers' aux loss
+in layer order as the reference's scan carry does.
+
+The SSD scan, hybrid RG-LRU stacks and the encoder-decoder raise
 ``NotImplementedError``: ROADMAP Queue 1 item 6 ports them in later slices.
 """
 
@@ -22,12 +29,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, moe
 from repro_torch.models.layers import Leaf, cast, rmsnorm, stack_schema, swiglu
 
 
 def require_dense(cfg: ModelConfig) -> None:
-    """Raise for the families the port has no backbone for yet."""
+    """Raise for the families the port has no backbone for yet (dense and
+    MoE stacks, GQA or MLA, have one)."""
     missing = None
     if cfg.enc_dec:
         missing = "the encoder-decoder (whisper)"
@@ -35,14 +43,10 @@ def require_dense(cfg: ModelConfig) -> None:
         missing = "the SSD scan (mamba2)"
     elif cfg.hybrid_pattern:
         missing = "the hybrid RG-LRU stack (recurrentgemma)"
-    elif cfg.n_experts:
-        missing = "MoE (dense and EP)"
-    elif cfg.use_mla:
-        missing = "MLA attention"
     if missing is not None:
         raise NotImplementedError(
             f"{cfg.arch_id}: {missing} is not ported yet; ROADMAP Queue 1 item 6 "
-            "lists it after the dense serving path")
+            "lists it after the dense and MoE serving paths")
 
 
 # ---------------------------------------------------------------------------
@@ -53,16 +57,18 @@ def require_dense(cfg: ModelConfig) -> None:
 def _mixer_schema(cfg: ModelConfig) -> dict:
     require_dense(cfg)
     d, ff = cfg.d_model, cfg.d_ff
-    return {
-        "ln1": Leaf((d,), ("embed",), init="zeros"),
-        "attn": attention.gqa_schema(cfg),
-        "ln2": Leaf((d,), ("embed",), init="zeros"),
-        "mlp": {
+    s: dict = {"ln1": Leaf((d,), ("embed",), init="zeros")}
+    s["attn"] = attention.mla_schema(cfg) if cfg.use_mla else attention.gqa_schema(cfg)
+    s["ln2"] = Leaf((d,), ("embed",), init="zeros")
+    if cfg.n_experts:
+        s["moe"] = moe.moe_schema(cfg)
+    else:
+        s["mlp"] = {
             "wg": Leaf((d, ff), ("embed", "mlp")),
             "wu": Leaf((d, ff), ("embed", "mlp")),
             "wd": Leaf((ff, d), ("mlp", "embed")),
-        },
-    }
+        }
+    return s
 
 
 def lm_schema(cfg: ModelConfig) -> dict:
@@ -91,11 +97,19 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _ffn(h, lp, cfg: ModelConfig):
+    """The layer's second half: (h + MoE or SwiGLU of its norm, aux loss)."""
+    hn = rmsnorm(h, lp["ln2"])
+    if cfg.n_experts:
+        y, aux = moe.moe_block(hn, lp["moe"], cfg)
+        return h + y, aux
+    return h + swiglu(hn, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"]), 0.0
+
+
 def _dense_layer(h, lp, cfg: ModelConfig, positions):
     hn = rmsnorm(h, lp["ln1"])
-    h = h + attention.gqa_attention(hn, lp["attn"], cfg, positions)
-    hn = rmsnorm(h, lp["ln2"])
-    return h + swiglu(hn, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    attend = attention.mla_attention if cfg.use_mla else attention.gqa_attention
+    return _ffn(h + attend(hn, lp["attn"], cfg, positions), lp, cfg)
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -110,9 +124,9 @@ def lm_hidden(
     positions: Optional[torch.Tensor] = None,
     remat: bool = True,
     layer_params: Optional[list] = None,
-) -> tuple[torch.Tensor, float]:
+) -> tuple[torch.Tensor, torch.Tensor | float]:
     """Token ids -> final hidden states (B, S, d) [compute dtype], aux loss
-    (0.0: a dense stack has none).
+    (the MoE layers' sum, a 0-d f32 tensor; 0.0 for a dense stack).
 
     ``layer_params`` holds each layer's params; by default they are views of
     the stacked leaves at each index.  A training step passes views of its
@@ -129,13 +143,15 @@ def lm_hidden(
         layer_params = [_layer(params["layers"], i) for i in range(cfg.n_layers)]
     h = _embed(params, tokens)
     recompute = remat and torch.is_grad_enabled() and h.requires_grad
+    aux = 0.0
     for lp in layer_params:
         if recompute:
-            h = checkpoint(_dense_layer, h, lp, cfg, positions, use_reentrant=False,
-                           preserve_rng_state=False)
+            h, a = checkpoint(_dense_layer, h, lp, cfg, positions, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            h = _dense_layer(h, lp, cfg, positions)
-    return rmsnorm(h, params["final_norm"]), 0.0
+            h, a = _dense_layer(h, lp, cfg, positions)
+        aux = aux + a
+    return rmsnorm(h, params["final_norm"]), aux
 
 
 def lm_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -149,14 +165,15 @@ def lm_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 
-def _pad_full_cache(k, v, out):
-    """Full-attention cache: (B,S,KV,hd) K/V into the first S slots of the
-    zeroed cache ``out``."""
-    s, max_len = k.shape[1], out["k"].shape[1]
-    if s > max_len:
-        raise ValueError(f"prompt of {s} tokens does not fit a {max_len}-slot cache")
-    out["k"][:, :s] = k
-    out["v"][:, :s] = v
+def _pad_full_cache(new: dict, out: dict):
+    """Full-attention cache: each (B,S,...) leaf of ``new`` (K and V, or
+    MLA's latent and rope key) into the first S slots of the zeroed cache
+    ``out``."""
+    for name, a in new.items():
+        s, max_len = a.shape[1], out[name].shape[1]
+        if s > max_len:
+            raise ValueError(f"prompt of {s} tokens does not fit a {max_len}-slot cache")
+        out[name][:, :s] = a
 
 
 def _ring_cache(k, v, s_total, out):
@@ -180,20 +197,22 @@ def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len=Non
     max_len = max_len or s
     positions = _positions(tokens)
     caches = init_caches(cfg, b, max_len, device=tokens.device)
-    ck, cv = caches["layers"]["k"], caches["layers"]["v"]
     h = _embed(params, tokens)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
+        out = _layer(caches["layers"], i)
         hn = rmsnorm(h, lp["ln1"])
-        y, (k, v) = attention.gqa_attention(hn, lp["attn"], cfg, positions, return_kv=True)
-        out = {"k": ck[i], "v": cv[i]}
-        if cfg.sliding_window is not None:
-            _ring_cache(k, v, s, out)
+        if cfg.use_mla:
+            y, (ckv, k_rope) = attention.mla_attention(hn, lp["attn"], cfg, positions,
+                                                       return_kv=True)
+            _pad_full_cache({"ckv": ckv, "k_rope": k_rope}, out)
         else:
-            _pad_full_cache(k, v, out)
-        h = h + y
-        hn = rmsnorm(h, lp["ln2"])
-        h = h + swiglu(hn, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+            y, (k, v) = attention.gqa_attention(hn, lp["attn"], cfg, positions, return_kv=True)
+            if cfg.sliding_window is not None:
+                _ring_cache(k, v, s, out)
+            else:
+                _pad_full_cache({"k": k, "v": v}, out)
+        h, _ = _ffn(h + y, lp, cfg)
     h = rmsnorm(h, params["final_norm"])
     pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     return h, caches, pos
@@ -205,21 +224,27 @@ def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len=Non
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """Stacked per-layer caches (leading dim = n_layers), zeros in bf16; a
-    sliding-window arch keeps a ring of min(max_len, window) slots."""
+    """Stacked per-layer caches (leading dim = n_layers), zeros in bf16: MLA's
+    latent cache, or K and V, of which a sliding-window arch keeps a ring of
+    min(max_len, window) slots."""
     require_dense(cfg)
-    eff = max_len if cfg.sliding_window is None else min(max_len, cfg.sliding_window)
-    one = attention.gqa_init_cache(cfg, batch, eff, device=device)
+    if cfg.use_mla:
+        one = attention.mla_init_cache(cfg, batch, max_len, device=device)
+    else:
+        eff = max_len if cfg.sliding_window is None else min(max_len, cfg.sliding_window)
+        one = attention.gqa_init_cache(cfg, batch, eff, device=device)
     return {"layers": {name: a.new_zeros((cfg.n_layers,) + a.shape) for name, a in one.items()}}
 
 
 def _decode_dense_layer(h, lp, cache_l, cfg: ModelConfig, pos, bias=None):
     hn = rmsnorm(h, lp["ln1"])
-    a, new_cache = attention.gqa_decode(
-        hn, lp["attn"], cfg, cache_l, pos, ring=cfg.sliding_window is not None, bias=bias)
-    h = h + a
-    hn = rmsnorm(h, lp["ln2"])
-    return h + swiglu(hn, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"]), new_cache
+    if cfg.use_mla:
+        a, new_cache = attention.mla_decode(hn, lp["attn"], cfg, cache_l, pos, bias=bias)
+    else:
+        a, new_cache = attention.gqa_decode(
+            hn, lp["attn"], cfg, cache_l, pos, ring=cfg.sliding_window is not None, bias=bias)
+    h, _ = _ffn(h + a, lp, cfg)
+    return h, new_cache
 
 
 def lm_decode_hidden(
@@ -233,10 +258,11 @@ def lm_decode_hidden(
     place (the same tensors come back)."""
     require_dense(cfg)
     h = _embed(params, token)
-    ck, cv = caches["layers"]["k"], caches["layers"]["v"]
+    stacked = caches["layers"]
     # Every layer attends over the same slots: one mask for the step.
-    bias = attention.decode_bias(cfg, pos, ck.shape[2], cfg.sliding_window is not None)
+    cache_len = next(iter(stacked.values())).shape[2]
+    bias = attention.decode_bias(cfg, pos, cache_len, cfg.sliding_window is not None)
     for i in range(cfg.n_layers):
-        h, _ = _decode_dense_layer(h, _layer(params["layers"], i), {"k": ck[i], "v": cv[i]},
+        h, _ = _decode_dense_layer(h, _layer(params["layers"], i), _layer(stacked, i),
                                    cfg, pos, bias)
     return rmsnorm(h, params["final_norm"]), caches

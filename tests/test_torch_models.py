@@ -2,8 +2,9 @@
 held against the JAX package's (``repro.configs``, ``repro.models``).
 
 Configs are data: ``ARCH_IDS`` and every field of every arch's full and
-smoke config are equal, and the five dense archs count the reference's
-parameters.  Layers take the same numpy inputs in both packages: f32
+smoke config are equal, and the five dense archs and the two MoE archs
+count the reference's parameters (the MoE and MLA layers themselves are
+held in ``tests/test_torch_moe.py`` and ``tests/test_torch_mla.py``).  Layers take the same numpy inputs in both packages: f32
 results within 1e-6, bf16 results within one bf16 ulp of the reference's
 (relative 2^-8 of the value, plus 2^-8 of the row's scale for values that
 cancel).  Attention: the port's naive and chunked algorithms against each
@@ -63,6 +64,8 @@ FULL_PARAMS = {
     "mistral-nemo-12b": 12_247_782_400,
     "deepseek-coder-33b": 33_342_991_360,
     "chameleon-34b": 34_293_436_416,
+    "deepseek-moe-16b": 16_879_568_896,
+    "deepseek-v2-236b": 239_375_569_920,
 }
 FRO_REL, MAX_ABS = 3e-2, 0.15  # bf16 stack against the JAX package (see above)
 # Logits and cache leaves: worst seen 3.0 % of the array's largest
@@ -144,14 +147,13 @@ def test_every_config_field_equals_the_reference(arch):
             j_configs.get_config(arch, variant).resolved_head_dim
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", FULL_PARAMS)
 def test_full_width_param_counts(arch):
     cfg = configs.get_config(arch, "full")
     assert layers.count_params(model_lib.build_schema(cfg)) == FULL_PARAMS[arch]
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-236b", "mamba2-780m",
-                                  "recurrentgemma-9b", "whisper-small"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b", "whisper-small"])
 def test_families_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         model_lib.build_schema(configs.get_config(arch, "smoke"))
