@@ -187,13 +187,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    port workers, migrated after tick 16, bit for bit its solo run, with each
    worker's path kernels.  Every shape 6m launched a kernel at must be one
    phases 2-4 held;
+6n. the SSD and hybrid RG-LRU archs' serving path (``models/ssm.py``,
+   ``models/rglru.py``), after 6m has freed its memory, on mamba2-780m at
+   full width and depth: (a) built on the card from the seed (780,148,992
+   parameters), build seconds and the allocator's peak; (b) 256 streams
+   prefilled with 15 tokens, then ``serve_step`` of token 16 against
+   ``lm_hidden``'s logits over all 16, within atol 0.15, rtol 0.05 at unit
+   scale (logits divided by sqrt(d) times the output matrix's rms: mamba2
+   ties its std-1 embedding) at 2 layers, printed at all 48; (c) at B=2 a
+   1,024-token prefill (8 chunks) and 16 decode steps fed the next tokens,
+   against ``lm_hidden`` over 1,152 (9 chunks) at positions 1,024-1,039, the
+   hidden states and the logits, with (b)'s bounds and depths; (d) two
+   decodes of 16 tokens from one prefill through ``_decode_feats`` (one CUDA
+   graph a step, two graphs reading the recurrent leaves in turns), bit for
+   bit, the decode ms per token and the cache bytes; (e) 32 ticks of
+   ``serve_step`` + ``serve_apply_labels`` as 6m (d), then 8 profiled; (f)
+   ``launch.serve.serve`` at B=256, 32 tokens, 2 tenants, reconciled; (g)
+   recurrentgemma-9b at full width and depth (10,444,771,328 parameters):
+   (a)-(e), (b) bounded at one group (rec, rec, attn) and (c) a 2,040-token
+   prefill with max_len 2,056 decoding 16 across its ring's slot 2,048,
+   against ``lm_hidden`` over 2,056; (h) a recurrentgemma-9b decode tenant
+   (smoke width, B=256, 48 ticks: the nested hybrid cache) on two port
+   workers, migrated after tick 16, bit for bit its solo run, with each
+   worker's path kernels.  Every shape 6n launched a kernel at must be one
+   phases 2-4 held;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
    N=256 (S=16,384, P 4 GiB) and, with the plan's pass in ``serve``, at 6k's
    serving shape (256 streams, n_in 2,560); the projection and the one-head
    RLS update at 6l's training shape (32 rows of 2,560; k = 32); the
    projection and the plan's pass in ``serve`` at 6m's (256 streams of n_in
-   2,048 and 5,120); the plan's pass in ``algo1``
+   2,048 and 5,120) and 6n's (n_in 1,536 and 4,096); the plan's pass in ``algo1``
    (reads x) and ``train_phase`` (reads no x), in ``serve`` at n_in 8,192
    (x read from device memory), and its reduced instances alone.
 
@@ -254,6 +278,7 @@ K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 1
              (1024, 561, 128), (2048, 561, 128), (3072, 561, 128), (512, 561, 128),
              (256, 2560, 128), (512, 2560, 128), (4, 64, 128), (32, 2560, 128), (8, 64, 128),
              (256, 2048, 128), (512, 2048, 128), (256, 5120, 128), (256, 64, 128),
+             (256, 1536, 128), (512, 1536, 128), (256, 4096, 128), (512, 4096, 128),
              (FLEET_STREAMS, 561, 256)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
              (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (8192, 128, 1, 6),
@@ -277,6 +302,11 @@ PLAN_BACKBONE, PLAN_WIDE = (256, 128, 6, 2560), (256, 128, 6, 8192)
 # two full-width ones.
 K1_MOE, K1_MLA = (256, 2048, 128), (256, 5120, 128)
 PLAN_MOE, PLAN_MLA = (256, 128, 6, 2048), (256, 128, 6, 5120)
+# Phase 6n's serving shapes (256 streams of mamba2-780m's d_model 1,536 and
+# of recurrentgemma-9b's 4,096; two fused tenants 512 rows), held by phases
+# 2-4; phase 7 times the 256-stream ones.
+K1_SSM, K1_HYBRID = (256, 1536, 128), (256, 4096, 128)
+PLAN_SSM, PLAN_HYBRID = (256, 128, 6, 1536), (256, 128, 6, 4096)
 # Phase 5b, the paper's tables on the card: one trial per drift row (the
 # reference runs 3 for Table 2 and Fig 4, 5 for Table 3 and Fig 3), so 18
 # trials of 1008 one-stream ticks; two of them run on the CPU as well.
@@ -309,7 +339,9 @@ PLAN_SHAPES = [(FLEET_STREAMS, 128, 6, 561), (1, 128, 6, 561), (3, 16, 4, 24), (
                (12288, 128, 6, 561), (2048, 128, 6, 561), (3072, 128, 6, 561),
                (512, 128, 6, 561), (256, 128, 6, 2560), (512, 128, 6, 2560), (4, 128, 6, 64),
                (8, 128, 6, 7168), (8, 128, 6, 8192), (256, 128, 6, 8192),
-               (256, 128, 6, 2048), (512, 128, 6, 2048), (256, 128, 6, 5120), (256, 128, 6, 64)]
+               (256, 128, 6, 2048), (512, 128, 6, 2048), (256, 128, 6, 5120), (256, 128, 6, 64),
+               (256, 128, 6, 1536), (512, 128, 6, 1536), (256, 128, 6, 4096),
+               (512, 128, 6, 4096)]
 # Its reduced instances alone against theirs: (S, N, m) of the readout, (S,
 # n) of the feature mean; the first of each is the fleet's.
 READOUT_SHAPES = [(FLEET_STREAMS, 128, 6), (1, 128, 6), (3, 16, 4), (1024, 100, 1), (130, 33, 7),
@@ -409,6 +441,26 @@ MOE = dict(arch="deepseek-moe-16b", variant="full", params=16_879_568_896, batch
            prompt_len=16, bound_depth=2, replay_ticks=16, cascade_ticks=32, profile_ticks=8, serve_tokens=32,
            mla_arch="deepseek-v2-236b", mla_layers=4, mla_params=16_937_047_040,
            worker_variant="smoke", worker_ticks=48, worker_cut=16)
+# Phase 6n, the SSD and hybrid archs' serving path at full width and depth:
+# mamba2-780m (780,148,992 parameters, 1.56 GB in bf16; the f32 SSM state of
+# 256 streams is 19.33 GB over its 48 layers) and recurrentgemma-9b
+# (10,444,771,328, 20.89 GB; 12 (rec, rec, attn) groups and a (rec, rec)
+# tail, its local attention on a ring of min(max_len, 2,048) slots): (b) at
+# ``batch`` streams and (c) over a ``long_prompt``-token prompt at B=2 (mamba2
+# 8 chunks of 128, recurrentgemma past its ring's 2,048 slots), each bounded
+# at ``bound_depth`` layers (mamba2 the reference's 2-layer smoke depth,
+# recurrentgemma one group) and printed at full depth; (d) ``replay_ticks``
+# decoded twice; (e) ``cascade_ticks``, then ``profile_ticks`` profiled; (f)
+# mamba2's ``serve`` at ``serve_tokens``; (h) a ``worker_ticks``
+# recurrentgemma-9b decode tenant at smoke width moved between two workers
+# past tick ``worker_cut``.
+RECURRENT = {"batch": 256, "max_len": 128, "prompt_len": 16, "replay_ticks": 16,
+             "cascade_ticks": 32, "profile_ticks": 8, "serve_tokens": 32, "worker_ticks": 48,
+             "worker_cut": 16,
+             "mamba2-780m": dict(params=780_148_992, bound_depth=2, long_prompt=1024,
+                                 long_decode=16, long_forward=1152, long_max_len=1040),
+             "recurrentgemma-9b": dict(params=10_444_771_328, bound_depth=3, long_prompt=2040,
+                                       long_decode=16, long_forward=2056, long_max_len=2056)}
 # Phase 6l, the dense backbone's training path at qwen3-4b's full width (12
 # bytes a parameter for params, m and v, 4 more for the gradients): (b)
 # ``launch.train.train`` for ``steps`` at ``batch`` x ``seq`` (``batch`` ODL
@@ -3859,6 +3911,232 @@ def phase_moe(device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6n: the SSD and hybrid RG-LRU archs' serving path (models/ssm.py,
+# models/rglru.py)
+# ---------------------------------------------------------------------------
+
+
+def _unit_scale(params, cfg):
+    """What divides logits to the unit scale the reference's decode-against-
+    prefill bound is set for (its dense check's lm_head drawn at
+    1/sqrt(d)): sqrt(d) times the output matrix's rms, ~1 for such a head
+    and ~sqrt(d) = 39 for mamba2's tied embedding drawn at std 1."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return float(w.float().pow(2).mean().sqrt()) * cfg.d_model ** 0.5
+
+
+def _cut_depth(params, cfg, depth):
+    """The first ``depth`` layers (views) and their config: a hybrid stack's
+    first depth / len(pattern) groups, its tail only at full depth."""
+    if depth == cfg.n_layers:
+        return params, cfg
+    if cfg.hybrid_pattern:
+        top = {k: v for k, v in params.items() if k not in ("groups", "tail")}
+        return (dict(top, groups=_first_layers(params["groups"],
+                                              depth // len(cfg.hybrid_pattern))),
+                cfg.replace(n_layers=depth))
+    return dict(params, layers=_first_layers(params["layers"], depth)), cfg.replace(n_layers=depth)
+
+
+def _recurrent_vs_forward(params, cfg, toks, n_prompt, n_decode, max_len, serve):
+    """One depth of 6n (b) or (c): ``lm_hidden`` over all of ``toks``, then
+    the prefill of the first ``n_prompt`` and ``n_decode`` decode steps fed
+    the next tokens (``serve_step`` when ``serve``, else ``lm_decode_hidden``),
+    against the forward at those positions: the logits at unit scale and,
+    without ``serve``, the hidden states, within atol 0.15, rtol 0.05."""
+    import torch
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+
+    scale = _unit_scale(params, cfg)
+    h_all, _ = transformer.lm_hidden(params, toks, cfg)
+    want_h = h_all[:, n_prompt:n_prompt + n_decode]
+    want = transformer.lm_logits(params, want_h, cfg)
+    del h_all
+    _, st = model_lib.prefill(params, toks[:, :n_prompt], cfg, max_len=max_len)
+    got_h, got = [], []
+    for i in range(n_decode):
+        tok = toks[:, n_prompt + i:n_prompt + i + 1]
+        if serve:
+            logits, st, _ = model_lib.serve_step(params, st, tok, cfg)
+            got.append(logits)
+        else:
+            h, caches = transformer.lm_decode_hidden(params, tok, st.caches, st.pos, cfg)
+            st = st._replace(caches=caches, pos=st.pos + 1)
+            got_h.append(h[:, 0])
+            got.append(transformer.lm_logits(params, h, cfg)[:, 0])
+    del st
+    got = torch.stack(got, 1)
+    fro, worst = _fro_and_max(got, want)
+    out = {"logits_fro_rel": fro, "logits_max_abs": worst,
+           "unit_excess": _within(got.float() / scale, want.float() / scale, 0.15, 0.05),
+           "unit_scale": scale}
+    if not serve:
+        out["hidden_excess"] = _within(torch.stack(got_h, 1), want_h, 0.15, 0.05)
+        out["hidden_fro_rel"], out["hidden_max_abs"] = _fro_and_max(torch.stack(got_h, 1),
+                                                                   want_h)
+    return out
+
+
+def _recurrent_arch(arch, device, card, gen, serve_driver):
+    """6n (a)-(f) for one arch (see the module docstring); returns its
+    results, the launches and replays counted from 0 around it."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import layers, transformer
+    from repro_torch.models import model as model_lib
+
+    rc = RECURRENT[arch]
+    cfg = configs.get_config(arch, "full")
+    b, max_len, what = RECURRENT["batch"], RECURRENT["max_len"], f"recurrent ({arch})"
+    res = {}
+    graphs.reset_replay_counts()
+    ops.reset_launch_counts()
+    # (a) build on the card from the seed; count it.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_lib.build_params(cfg, SEED, device)
+    _sync(device)
+    res["build_s"] = time.perf_counter() - t0
+    res["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["params"] = sum(t.numel() for t in _model_leaves(params))
+    schema_count = layers.count_params(model_lib.build_schema(cfg))
+    check(res["params"] == schema_count == rc["params"],
+          f"{what}: {res['params']} params built, schema {schema_count}")
+    mixer = (f"SSD d_inner {cfg.d_inner}, {cfg.ssm_nheads} heads of {cfg.ssm_headdim}, state "
+             f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}" if cfg.family == "ssm" else
+             f"pattern {'/'.join(cfg.hybrid_pattern)}, lru_width {cfg.lru_width}, "
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads, window {cfg.sliding_window}, "
+             f"d_ff {cfg.d_ff}")
+    print(f"  (a) {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, {mixer}, vocab "
+          f"{cfg.vocab_size}) on {card}: {res['params']} parameters (count_params "
+          f"{schema_count}), built in {res['build_s']:.2f} s, allocator peak "
+          f"{res['build_peak_bytes']} bytes")
+
+    # (b) decode against prefill at B streams; (c) the long prompt at B=2.
+    depths = (rc["bound_depth"], cfg.n_layers)
+    toks = torch.randint(0, cfg.vocab_size, (b, RECURRENT["prompt_len"]), generator=gen).to(device)
+    long = torch.randint(0, cfg.vocab_size, (2, rc["long_forward"]), generator=gen).to(device)
+    for part, args in (("b", (toks, toks.shape[1] - 1, 1, max_len, True)),
+                       ("c", (long, rc["long_prompt"], rc["long_decode"], rc["long_max_len"],
+                              False))):
+        res[part] = {}
+        for depth in depths:
+            p_cut, c_cut = _cut_depth(params, cfg, depth)
+            res[part][depth] = _recurrent_vs_forward(p_cut, c_cut, *args)
+            torch.cuda.empty_cache()
+        bounded, deep = res[part][depths[0]], res[part][depths[1]]
+        over = max(bounded["unit_excess"], bounded.get("hidden_excess", -1.0))
+        check(over <= 0, f"{what} ({part}): at {depths[0]} layers decode beyond the forward by "
+                         f"{over} past atol 0.15, rtol 0.05: {bounded}")
+        where = (f"B={b}: prefill {toks.shape[1] - 1} tokens, serve_step token {toks.shape[1]}"
+                 if part == "b" else
+                 f"B=2: prefill {rc['long_prompt']} tokens (max_len {rc['long_max_len']}), "
+                 f"decode {rc['long_decode']} against lm_hidden over {rc['long_forward']}")
+        hid = ("" if part == "b" else f"hidden excess {bounded['hidden_excess']:.4f}, ")
+        hid_deep = ("" if part == "b" else f"hidden excess {deep['hidden_excess']:.4f}, ")
+        print(f"  ({part}) decode against the forward, {where}: at {depths[0]} layers within "
+              f"atol 0.15, rtol 0.05 ({hid}unit-scale logits excess "
+              f"{bounded['unit_excess']:.4f}; logits Frobenius rel "
+              f"{bounded['logits_fro_rel']:.4f}, max abs {bounded['logits_max_abs']:.4f}, "
+              f"unit scale {bounded['unit_scale']:.2f}); through all {depths[1]} (printed) "
+              f"{hid_deep}unit-scale logits excess {deep['unit_excess']:.4f}, logits Frobenius "
+              f"rel {deep['logits_fro_rel']:.4f}, max abs {deep['logits_max_abs']:.4f}")
+    del toks, long
+
+    # (d) replay determinism, decode ms per token and the cache bytes.
+    prompts = torch.randint(0, cfg.vocab_size, (b, RECURRENT["prompt_len"]),
+                            generator=gen).to(device)
+    res["decode_ms_per_token"] = dm = _decode_twice(params, cfg, prompts, max_len,
+                                                    RECURRENT["replay_ticks"], device,
+                                                    f"{what} (d)")
+    res["cache_bytes"] = sum(t.numel() * t.element_size() for t in _model_leaves(
+        transformer.init_caches(cfg, b, max_len, device="meta")))
+    del prompts
+    torch.cuda.empty_cache()
+    print(f"  (d) two decodes of {RECURRENT['replay_ticks']} tokens from one prefill: bit for "
+          f"bit; decode ms per token at B={b} (host clock, synchronised) p50 {dm['p50']:.2f}, "
+          f"p95 {dm['p95']:.2f}; the caches {res['cache_bytes']} bytes ({card})")
+
+    # (e) the cascade and the split of a serve tick.
+    res.update(_serve_cascade(params, cfg, b, RECURRENT["cascade_ticks"],
+                              RECURRENT["profile_ticks"], device, card, ("(e)", "(e)"), what))
+    del params
+    torch.cuda.empty_cache()
+
+    # (f) the serve driver.
+    if serve_driver:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            queries, skips = serve_lib.serve(
+                arch=arch, variant="full", batch=b, gen_tokens=RECURRENT["serve_tokens"],
+                tenants=2, teacher_latency=2, seed=SEED, device=device)
+        out = buf.getvalue()
+        print("\n".join("    " + line for line in out.splitlines()))
+        rep = _serve_report(out)
+        rep.update(queries=queries, skips=skips)
+        check(rep["reconciled"] == 2 and rep["broken"] == 0
+              and queries + skips == 2 * b * RECURRENT["serve_tokens"],
+              f"{what} (f): serve did not reconcile: {rep}")
+        res["serve"] = rep
+        torch.cuda.empty_cache()
+        print(f"  (f) serve({arch} full, B={b}, {RECURRENT['serve_tokens']} tokens, 2 tenants, "
+              f"latency 2): reconciled; {rep['steps_per_s']:.0f} stream·ticks/s aggregate; "
+              f"tenant tick p50/p95 ms {rep['tick_ms']} ({card})")
+    res["launches"] = dict(ops.launch_counts)
+    res["replays"] = dict(graphs.kernel_replays)
+    for k in PATH_KERNELS:
+        check(res["launches"].get(k, 0) + res["replays"].get(k, 0) > 0,
+              f"{what}: {k} ran neither eagerly nor by a replay on its path")
+    return res
+
+
+def phase_recurrent(device="cuda"):
+    """6n: the SSD and hybrid RG-LRU archs' serving path, mamba2-780m and
+    recurrentgemma-9b at full width and depth (see the module docstring)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    card = _card()
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(SEED)
+    print(f"recurrent (6n, mamba2-780m and recurrentgemma-9b full) on {card}: "
+          f"{torch.cuda.memory_allocated()} bytes allocated before it")
+    res = {}
+    with _ShapeLog() as log:
+        res["ssm"] = _recurrent_arch("mamba2-780m", device, card, gen, serve_driver=True)
+        print("  (g) recurrentgemma-9b full: (a)-(e)")
+        res["hybrid"] = _recurrent_arch("recurrentgemma-9b", device, card, gen,
+                                        serve_driver=False)
+    missing = log.missing()
+    check(not missing, f"recurrent: shapes phases 2-4 did not hold: {missing}")
+    res["shapes"] = {k: sorted(v) for k, v in log.shapes.items() if v}
+
+    # (h) a hybrid decode tenant on two port workers, migrated after tick 16.
+    res["worker"] = _decode_tenant_migration(
+        "recurrentgemma-9b", "smoke", RECURRENT["batch"], RECURRENT["worker_ticks"],
+        RECURRENT["worker_cut"], RECURRENT["max_len"], device, card, "recurrent (h)",
+        res["shapes"])
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  kernel shapes on 6n's path (this process and the workers), each held in phases "
+          f"2-4: {res['shapes']}")
+    for key, arch in (("ssm", "mamba2-780m"), ("hybrid", "recurrentgemma-9b")):
+        r = res[key]
+        print(f"  kernels on 6n's {arch} path in this process (launches + replays): "
+              + str({k: r['launches'].get(k, 0) + r['replays'].get(k, 0) for k in PATH_KERNELS}))
+    print(f"  phase 6n took {res['seconds']:.1f} s ({card})")
+    return res
+
+
 def _param_slice_sums(params):
     """One f64 sum per param slice (each layer of a stacked leaf, each other
     leaf whole), in a fixed order, on the host: a slice whose sum changed has
@@ -4400,7 +4678,9 @@ def phase_times(device="cuda"):
     # The MoE archs' serving shapes (phase 6m): 256 streams of
     # deepseek-moe-16b's d_model 2,048 and of deepseek-v2-236b's 5,120.
     for key, (b, n_in, n), plan, seed in (("moe", K1_MOE, PLAN_MOE, SEED + 14),
-                                          ("mla", K1_MLA, PLAN_MLA, SEED + 15)):
+                                          ("mla", K1_MLA, PLAN_MLA, SEED + 15),
+                                          ("ssm", K1_SSM, PLAN_SSM, SEED + 16),
+                                          ("hybrid", K1_HYBRID, PLAN_HYBRID, SEED + 17)):
         x = _cycling_x(device, b, n_in)
         alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
         c = float(1.0 / n_in ** 0.5)
@@ -4434,13 +4714,14 @@ def phase_times(device="cuda"):
     print(f"time the two-stage route at the fleet shape: {rows[1]['two_stage_ms']:.4f} ms")
     for name in ("xorshift_projection", "oselm_rls_update_fleet", "oselm_rls_update",
                  "plan_rows"):
-        for key in ("backbone", "wide", "train", "moe", "mla"):
+        for key in ("backbone", "wide", "train", "moe", "mla", "ssm", "hybrid"):
             w = by_name[name].get(key)
             if w is None:
                 continue
             lib = "none" if w["library_ms"] is None else f"{w['library_ms']:.4f} ms"
             where = {"backbone": "serve", "wide": "widest", "train": "training",
-                     "moe": "deepseek-moe-16b serve", "mla": "deepseek-v2-236b serve"}[key]
+                     "moe": "deepseek-moe-16b serve", "mla": "deepseek-v2-236b serve",
+                     "ssm": "mamba2-780m serve", "hybrid": "recurrentgemma-9b serve"}[key]
             print(f"time {name} at the backbone's {where} "
                   f"shape {w['shape']}: kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
@@ -4598,6 +4879,7 @@ def main(argv=None) -> int:
     backbone = phase_backbone()
     trained = phase_train()
     moe = phase_moe()
+    recurrent = phase_recurrent()
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -4692,6 +4974,16 @@ def main(argv=None) -> int:
             "moe_replays": moe["replays"].get(name, 0),
             "moe_worker_launches": moe["worker_launches"].get(name, 0),
             "moe_worker_replays": moe["worker_replays"].get(name, 0),
+            # The SSD and hybrid archs' serving path (phase 6n): eager
+            # launches and graph replays in this process on mamba2-780m's
+            # path ((a)-(f)) and recurrentgemma-9b's ((a)-(e)), and, apart,
+            # in the two workers of (h) (summed from their own scrapes).
+            "ssm_launches": recurrent["ssm"]["launches"].get(name, 0),
+            "ssm_replays": recurrent["ssm"]["replays"].get(name, 0),
+            "hybrid_launches": recurrent["hybrid"]["launches"].get(name, 0),
+            "hybrid_replays": recurrent["hybrid"]["replays"].get(name, 0),
+            "hybrid_worker_launches": recurrent["worker"]["worker_launches"].get(name, 0),
+            "hybrid_worker_replays": recurrent["worker"]["worker_replays"].get(name, 0),
             # The paper's tables (phase 5b): eager launches, both widths.
             "paper_launches": paper["launches"].get(name, 0),
             "paper_max_abs_err": paper["errs"].get(name),
@@ -4715,6 +5007,9 @@ def main(argv=None) -> int:
             # Phase 7 at 6m's serving shapes (n_in 2,048 and 5,120), where timed.
             "moe": t.get("moe"),
             "mla": t.get("mla"),
+            # Phase 7 at 6n's serving shapes (n_in 1,536 and 4,096), where timed.
+            "ssm": t.get("ssm"),
+            "hybrid": t.get("hybrid"),
             "ok": True,
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -81,18 +81,47 @@ class _Decoded(NamedTuple):
     next_token: torch.Tensor  # (B, 1) greedy feedback
 
 
-def _decode_tick(params, cfg, names):
-    """One decode step as a tick function of ``engine.graphs``: it writes
-    the caches (fixed buffers: the stacked cache leaves ``names``, in that
-    order: K and V, or MLA's latent and rope key) at ``pos`` in place and
-    returns the features and the next token.  Run twice on the same inputs
-    it writes the same values, so a graph's warm-up call leaves nothing its
-    replays depend on."""
+# Cache leaves a decode step rewrites whole (the SSD and RG-LRU states and
+# conv tails), as against the attention caches it writes one slot of.
+RECURRENT_LEAVES = ("state", "conv", "h")
+
+
+def _cache_leaves(tree: dict, prefix: tuple = ()):
+    """(path, leaf) of every leaf of a cache tree, in sorted path order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _cache_leaves(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), tree[k]
+
+
+def _nest(paths, leaves) -> dict:
+    """The cache tree whose leaf at each of ``paths`` is the matching leaf."""
+    out: dict = {}
+    for path, leaf in zip(paths, leaves, strict=True):
+        sub = out
+        for k in path[:-1]:
+            sub = sub.setdefault(k, {})
+        sub[path[-1]] = leaf
+    return out
+
+
+def _decode_tick(params, cfg, paths):
+    """One decode step as a tick function of ``engine.graphs``.  Its fixed
+    buffers are two sets of the cache leaves at ``paths`` (sorted): the step
+    reads the first and writes the recurrent leaves' new values into the
+    second; the attention leaves (K and V, or MLA's latent and rope key) are
+    one tensor in both sets and written in place at ``pos``.  It returns the
+    features and the next token.  Run twice on the same inputs it writes the
+    same values, so a graph's warm-up call leaves nothing its replays depend
+    on."""
+    n = len(paths)
+
     def tick(*args):
         *leaves, pos, token = args
-        state = model_lib.ServeState(caches={"layers": dict(zip(names, leaves))}, pos=pos,
-                                     odl=None)
-        logits, feats, _ = model_lib.decode_step(params, state, token, cfg)
+        read, written = _nest(paths, leaves[:n]), _nest(paths, leaves[n:])
+        state = model_lib.ServeState(caches=read, pos=pos, odl=None)
+        logits, feats, _ = model_lib.decode_step(params, state, token, cfg, out=written)
         return _Decoded(feats, torch.argmax(logits, -1)[:, None])
 
     return tick
@@ -102,18 +131,25 @@ def _decode_feats(params, state, prompts, cfg, gen_tokens):
     """Tick source: one backbone decode step per tick, yielding (B, d)
     stream features (greedy next-token feedback, ODL state untouched).
 
-    The decode writes its caches in place, so it starts from a copy of the
-    prefill's: every call replays the same ticks bit for bit.  On the card
-    each step replays one CUDA graph of the whole step (``engine.graphs``):
-    an eager step is some 18,000 dispatches from the host; on the CPU the
-    step runs eagerly."""
-    names = tuple(sorted(state.caches["layers"]))
-    fixed = tuple(state.caches["layers"][n].clone() for n in names)
+    The decode starts from a copy of the prefill's caches, so every call
+    replays the same ticks bit for bit.  A stack with recurrent leaves (SSD,
+    RG-LRU) gets a second set of them, and the steps alternate which set
+    they read and which they write.  On the card each step replays one CUDA
+    graph of the whole step (``engine.graphs``; one per set read): an eager
+    step is some 18,000 dispatches from the host; on the CPU the step runs
+    eagerly."""
+    paths, leaves = zip(*_cache_leaves(state.caches))
+    bufs = [tuple(a.clone() for a in leaves)]
+    if any(p[-1] in RECURRENT_LEAVES for p in paths):
+        bufs.append(tuple(torch.empty_like(a) if p[-1] in RECURRENT_LEAVES else a
+                          for p, a in zip(paths, bufs[0])))
     pos, token = state.pos, prompts[:, -1:]
-    tick = _decode_tick(params, cfg, names)
+    tick = _decode_tick(params, cfg, paths)
     graph_cache: dict = {}
-    for _ in range(gen_tokens):
-        out = graphs.run(graph_cache, "decode", "decode", tick, fixed, [pos, token])
+    for step in range(gen_tokens):
+        i = step % len(bufs)
+        fixed = bufs[i] + bufs[(i + 1) % len(bufs)]
+        out = graphs.run(graph_cache, i, "decode", tick, fixed, [pos, token])
         pos, token = pos + 1, out.next_token
         yield out.feats
 

@@ -58,7 +58,7 @@ def gqa_schema(cfg: ModelConfig) -> dict:
         "wq": Leaf((d, h, hd), ("embed", "heads", "head_dim")),
         "wk": Leaf((d, kv, hd), ("embed", "kv_heads", "head_dim")),
         "wv": Leaf((d, kv, hd), ("embed", "kv_heads", "head_dim")),
-        "wo": Leaf((h, hd, d), ("heads", "head_dim", "embed")),
+        "wo": Leaf((h, hd, d), ("heads", "head_dim", "embed"), fan_in=h * hd),
     }
     if cfg.qk_norm:
         s["q_norm"] = Leaf((hd,), ("head_dim",), init="zeros")
@@ -80,7 +80,8 @@ def mla_schema(cfg: ModelConfig) -> dict:
         "wkv_b": Leaf(
             (cfg.kv_lora_rank, h, qk + cfg.v_head_dim), (None, "heads", "head_dim")
         ),
-        "wo": Leaf((h, cfg.v_head_dim, d), ("heads", "head_dim", "embed")),
+        "wo": Leaf((h, cfg.v_head_dim, d), ("heads", "head_dim", "embed"),
+                   fan_in=h * cfg.v_head_dim),
     }
 
 
@@ -256,12 +257,13 @@ def _write_at_first(buf, new, slot):
     buf.index_copy_(1, at, new.to(buf.dtype))
 
 
-def decode_bias(cfg: ModelConfig, pos: torch.Tensor, cache_len: int, ring: bool,
+def decode_bias(pos: torch.Tensor, cache_len: int, ring: bool,
                 window: Optional[int] = None) -> torch.Tensor:
     """The (B,1,1,1,cache_len) bias of one decode step, the same in every
     layer: a slot is visible where written at or before ``pos`` (a ring
     slot holds the absolute position last written to it; negative: never
-    written) and inside the window."""
+    written) and inside ``window`` (None: no window).  The caller decides
+    the window: GQA's ``window or cfg.sliding_window``, MLA's none."""
     b = pos.shape[0]
     j = torch.arange(cache_len, device=pos.device)[None]  # (1, S_max)
     if ring:
@@ -271,8 +273,7 @@ def decode_bias(cfg: ModelConfig, pos: torch.Tensor, cache_len: int, ring: bool,
     else:
         k_pos = j.expand(b, cache_len)
         valid = k_pos <= pos[:, None]
-    return _mask_bias(pos[:, None], k_pos, causal=False, window=window or cfg.sliding_window,
-                      k_valid=valid)
+    return _mask_bias(pos[:, None], k_pos, causal=False, window=window, k_valid=valid)
 
 
 def gqa_decode(
@@ -305,7 +306,7 @@ def gqa_decode(
         _scatter_cache(v, v_new, slot)
 
     if bias is None:
-        bias = decode_bias(cfg, pos, cache_len, ring, window)
+        bias = decode_bias(pos, cache_len, ring, window or cfg.sliding_window)
     o = _grouped_attention(q, k.to(x.dtype), v.to(x.dtype), bias)
     return _out(o, p, cfg, x.dtype), {"k": k, "v": v}
 
@@ -378,8 +379,10 @@ def mla_decode(x, p, cfg: ModelConfig, cache: dict, pos: torch.Tensor,
                bias: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
     """One decode step; writes the latent cache in place and returns it.
     The whole cache is expanded to per-head K and V every step, as the
-    reference does.  ``bias`` is ``decode_bias`` of this step, where the
-    caller made it once for every layer."""
+    reference does, and masked causally only, whatever ``cfg.sliding_window``
+    says (the reference's MLA decode takes no window).  ``bias`` is
+    ``decode_bias`` of this step, where the caller made it once for every
+    layer."""
     ckv, k_rope = cache["ckv"], cache["k_rope"]
     q_nope, q_rope = _mla_q(x, p, cfg, pos[:, None])
     ckv_new, k_rope_new = _mla_latent(x, p, cfg, pos[:, None])
@@ -392,7 +395,7 @@ def mla_decode(x, p, cfg: ModelConfig, cache: dict, pos: torch.Tensor,
 
     k_nope, v = _mla_kv(ckv.to(x.dtype), p, cfg)
     if bias is None:
-        bias = decode_bias(cfg, pos, ckv.shape[1], ring=False)
+        bias = decode_bias(pos, ckv.shape[1], ring=False)
     scores = _mla_scores(q_nope, q_rope, k_nope, k_rope.to(x.dtype), cfg, bias)
     probs = torch.softmax(scores, -1).to(x.dtype)
     # A bf16 product in the reference: accumulated in f32, rounded once.

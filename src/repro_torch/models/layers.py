@@ -30,22 +30,36 @@ from repro_torch import resolve_device
 # ---------------------------------------------------------------------------
 
 
+# Axes that stack copies of a weight (layers, experts): never contracted.
+STACKED_AXES = ("layers", "experts")
+
+
 @dataclasses.dataclass(frozen=True)
 class Leaf:
     shape: tuple
     axes: tuple  # logical axis names, len == len(shape)
     init: str = "normal"  # 'normal' | 'zeros' | 'ones' | 'embed'
     scale: Optional[float] = None  # override fan-in scaling
+    # The dims the weight contracts with at use, where they are not its
+    # first non-stacked dim (attention's wo contracts heads x head_dim).
+    fan_in: Optional[int] = None
 
     @property
     def std(self) -> Optional[float]:
-        """The standard deviation of a drawn leaf (None: a constant leaf)."""
+        """The standard deviation of a drawn leaf (None: a constant leaf):
+        ``scale`` where given, else 1/sqrt(fan-in), the fan-in being
+        ``fan_in`` or the first dim outside ``STACKED_AXES``.  (The
+        reference takes ``shape[0]``, which for a stacked leaf is the
+        number of layers or experts.)"""
         if self.init in ("zeros", "ones"):
             return None
         if self.init == "embed":
             return 1.0
-        fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
-        return self.scale if self.scale is not None else 1.0 / float(np.sqrt(max(fan_in, 1)))
+        if self.scale is not None:
+            return self.scale
+        dims = [n for n, ax in zip(self.shape, self.axes) if ax not in STACKED_AXES]
+        fan_in = self.fan_in or (dims[0] if len(dims) > 1 else dims[-1])
+        return 1.0 / float(np.sqrt(max(fan_in, 1)))
 
     def initializer(self, generator: Optional[torch.Generator], device, dtype) -> torch.Tensor:
         if self.init == "zeros":
@@ -112,6 +126,7 @@ def stack_schema(schema, n: int, axis_name: str = "layers"):
             axes=(axis_name,) + schema.axes,
             init=schema.init,
             scale=schema.scale,
+            fan_in=schema.fan_in,
         )
     return {k: stack_schema(v, n, axis_name) for k, v in schema.items()}
 
@@ -143,6 +158,22 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e
     var = torch.mean((x32 - mu) ** 2, -1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * w.float() + b.float()).to(x.dtype)
+
+
+def dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ cast(w) (batched where both are 3-D) in the promoted dtype, as
+    jnp promotes an f32 activation against a bf16 weight: the stored
+    weight is never widened, only its bf16 copy at the product."""
+    w = cast(w)
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return torch.matmul(a.to(dt), w.to(dt))
+
+
+def silu(a: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu's steps, each rounded in a's dtype: a * (1 / (1 +
+    exp(-a))).  (``F.silu`` rounds once, and in bf16 a third of its values
+    land one ulp from the reference's.)"""
+    return a * (1.0 / (1.0 + torch.exp(-a)))
 
 
 def swiglu(x, wg, wu, wd):

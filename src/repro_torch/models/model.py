@@ -9,9 +9,9 @@ RLS kernel on the card) and costs no label.  The head takes no gradient.
 Master params are f32 (``TrainConfig.param_dtype``); the backbone computes
 in bf16, as the reference does.  The step writes the new params and moments
 into the ``TrainState`` it is given (the reference's jitted step donates
-it): a caller that needs the old state clones it first.  Dense and MoE
-stacks (GQA or MLA attention) serve; only the dense ones train yet
-(``require_trainable``).
+it): a caller that needs the old state clones it first.  Dense, MoE (GQA or
+MLA attention), SSD and hybrid RG-LRU stacks serve; only the dense ones
+train yet (``require_trainable``).
 
 Every backbone carries the paper's ODL head: ``serve_step`` decodes one
 token, then the fleet engine's ``gate`` runs on each stream's last hidden
@@ -55,12 +55,15 @@ def build_schema(cfg: ModelConfig) -> dict:
 
 def require_trainable(cfg: ModelConfig) -> None:
     """Raise for the stacks the port serves but cannot train yet: MoE (the
-    aux loss in the step) and MLA."""
+    aux loss in the step), MLA, the SSD stack and the hybrid RG-LRU stack."""
     transformer.require_dense(cfg)
-    if cfg.n_experts or cfg.use_mla:
+    what = ("MoE and MLA stacks" if cfg.n_experts or cfg.use_mla else
+            "the SSD stack (mamba2)" if cfg.family == "ssm" else
+            "the hybrid RG-LRU stack (recurrentgemma)" if cfg.hybrid_pattern else None)
+    if what is not None:
         raise NotImplementedError(
-            f"{cfg.arch_id}: training MoE and MLA stacks is not ported yet; ROADMAP "
-            "Queue 1 item 6 lists it after their serving path")
+            f"{cfg.arch_id}: training {what} is not ported yet; ROADMAP Queue 1 item 6 "
+            "lists it after their serving path")
 
 
 def elm_config(cfg: ModelConfig) -> oselm.OSELMConfig:
@@ -285,9 +288,10 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_len: int, device=None) ->
     )
 
 
-def _decode(params, state: ServeState, token, cfg):
+def _decode(params, state: ServeState, token, cfg, out=None):
     with torch.profiler.record_function("serve.backbone"):
-        hidden, caches = transformer.lm_decode_hidden(params, token, state.caches, state.pos, cfg)
+        hidden, caches = transformer.lm_decode_hidden(params, token, state.caches, state.pos,
+                                                      cfg, out)
         logits = transformer.lm_logits(params, hidden, cfg)[:, 0]
     return logits, hidden[:, 0].float(), caches
 
@@ -317,12 +321,14 @@ def decode_step(
     state: ServeState,
     token: torch.Tensor,  # (B, 1) int
     cfg: ModelConfig,
+    out: Optional[dict] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, ServeState]:
     """One decode token *without* the ODL gate: (logits, feats (B, d) f32,
     state').  The multiplexed serving path runs the backbone once and fans
     the features out to tenant fleets, each with its own engine state;
-    ``state.odl`` passes through untouched."""
-    logits, feats, caches = _decode(params, state, token, cfg)
+    ``state.odl`` passes through untouched.  ``out`` receives the recurrent
+    cache leaves' new values (``transformer.lm_decode_hidden``)."""
+    logits, feats, caches = _decode(params, state, token, cfg, out)
     return logits, feats, state._replace(caches=caches, pos=state.pos + 1)
 
 

@@ -40,7 +40,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
-from repro_torch.models.layers import Leaf, cast
+from repro_torch.models.layers import Leaf
+from repro_torch.models.layers import dot as _dot
+from repro_torch.models.layers import silu as _silu
 
 
 def moe_schema(cfg: ModelConfig) -> dict:
@@ -65,22 +67,6 @@ def moe_schema(cfg: ModelConfig) -> dict:
 def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
     c = int(cfg.top_k * n_tokens * cfg.capacity_factor / cfg.n_experts)
     return max(8, -(-c // 8) * 8)  # round up to 8, as the reference aligns lanes
-
-
-def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ cast(w) (batched over experts where both are 3-D) in the
-    promoted dtype, as jnp promotes an f32 activation against a bf16
-    weight."""
-    w = cast(w)
-    dt = torch.promote_types(a.dtype, w.dtype)
-    return torch.matmul(a.to(dt), w.to(dt))
-
-
-def _silu(a: torch.Tensor) -> torch.Tensor:
-    """jax.nn.silu's steps, each rounded in a's dtype: a * (1 / (1 +
-    exp(-a))).  (``F.silu`` rounds once, and in bf16 a third of its values
-    land one ulp from the reference's.)"""
-    return a * (1.0 / (1.0 + torch.exp(-a)))
 
 
 def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig):

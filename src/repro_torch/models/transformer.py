@@ -1,24 +1,32 @@
 """Decoder-only LM assembly, the dense and MoE paths (PyTorch counterpart
 of ``repro/models/transformer.py``).
 
-One code path serves the seven decoder-only archs of two families:
+One code path serves the nine decoder-only archs of four families:
 
-  dense — GQA attention (+ optional sliding window / qk_norm) + SwiGLU:
-          h2o-danube-1.8b, deepseek-coder-33b, mistral-nemo-12b, qwen3-4b
-          and chameleon-34b (a dense stack behind a frontend stub);
-  moe   — GQA or MLA attention + fine-grained MoE: deepseek-moe-16b,
-          deepseek-v2-236b (every layer MoE, as the reference's configs).
+  dense  — GQA attention (+ optional sliding window / qk_norm) + SwiGLU:
+           h2o-danube-1.8b, deepseek-coder-33b, mistral-nemo-12b, qwen3-4b
+           and chameleon-34b (a dense stack behind a frontend stub);
+  moe    — GQA or MLA attention + fine-grained MoE: deepseek-moe-16b,
+           deepseek-v2-236b (every layer MoE, as the reference's configs);
+  ssm    — the Mamba-2 SSD mixer alone: mamba2-780m;
+  hybrid — Griffin's pattern (rec, rec, attn), each sub-block with its
+           MLP: recurrentgemma-9b.
 
 Layers keep the reference's stacked layout (a leading L dim on every layer
 leaf, so a converted param tree is a plain copy) and run as a loop over
-that dim; caches keep the reference's structure too (``{"layers": {"k":
-(L, B, S, KV, hd), "v": ...}}``, or ``{"layers": {"ckv": (L, B, S,
-kv_lora), "k_rope": ...}}`` with MLA).  ``lm_hidden`` is the training
-forward too, with the reference's remat, and sums the MoE layers' aux loss
-in layer order as the reference's scan carry does.
+that dim; a hybrid stack stacks pattern groups (``{"groups": {"b0_rec":
+..., "b1_rec": ..., "b2_attn": ...}}``, leading dim the group count) plus
+a one-deep ``tail`` stack of the first n_layers % len(pattern) sub-blocks.
+Caches keep the reference's structure too (``{"layers": {"k": (L, B, S,
+KV, hd), "v": ...}}``, ``{"layers": {"ckv": ..., "k_rope": ...}}`` with
+MLA, ``{"layers": {"state", "conv"}}`` for the SSD stack, and the hybrid
+``{"groups": {...}, "tail": {...}}`` of RG-LRU ``{"h", "conv"}`` and the
+local attention's ring of K and V).  ``lm_hidden`` is the training forward
+too, with the reference's remat, and sums the MoE layers' aux loss in
+layer order as the reference's scan carry does.
 
-The SSD scan, hybrid RG-LRU stacks and the encoder-decoder raise
-``NotImplementedError``: ROADMAP Queue 1 item 6 ports them in later slices.
+The encoder-decoder (whisper) raises ``NotImplementedError``: ROADMAP Queue
+1 item 6 ports it in a later slice.
 """
 
 from __future__ import annotations
@@ -29,24 +37,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, moe
+from repro_torch.models import attention, moe, rglru, ssm
 from repro_torch.models.layers import Leaf, cast, rmsnorm, stack_schema, swiglu
 
 
 def require_dense(cfg: ModelConfig) -> None:
-    """Raise for the families the port has no backbone for yet (dense and
-    MoE stacks, GQA or MLA, have one)."""
-    missing = None
+    """Raise for the family the port has no backbone for yet: the
+    encoder-decoder (dense, MoE, SSD and hybrid stacks have one)."""
     if cfg.enc_dec:
-        missing = "the encoder-decoder (whisper)"
-    elif cfg.family == "ssm":
-        missing = "the SSD scan (mamba2)"
-    elif cfg.hybrid_pattern:
-        missing = "the hybrid RG-LRU stack (recurrentgemma)"
-    if missing is not None:
         raise NotImplementedError(
-            f"{cfg.arch_id}: {missing} is not ported yet; ROADMAP Queue 1 item 6 "
-            "lists it after the dense and MoE serving paths")
+            f"{cfg.arch_id}: the encoder-decoder (whisper) is not ported yet; ROADMAP Queue 1 "
+            "item 6 lists it after the decoder-only serving paths")
 
 
 # ---------------------------------------------------------------------------
@@ -54,21 +55,54 @@ def require_dense(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _mlp_schema(cfg: ModelConfig) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    return {
+        "wg": Leaf((d, ff), ("embed", "mlp")),
+        "wu": Leaf((d, ff), ("embed", "mlp")),
+        "wd": Leaf((ff, d), ("mlp", "embed")),
+    }
+
+
 def _mixer_schema(cfg: ModelConfig) -> dict:
     require_dense(cfg)
-    d, ff = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"norm": Leaf((d,), ("embed",), init="zeros"), "ssd": ssm.ssd_schema(cfg)}
     s: dict = {"ln1": Leaf((d,), ("embed",), init="zeros")}
     s["attn"] = attention.mla_schema(cfg) if cfg.use_mla else attention.gqa_schema(cfg)
     s["ln2"] = Leaf((d,), ("embed",), init="zeros")
     if cfg.n_experts:
         s["moe"] = moe.moe_schema(cfg)
     else:
-        s["mlp"] = {
-            "wg": Leaf((d, ff), ("embed", "mlp")),
-            "wu": Leaf((d, ff), ("embed", "mlp")),
-            "wd": Leaf((ff, d), ("mlp", "embed")),
-        }
+        s["mlp"] = _mlp_schema(cfg)
     return s
+
+
+def _hybrid_sub_schema(cfg: ModelConfig, kind: str) -> dict:
+    """A sub-block of kind "rec" (RG-LRU) or "attn" (local GQA), its mixer
+    under that key, with its MLP."""
+    d = cfg.d_model
+    s: dict = {"ln1": Leaf((d,), ("embed",), init="zeros")}
+    s[kind] = rglru.rglru_schema(cfg) if kind == "rec" else attention.gqa_schema(cfg)
+    s["ln2"] = Leaf((d,), ("embed",), init="zeros")
+    s["mlp"] = _mlp_schema(cfg)
+    return s
+
+
+def _pattern_keys(cfg: ModelConfig, n: int) -> list:
+    """(key, kind) of the first n sub-blocks of a hybrid group."""
+    return [(f"b{i}_{kind}", kind) for i, kind in enumerate(cfg.hybrid_pattern[:n])]
+
+
+def _hybrid_stacks(cfg: ModelConfig) -> list:
+    """(name, depth, [(key, kind), ...]) of the hybrid stacks: the pattern
+    groups, then a one-deep tail of n_layers % len(pattern) sub-blocks."""
+    n_groups, tail = divmod(cfg.n_layers, len(cfg.hybrid_pattern))
+    stacks = [("groups", n_groups, _pattern_keys(cfg, len(cfg.hybrid_pattern)))]
+    if tail:
+        stacks.append(("tail", 1, _pattern_keys(cfg, tail)))
+    return stacks
 
 
 def lm_schema(cfg: ModelConfig) -> dict:
@@ -79,7 +113,11 @@ def lm_schema(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = Leaf((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
-    s["layers"] = stack_schema(_mixer_schema(cfg), cfg.n_layers)
+    if cfg.hybrid_pattern:
+        for name, depth, keys in _hybrid_stacks(cfg):
+            s[name] = stack_schema({k: _hybrid_sub_schema(cfg, kind) for k, kind in keys}, depth)
+    else:
+        s["layers"] = stack_schema(_mixer_schema(cfg), cfg.n_layers)
     return s
 
 
@@ -112,6 +150,50 @@ def _dense_layer(h, lp, cfg: ModelConfig, positions):
     return _ffn(h + attend(hn, lp["attn"], cfg, positions), lp, cfg)
 
 
+def _ssm_layer(h, lp, cfg: ModelConfig, positions):
+    del positions
+    return h + ssm.ssd_block(rmsnorm(h, lp["norm"]), lp["ssd"], cfg), 0.0
+
+
+def _hybrid_sub(h, sp, kind: str, cfg: ModelConfig, positions, out=None):
+    """One sub-block: its mixer (RG-LRU, or local attention over the
+    window) and its MLP.  With ``out`` (its slot of the stacked caches), a
+    prefill: also writes the RG-LRU cache, or the ring of the last
+    min(max_len, window) tokens' K and V."""
+    hn = rmsnorm(h, sp["ln1"])
+    if kind == "rec":
+        y = rglru.rglru_block(hn, sp["rec"], cfg, return_cache=out is not None)
+        if out is not None:
+            y, new = y
+            _copy_cache(new, out)
+    else:
+        y = attention.gqa_attention(hn, sp["attn"], cfg, positions, window=cfg.sliding_window,
+                                    return_kv=out is not None)
+        if out is not None:
+            y, (k, v) = y
+            _ring_cache(k, v, h.shape[1], out)
+    h = h + y
+    hn = rmsnorm(h, sp["ln2"])
+    return h + swiglu(hn, sp["mlp"]["wg"], sp["mlp"]["wu"], sp["mlp"]["wd"])
+
+
+def _hybrid_group(h, gp, cfg: ModelConfig, positions):
+    """One pattern group (or the tail): its sub-blocks in pattern order."""
+    for key, kind in _pattern_keys(cfg, len(cfg.hybrid_pattern)):
+        if key in gp:
+            h = _hybrid_sub(h, gp[key], kind, cfg, positions)
+    return h, 0.0
+
+
+def _stack_fns(params: dict, cfg: ModelConfig):
+    """(layer function, its params) for every layer or group in order."""
+    if cfg.hybrid_pattern:
+        return [(_hybrid_group, _layer(params[name], i))
+                for name, depth, _ in _hybrid_stacks(cfg) for i in range(depth)]
+    fn = _ssm_layer if cfg.family == "ssm" else _dense_layer
+    return [(fn, _layer(params["layers"], i)) for i in range(cfg.n_layers)]
+
+
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
     b, s = tokens.shape
     return torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
@@ -128,28 +210,33 @@ def lm_hidden(
     """Token ids -> final hidden states (B, S, d) [compute dtype], aux loss
     (the MoE layers' sum, a 0-d f32 tensor; 0.0 for a dense stack).
 
-    ``layer_params`` holds each layer's params; by default they are views of
-    the stacked leaves at each index.  A training step passes views of its
-    own, whose gradients it gathers (``model.loss_and_grads``).
+    ``layer_params`` holds each layer's params (a dense or MoE stack); by
+    default they are views of the stacked leaves at each index.  A training
+    step passes views of its own, whose gradients it gathers
+    (``model.loss_and_grads``).  An SSD stack runs its layers, a hybrid
+    stack its groups and then its tail.
 
-    ``remat`` recomputes each layer in the backward pass instead of keeping
-    its activations (``torch.utils.checkpoint``, the counterpart of the
-    reference's ``jax.checkpoint`` with ``nothing_saveable``): it applies
-    only where autograd records the stack, so serving runs as it did."""
+    ``remat`` recomputes each layer (each group of a hybrid stack) in the
+    backward pass instead of keeping its activations
+    (``torch.utils.checkpoint``, the counterpart of the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``): it applies only where
+    autograd records the stack, so serving runs as it did."""
     require_dense(cfg)
     if positions is None:
         positions = _positions(tokens)
     if layer_params is None:
-        layer_params = [_layer(params["layers"], i) for i in range(cfg.n_layers)]
+        fns = _stack_fns(params, cfg)
+    else:
+        fns = [(_dense_layer, lp) for lp in layer_params]
     h = _embed(params, tokens)
     recompute = remat and torch.is_grad_enabled() and h.requires_grad
     aux = 0.0
-    for lp in layer_params:
+    for fn, lp in fns:
         if recompute:
-            h, a = checkpoint(_dense_layer, h, lp, cfg, positions, use_reentrant=False,
+            h, a = checkpoint(fn, h, lp, cfg, positions, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            h, a = _dense_layer(h, lp, cfg, positions)
+            h, a = fn(h, lp, cfg, positions)
         aux = aux + a
     return rmsnorm(h, params["final_norm"]), aux
 
@@ -186,18 +273,27 @@ def _ring_cache(k, v, s_total, out):
     out["v"][:, idx] = v[:, -take:]
 
 
-def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len=None):
-    """Forward the prompt once, writing each layer's decode cache as it goes.
+def _copy_cache(new: dict, out: dict):
+    """A recurrent block's prefill cache into its slot of the stacked cache."""
+    for name, a in new.items():
+        out[name].copy_(a)
 
-    Returns (final_hidden (B,S,d), caches, pos (B,)) with the structure of
-    ``init_caches``.
-    """
-    require_dense(cfg)
-    b, s = tokens.shape
-    max_len = max_len or s
-    positions = _positions(tokens)
-    caches = init_caches(cfg, b, max_len, device=tokens.device)
-    h = _embed(params, tokens)
+
+def _hybrid_prefill(h, params, caches, cfg: ModelConfig, positions):
+    """The hybrid stack's forward, writing every sub-block's cache as it
+    goes."""
+    for name, depth, keys in _hybrid_stacks(cfg):
+        for g in range(depth):
+            gp, gc = _layer(params[name], g), _layer(caches[name], g)
+            for key, kind in keys:
+                h = _hybrid_sub(h, gp[key], kind, cfg, positions, gc[key])
+    return h
+
+
+def _dense_prefill(h, params, caches, cfg: ModelConfig, positions):
+    """The dense or MoE stack's forward, writing each layer's K and V (a
+    ring with a sliding window) or MLA's latent cache as it goes."""
+    s = h.shape[1]
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         out = _layer(caches["layers"], i)
@@ -213,6 +309,36 @@ def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len=Non
             else:
                 _pad_full_cache({"k": k, "v": v}, out)
         h, _ = _ffn(h + y, lp, cfg)
+    return h
+
+
+def _ssm_prefill(h, params, caches, cfg: ModelConfig, positions):
+    """The SSD stack's forward, writing each layer's final state and conv
+    tail as it goes."""
+    del positions
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        y, new = ssm.ssd_block(rmsnorm(h, lp["norm"]), lp["ssd"], cfg, return_cache=True)
+        _copy_cache(new, _layer(caches["layers"], i))
+        h = h + y
+    return h
+
+
+def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len=None):
+    """Forward the prompt once, writing each layer's decode cache as it goes.
+
+    Returns (final_hidden (B,S,d), caches, pos (B,)) with the structure of
+    ``init_caches``.  An SSD stack needs S to be a multiple of
+    min(ssm_chunk, S); recurrent blocks need S >= their conv's W - 1 = 3.
+    """
+    require_dense(cfg)
+    b, s = tokens.shape
+    max_len = max_len or s
+    positions = _positions(tokens)
+    caches = init_caches(cfg, b, max_len, device=tokens.device)
+    fill = (_hybrid_prefill if cfg.hybrid_pattern else
+            _ssm_prefill if cfg.family == "ssm" else _dense_prefill)
+    h = fill(_embed(params, tokens), params, caches, cfg, positions)
     h = rmsnorm(h, params["final_norm"])
     pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     return h, caches, pos
@@ -223,20 +349,36 @@ def lm_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len=Non
 # ---------------------------------------------------------------------------
 
 
+def _stacked(one: dict, n: int) -> dict:
+    return {name: a.new_zeros((n,) + a.shape) for name, a in one.items()}
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """Stacked per-layer caches (leading dim = n_layers), zeros in bf16: MLA's
-    latent cache, or K and V, of which a sliding-window arch keeps a ring of
-    min(max_len, window) slots."""
+    """Stacked per-layer caches (leading dim = n_layers, or the group count
+    of a hybrid stack), zeros in the reference's dtypes: the attention
+    caches (MLA's latent cache, or K and V, of which a sliding-window arch
+    and the hybrid stack's local attention keep a ring of min(max_len,
+    window) slots) in bf16; the SSD state and conv tail and the RG-LRU
+    state and conv tail in f32."""
     require_dense(cfg)
-    if cfg.use_mla:
+    if cfg.hybrid_pattern:
+        slots = min(max_len, cfg.sliding_window or max_len)
+        one = {"rec": rglru.rglru_init_cache(cfg, batch, device=device),
+               "attn": attention.gqa_init_cache(cfg, batch, slots, device=device)}
+        return {name: {key: _stacked(one[kind], depth) for key, kind in keys}
+                for name, depth, keys in _hybrid_stacks(cfg)}
+    if cfg.family == "ssm":
+        one = ssm.ssd_init_cache(cfg, batch, device=device)
+    elif cfg.use_mla:
         one = attention.mla_init_cache(cfg, batch, max_len, device=device)
     else:
         eff = max_len if cfg.sliding_window is None else min(max_len, cfg.sliding_window)
         one = attention.gqa_init_cache(cfg, batch, eff, device=device)
-    return {"layers": {name: a.new_zeros((cfg.n_layers,) + a.shape) for name, a in one.items()}}
+    return {"layers": _stacked(one, cfg.n_layers)}
 
 
-def _decode_dense_layer(h, lp, cache_l, cfg: ModelConfig, pos, bias=None):
+def _decode_dense_layer(h, lp, cache_l, cfg: ModelConfig, pos, bias=None, out=None):
+    del out  # attention caches are written in place
     hn = rmsnorm(h, lp["ln1"])
     if cfg.use_mla:
         a, new_cache = attention.mla_decode(hn, lp["attn"], cfg, cache_l, pos, bias=bias)
@@ -247,22 +389,69 @@ def _decode_dense_layer(h, lp, cache_l, cfg: ModelConfig, pos, bias=None):
     return h, new_cache
 
 
+def _decode_ssm_layer(h, lp, cache_l, cfg: ModelConfig, pos, bias=None, out=None):
+    del pos, bias
+    y, new_cache = ssm.ssd_decode(rmsnorm(h, lp["norm"]), lp["ssd"], cfg, cache_l, out)
+    return h + y, new_cache
+
+
+def _decode_hybrid_sub(h, sp, cache_s, kind, cfg: ModelConfig, pos, bias, out):
+    hn = rmsnorm(h, sp["ln1"])
+    if kind == "rec":
+        y, new_cache = rglru.rglru_decode(hn, sp["rec"], cfg, cache_s, out)
+    else:
+        # Local attention over a ring buffer of the last `window` tokens.
+        y, new_cache = attention.gqa_decode(hn, sp["attn"], cfg, cache_s, pos, ring=True,
+                                            bias=bias)
+    h = h + y
+    hn = rmsnorm(h, sp["ln2"])
+    return h + swiglu(hn, sp["mlp"]["wg"], sp["mlp"]["wu"], sp["mlp"]["wd"]), new_cache
+
+
 def lm_decode_hidden(
     params: dict,
     token: torch.Tensor,  # (B, 1) int
     caches: dict,
     pos: torch.Tensor,  # (B,) int number of tokens already in cache
     cfg: ModelConfig,
+    out: Optional[dict] = None,
 ) -> tuple[torch.Tensor, dict]:
     """One decode step -> final hidden (B, 1, d) and the caches, written in
-    place (the same tensors come back)."""
+    place (the same tensors come back).
+
+    With ``out`` (a cache tree like ``caches``), the recurrent leaves' new
+    values (the SSD and RG-LRU states and conv tails) go into ``out``'s
+    leaves instead, and ``caches``' stay as they were; attention caches are
+    written in place either way, and ``out`` comes back.  A step that reads
+    one set and writes the other can run twice on the same inputs with the
+    same result, as a CUDA graph's warm-up and capture need."""
     require_dense(cfg)
     h = _embed(params, token)
+    out_tree = caches if out is None else out
+    if cfg.hybrid_pattern:
+        # Every attention sub-block attends over the same ring: one mask
+        # for the step, from the first one's slots.
+        name, _, keys = _hybrid_stacks(cfg)[0]
+        attn = [key for key, kind in keys if kind == "attn"]
+        bias = None if not attn else attention.decode_bias(
+            pos, caches[name][attn[0]]["k"].shape[2], ring=True, window=cfg.sliding_window)
+        for name, depth, keys in _hybrid_stacks(cfg):
+            for g in range(depth):
+                gp, gc, go = (_layer(t[name], g) for t in (params, caches, out_tree))
+                for key, kind in keys:
+                    h, _ = _decode_hybrid_sub(h, gp[key], gc[key], kind, cfg, pos, bias,
+                                              go[key])
+        return rmsnorm(h, params["final_norm"]), out_tree
     stacked = caches["layers"]
-    # Every layer attends over the same slots: one mask for the step.
-    cache_len = next(iter(stacked.values())).shape[2]
-    bias = attention.decode_bias(cfg, pos, cache_len, cfg.sliding_window is not None)
+    if cfg.family == "ssm":
+        layer, bias = _decode_ssm_layer, None
+    else:
+        # Every layer attends over the same slots: one mask for the step.
+        layer = _decode_dense_layer
+        cache_len = next(iter(stacked.values())).shape[2]
+        window = None if cfg.use_mla else cfg.sliding_window
+        bias = attention.decode_bias(pos, cache_len, window is not None, window)
     for i in range(cfg.n_layers):
-        h, _ = _decode_dense_layer(h, _layer(params["layers"], i), _layer(stacked, i),
-                                   cfg, pos, bias)
-    return rmsnorm(h, params["final_norm"]), caches
+        h, _ = layer(h, _layer(params["layers"], i), _layer(stacked, i), cfg, pos, bias,
+                     _layer(out_tree["layers"], i))
+    return rmsnorm(h, params["final_norm"]), out_tree

@@ -126,7 +126,44 @@ def test_mla_init_cache_and_decode_bias():
     pos = torch.tensor([3, 5, 0, 11, 7], dtype=torch.int32)
     x = torch.randn((5, 1, cfg.d_model), generator=torch.Generator().manual_seed(4)).bfloat16()
     outs = []
-    for bias in (None, attention.decode_bias(cfg, pos, 12, ring=False)):
+    for bias in (None, attention.decode_bias(pos, 12, ring=False)):
         cache = attention.mla_init_cache(cfg, 5, 12, device=CPU)
         outs.append(attention.mla_decode(x, params, cfg, cache, pos, bias=bias)[0])
     assert torch.equal(outs[0], outs[1])
+
+
+def test_mla_decode_ignores_the_sliding_window():
+    """MLA decode masks causally only, whatever ``cfg.sliding_window`` is, as
+    the reference's does: with a window of 8 and positions past it, one
+    step of layer 0's MLA against the JAX package's, and the stack's decode
+    step (one shared bias for every layer) bit for bit as without the
+    window."""
+    _jax()
+    import jax.numpy as jnp
+    from repro.models import attention as j_attn
+    from repro_torch.models import model as model_lib
+
+    j_cfg, j_params = _j_params(ARCH)
+    j_cfg = j_cfg.replace(sliding_window=8)
+    cfg = configs.get_config(ARCH, "smoke").replace(sliding_window=8)
+    params = convert.lm_params_from_numpy(_np_tree(j_params), cfg, CPU)
+    j_lp, lp = _layer0(j_params, params)
+    b, slots = 3, 16
+    x, c0, r0 = _rng_arrays(14, (b, 1, cfg.d_model), (b, slots, cfg.kv_lora_rank),
+                            (b, slots, cfg.qk_rope_dim))
+    pos = np.array([9, 12, 15], np.int32)
+    j_out, _ = j_attn.mla_decode(
+        jnp.asarray(x).astype(jnp.bfloat16), j_lp, j_cfg,
+        {"ckv": jnp.asarray(c0).astype(jnp.bfloat16),
+         "k_rope": jnp.asarray(r0).astype(jnp.bfloat16)}, jnp.asarray(pos))
+    cache = {"ckv": torch.as_tensor(c0).bfloat16(), "k_rope": torch.as_tensor(r0).bfloat16()}
+    out, _ = attention.mla_decode(torch.as_tensor(x).bfloat16(), lp, cfg, cache,
+                                  torch.as_tensor(pos))
+    _stats_close(out, j_out, "mla_decode out with a sliding window set")
+
+    toks = torch.as_tensor(np.random.default_rng(15).integers(0, cfg.vocab_size, (2, 12)))
+    logits = []
+    for c in (cfg, cfg.replace(sliding_window=None)):
+        _, st = model_lib.prefill(params, toks, c, max_len=16)
+        logits.append(model_lib.decode_step(params, st, toks[:, -1:], c)[0])
+    assert torch.equal(logits[0], logits[1])

@@ -2,9 +2,12 @@
 held against the JAX package's (``repro.configs``, ``repro.models``).
 
 Configs are data: ``ARCH_IDS`` and every field of every arch's full and
-smoke config are equal, and the five dense archs and the two MoE archs
-count the reference's parameters (the MoE and MLA layers themselves are
-held in ``tests/test_torch_moe.py`` and ``tests/test_torch_mla.py``).  Layers take the same numpy inputs in both packages: f32
+smoke config are equal, and the five dense archs, the two MoE archs and
+the SSD and hybrid archs count the reference's parameters (the MoE, MLA,
+SSD and RG-LRU layers themselves are held in ``tests/test_torch_moe.py``,
+``tests/test_torch_mla.py``, ``tests/test_torch_ssm.py`` and
+``tests/test_torch_rglru.py``).  ``Leaf.std`` is held to the init-scale
+repair: 1/sqrt of the dims a weight contracts with.  Layers take the same numpy inputs in both packages: f32
 results within 1e-6, bf16 results within one bf16 ulp of the reference's
 (relative 2^-8 of the value, plus 2^-8 of the row's scale for values that
 cancel).  Attention: the port's naive and chunked algorithms against each
@@ -66,6 +69,8 @@ FULL_PARAMS = {
     "chameleon-34b": 34_293_436_416,
     "deepseek-moe-16b": 16_879_568_896,
     "deepseek-v2-236b": 239_375_569_920,
+    "mamba2-780m": 780_148_992,
+    "recurrentgemma-9b": 10_444_771_328,
 }
 FRO_REL, MAX_ABS = 3e-2, 0.15  # bf16 stack against the JAX package (see above)
 # Logits and cache leaves: worst seen 3.0 % of the array's largest
@@ -153,7 +158,7 @@ def test_full_width_param_counts(arch):
     assert layers.count_params(model_lib.build_schema(cfg)) == FULL_PARAMS[arch]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b", "whisper-small"])
+@pytest.mark.parametrize("arch", ["whisper-small"])
 def test_families_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         model_lib.build_schema(configs.get_config(arch, "smoke"))
@@ -267,12 +272,13 @@ def test_chunked_matches_naive_and_the_reference(causal, window, chunk):
     np.testing.assert_allclose(_np32(chunked), _np32(want_c), atol=2e-5, rtol=1e-4)
 
 
-def numpy_params(schema, iter_leaves, seed):
+def numpy_params(schema, iter_leaves, seed, std_of=None):
     """A params tree of numpy f32 arrays for a schema of either package, drawn
     per leaf from ``seed`` and the leaf's path: matmul and embedding weights
-    at their init scale, norm weights small and nonzero (so ``1 + w`` is
-    exercised).  The JAX package's ``init_params`` seeds leaves with the
-    salted ``hash()`` and so differs from process to process; these do not."""
+    at their init scale (the reference's, or ``std_of(path)`` where given),
+    norm weights small and nonzero (so ``1 + w`` is exercised).  The JAX
+    package's ``init_params`` seeds leaves with the salted ``hash()`` and so
+    differs from process to process; these do not."""
     out = {}
     for path, leaf in iter_leaves(schema):
         sub = out
@@ -283,6 +289,8 @@ def numpy_params(schema, iter_leaves, seed):
             std = 0.1
         elif leaf.init == "embed":
             std = 1.0
+        elif std_of is not None:
+            std = std_of(path)
         else:
             std = leaf.scale or 1.0 / np.sqrt(max(leaf.shape[0] if len(leaf.shape) > 1
                                                   else leaf.shape[-1], 1))
@@ -290,7 +298,7 @@ def numpy_params(schema, iter_leaves, seed):
     return out
 
 
-def _j_params(arch, seed=1):
+def _j_params(arch, seed=1, std_of=None):
     """The JAX package's config and params (numpy, see ``numpy_params``)."""
     import jax.numpy as jnp
 
@@ -298,7 +306,7 @@ def _j_params(arch, seed=1):
     from repro.models import model as j_model
 
     cfg = j_configs.get_config(arch, "smoke")
-    tree = numpy_params(j_model.build_schema(cfg), j_model.layers._iter_leaves, seed)
+    tree = numpy_params(j_model.build_schema(cfg), j_model.layers._iter_leaves, seed, std_of)
 
     def to_jax(t):
         return {k: to_jax(v) if isinstance(v, dict) else jnp.asarray(v) for k, v in t.items()}
@@ -508,6 +516,50 @@ def test_init_params_is_the_same_in_two_processes():
         assert r.returncode == 0, r.stderr
         outs.append(r.stdout.strip())
     assert outs[0] == outs[1]
+
+
+def _contracted(cfg, path):
+    """The dims a full-width weight contracts with at use (the worked cases
+    of the init-scale repair), or None for a leaf not listed."""
+    name, parent = path[-1], path[-2] if len(path) > 1 else ""
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    if name in ("wq", "wk", "wv", "in_proj", "in_x", "in_gate", "lm_head"):
+        return cfg.d_model
+    if name in ("wg", "wu"):
+        return cfg.d_model
+    if name == "wd":
+        return {"moe": cfg.d_ff_expert, "shared": cfg.d_ff_expert * cfg.n_shared_experts}.get(
+            parent, cfg.d_ff)
+    if name == "wo":
+        return h * (cfg.v_head_dim if cfg.use_mla else hd)
+    if name == "wq_b":
+        return cfg.q_lora_rank
+    if name == "wkv_b":
+        return cfg.kv_lora_rank
+    if name == "out_proj":
+        return cfg.d_inner
+    if name == "out" and parent == "rec":
+        return cfg.lru_width
+    return None
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b", "deepseek-v2-236b",
+                                  "mamba2-780m", "recurrentgemma-9b"])
+def test_leaf_std_is_one_over_the_root_of_the_contracted_dims(arch):
+    """The init-scale repair, read from ``Leaf.std`` without drawing: each
+    listed weight at 1/sqrt(the dims it contracts with), never its layer or
+    expert count; an explicit ``scale`` stays that scale."""
+    cfg = configs.get_config(arch, "full")
+    seen = set()
+    for path, leaf in layers._iter_leaves(model_lib.build_schema(cfg)):
+        if leaf.scale is not None:
+            assert leaf.std == leaf.scale, path
+            continue
+        want = _contracted(cfg, path)
+        if want is not None:
+            assert leaf.std == pytest.approx(1.0 / np.sqrt(want), rel=1e-12), path
+            seen.add(path[-1])
+    assert {"wo", "wg", "wd"} <= seen or {"in_proj", "out_proj"} <= seen, seen
 
 
 def test_init_params_leaf_statistics():
