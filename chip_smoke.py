@@ -165,7 +165,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    uninterrupted ones (params, moments, head, losses); (d) ``odl_update`` at
    n_in 2,560 from a head warmed on the CPU, one batch on the card and on the
    CPU: some rows prune, decisions, count and ``PruneState`` exact, P within
-   2e-5 in units of I/ridge and beta within 2e-4.  Every shape 6l launched a
+   2e-5 in units of I/ridge and beta within 2e-4; (e) mamba2-780m at full
+   width (780,148,992 parameters) and (f) recurrentgemma-9b at 6 of its 38
+   layers (3,410,120,704 parameters; reduced to fit f32 params, m, v and
+   gradients on one card) each as (b), its launches counted from 0 around
+   its run.  On (b), (e) and (f) the projection launches exactly twice and
+   the one-head RLS once a step, no replays.  Every shape 6l launched a
    kernel at must be one phases 2-4 held;
 6m. the MoE archs' serving path (``models/moe.py``, MLA in
    ``models/attention.py``), after 6l has freed its memory: (a)
@@ -211,15 +216,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    workers, migrated after tick 16, bit for bit its solo run, with each
    worker's path kernels.  Every shape 6n launched a kernel at must be one
    phases 2-4 held;
+6o. whisper-small's encoder-decoder (``models/encdec.py``, cross-attention
+   in ``models/attention.py``) at full width (12 encoder and 12 decoder
+   layers, d_model 768, vocab 51,865), after 6n has freed its memory: (a)
+   the serving params built on the card from the seed (263,864,064
+   parameters), build seconds and the allocator's peak; (b)
+   ``encdec_prefill`` of 64 streams of 1,500 stubbed frames (30 s of audio,
+   the naive encoder) into a 448-slot self cache, then 32
+   ``encdec.decode_step`` tokens: each decoded position's hidden against
+   ``decode_train``'s teacher-forced hidden within atol 0.15, rtol 0.05 at 2
+   encoder and decoder layers, printed at 12; the same decode from cloned
+   caches bit for bit; prefill ms and peak, decode ms per token p50/p95
+   (eager, host clock, synchronised) and a profiler window of 4 decode
+   steps (device busy ms, device ops and the costliest kernels a step);
+   (c) ``launch.train.train`` for 12 steps at B=32, S=64 (frames drawn as
+   the reference's loop draws them) as 6l (b), then two ``train_step``s in
+   a profiler window; (d) smoke width as 6l (c).  Every shape 6o launched
+   a kernel at must be one phases 2-4 held;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
    N=256 (S=16,384, P 4 GiB) and, with the plan's pass in ``serve``, at 6k's
    serving shape (256 streams, n_in 2,560); the projection and the one-head
-   RLS update at 6l's training shape (32 rows of 2,560; k = 32); the
-   projection and the plan's pass in ``serve`` at 6m's (256 streams of n_in
-   2,048 and 5,120) and 6n's (n_in 1,536 and 4,096); the plan's pass in ``algo1``
-   (reads x) and ``train_phase`` (reads no x), in ``serve`` at n_in 8,192
-   (x read from device memory), and its reduced instances alone.
+   RLS update at 6l's training shape (32 rows of 2,560; k = 32), and the
+   projection at 6o (c)'s and 6l (e)-(f)'s (32 rows of 768, 1,536 and
+   4,096); the projection and the plan's pass in ``serve`` at 6m's (256
+   streams of n_in 2,048 and 5,120) and 6n's (n_in 1,536 and 4,096); the
+   plan's pass in ``algo1`` (reads x) and ``train_phase`` (reads no x), in
+   ``serve`` at n_in 8,192 (x read from device memory), and its reduced
+   instances alone.
 
 The line before the last is the ``kernels`` JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
 of the repository, it exits non-zero and prints no result.
@@ -279,7 +303,7 @@ K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 1
              (256, 2560, 128), (512, 2560, 128), (4, 64, 128), (32, 2560, 128), (8, 64, 128),
              (256, 2048, 128), (512, 2048, 128), (256, 5120, 128), (256, 64, 128),
              (256, 1536, 128), (512, 1536, 128), (256, 4096, 128), (512, 4096, 128),
-             (FLEET_STREAMS, 561, 256)]
+             (32, 768, 128), (32, 1536, 128), (32, 4096, 128), (FLEET_STREAMS, 561, 256)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
              (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (8192, 128, 1, 6),
              (12288, 128, 1, 6), (1024, 128, 1, 6), (2048, 128, 1, 6), (3072, 128, 1, 6),
@@ -295,6 +319,11 @@ K1_BACKBONE, K2_BACKBONE = (256, 2560, 128), (256, 128, 1, 6)
 # Phase 6l's full-width training shape of the projection (B = 32 pooled rows
 # of d_model 2,560), held by phase 2 and timed by phase 7 with K3_TRAIN.
 K1_TRAIN = (32, 2560, 128)
+# The training shapes of the projection on 6o (c) and 6l (e)-(f): B = 32 pooled
+# rows of whisper-small's d_model 768, mamba2-780m's 1,536 and
+# recurrentgemma-9b's 4,096, held by phase 2 and timed by phase 7.
+K1_FAMILY_TRAIN = {"encdec_train": (32, 768, 128), "ssm_train": (32, 1536, 128),
+                   "hybrid_train": (32, 4096, 128)}
 PLAN_BACKBONE, PLAN_WIDE = (256, 128, 6, 2560), (256, 128, 6, 8192)
 # Phase 6m's serving shapes (256 streams of deepseek-moe-16b's d_model 2,048,
 # two fused tenants 512 rows; 256 of deepseek-v2-236b's 5,120, and of its
@@ -470,6 +499,18 @@ RECURRENT = {"batch": 256, "max_len": 128, "prompt_len": 16, "replay_ticks": 16,
 # head warmed on the CPU by ``warm_calls`` updates of ``batch`` rows.
 TRAIN = dict(arch="qwen3-4b", variant="full", params=4_411_424_256, batch=32, seq=64, steps=12,
              smoke_batch=8, smoke_seq=32, resume_at=4, warm_calls=12)
+# Phase 6l (e)-(f): the SSD stack at full width and the hybrid stack cut to
+# its first 2 of 12 pattern groups (6 of 38 layers) to fit params, m, v and
+# gradients (16 bytes a parameter) on one card; their parameter counts.
+TRAIN_FAMILIES = {"mamba2-780m": dict(tag="(e)", params=780_148_992, depth=None),
+                  "recurrentgemma-9b": dict(tag="(f)", params=3_410_120_704, depth=6)}
+# Phase 6o, whisper-small's encoder-decoder at full width: (b) ``batch``
+# streams of 30 s of audio (``frames`` encoder frames), ``decode`` tokens
+# into a ``max_len`` self cache (Whisper's decoder context), decode against
+# ``decode_train`` bounded at ``bound_depth`` encoder and decoder layers;
+# (c)-(d) train as 6l (b)-(c).
+ENCDEC = dict(arch="whisper-small", variant="full", params=263_864_064, batch=64, frames=1500,
+              max_len=448, decode=32, bound_depth=2)
 # The kernels the training path launches every step.
 TRAIN_KERNELS = ("xorshift_projection", "oselm_rls_update")
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
@@ -4137,15 +4178,20 @@ def phase_recurrent(device="cuda"):
     return res
 
 
-def _param_slice_sums(params):
-    """One f64 sum per param slice (each layer of a stacked leaf, each other
-    leaf whole), in a fixed order, on the host: a slice whose sum changed has
-    moved."""
+def _param_slice_sums(params, cfg):
+    """One f64 sum per param slice (each layer or pattern group of a stacked
+    leaf, each other leaf whole), in a fixed order, on the host: a slice
+    whose sum changed has moved."""
     import torch
 
-    sums = [t.double().sum() for k, t in params.items() if k != "layers"]
-    for t in _model_leaves(params["layers"]):
-        sums.extend(s.double().sum() for s in t.unbind(0))
+    from repro_torch.models import model as model_lib
+
+    names = model_lib.stacked_names(cfg)
+    sums = [t.double().sum() for k, v in params.items() if k not in names
+            for t in _model_leaves({k: v})]
+    for name in names:
+        for t in _model_leaves(params[name]):
+            sums.extend(s.double().sum() for s in t.unbind(0))
     return torch.stack(sums).cpu()
 
 
@@ -4166,21 +4212,160 @@ def _clustered_feats(rng, n, centers, ambiguous=False):
     return feats.astype(np.float32), labels
 
 
-def phase_train(device="cuda"):
-    """6l: the dense backbones' training path at qwen3-4b's full width (see
-    the module docstring)."""
+def _train_steps(arch, variant, device, card, tag, cfg=None, note=""):
+    """6l (b) for one config (``cfg``, or ``arch``/``variant``'s):
+    ``launch.train.train`` for TRAIN's steps at its batch x seq, the
+    projection and one-head RLS launches (and graph replays) counted from 0
+    around it; every loss finite, every param slice moved (against the
+    seed's params drawn beforehand), the head's count equal to the queried
+    rows, each path kernel launched once (RLS) or twice (projection) a step.
+    Returns the results."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+
+    tr = TRAIN
+    cfg = cfg or configs.get_config(arch, variant)
+    b, seq, n_steps = tr["batch"], tr["seq"], tr["steps"]
+    schema = model_lib.build_schema(cfg)
+    init = layers.init_params(schema, SEED, device, dtype=torch.float32)
+    n_params = sum(t.numel() for t in _model_leaves(init))
+    before = _param_slice_sums(init, cfg)
+    del init
+    torch.cuda.empty_cache()
+    steps = []
+    last = [time.perf_counter()]
+
+    def on_step(step, metrics):
+        _sync(device)
+        now = time.perf_counter()
+        steps.append({"step": step, "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "odl_query_frac": float(metrics["odl_query_frac"]),
+                      "odl_theta": float(metrics["odl_theta"]), "s": now - last[0]})
+        last[0] = now
+
+    torch.cuda.reset_peak_memory_stats()
+    graphs.reset_replay_counts()
+    ops.reset_launch_counts()
+    last[0] = time.perf_counter()
+    state, losses = train_lib.train(arch, variant, steps=n_steps, batch=b, seq=seq, seed=SEED,
+                                    log_every=n_steps, device=device, cfg=cfg, on_step=on_step)
+    _sync(device)
+    res = {"peak_bytes": torch.cuda.max_memory_allocated(), "launches": dict(ops.launch_counts),
+           "replays": dict(graphs.kernel_replays), "params": n_params}
+    check(len(losses) == n_steps and all(math.isfinite(x) for x in losses),
+          f"{tag}: losses {losses}")
+    moved = _param_slice_sums(state.params, cfg) != before
+    check(bool(moved.all()), f"{tag}: {int((~moved).sum())} of {moved.numel()} param slices "
+                             f"did not move")
+    queried = sum(round(r["odl_query_frac"] * b) for r in steps)
+    count = int(state.odl.elm.count)
+    check(count == queried and count == int(state.odl.prune.queries),
+          f"{tag}: odl count {count}, queried rows {queried}")
+    del state
+    torch.cuda.empty_cache()
+    per_step = [r["s"] for r in steps]
+    steady = sorted(per_step[1:])[len(per_step[1:]) // 2]
+    tokens = b * seq
+    flops = 6.0 * n_params * tokens  # model FLOPs; remat's recompute not counted
+    res.update(losses=losses, steps=steps, s_per_step=per_step, steady_s=steady,
+               tokens_per_s=tokens / steady, model_flops=flops,
+               bf16_peak_share=flops / steady / PEAK_BF16_FLOPS, odl_count=count,
+               slices=moved.numel())
+    want = {"xorshift_projection": 2 * n_steps, "oselm_rls_update": n_steps}
+    got = {k: res["launches"].get(k, 0) + res["replays"].get(k, 0) for k in TRAIN_KERNELS}
+    check(got == want and not any(res["replays"].get(k, 0) for k in TRAIN_KERNELS),
+          f"{tag}: path kernels {got} (launches {res['launches']}, replays {res['replays']}), "
+          f"want {want} launched")
+    print(f"  {tag} launch.train.train({cfg.arch_id} {variant}{note}, {n_steps} steps, B={b}, "
+          f"S={seq}): {n_params} parameters; losses {[round(x, 4) for x in losses]}, all "
+          f"finite; all {moved.numel()} param slices moved; odl count {count} == {queried} "
+          f"queried rows; per step odl_query_frac {[r['odl_query_frac'] for r in steps]}, "
+          f"odl_theta {[r['odl_theta'] for r in steps]}, s/step "
+          f"{[round(x, 3) for x in per_step]} (step 1 includes the build); steady "
+          f"{steady:.3f} s (median of steps 2-{n_steps}, host clock, synchronised), "
+          f"{tokens / steady:.0f} tokens/s; allocator peak {res['peak_bytes']} bytes; model "
+          f"FLOPs a step 6 x N x tokens = {flops:.3e} ({100 * res['bf16_peak_share']:.1f} % of "
+          f"the bf16 dense peak, information); path kernels launched {got} ({card})")
+    return res
+
+
+def _train_batch(cfg, step, b, seq, device):
+    """``launch.train.train``'s batch of ``step`` at ``b`` x ``seq`` (the
+    frames too, for the encoder-decoder), on ``device``."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.launch import train as train_lib
+
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                           global_batch=b, n_domains=cfg.odl.n_out, seed=SEED))
+    batch = stream.batch(step)
+    if cfg.enc_dec:
+        batch["frames"] = train_lib.frames(step, b, seq, cfg.d_model)
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _train_replay_resume(arch, device, tag):
+    """6l (c) at ``arch``'s smoke width on the card: two ``train_step``s from
+    one state bit for bit, and TRAIN's resume_at steps + resume to twice as
+    many bit for bit as many uninterrupted (params, moments, head, losses)."""
     import shutil
     import tempfile
 
-    import numpy as np
     import torch
 
     from repro_torch import configs, convert
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
-    from repro_torch.engine import graphs
-    from repro_torch.kernels import ops
     from repro_torch.launch import train as train_lib
+    from repro_torch.models import model as model_lib
+
+    tr = TRAIN
+    scfg = configs.get_config(arch, "smoke")
+    sb, ss = tr["smoke_batch"], tr["smoke_seq"]
+    s0 = model_lib.init_train_state(scfg, SEED, TrainConfig(), device)
+    batch = _train_batch(scfg, 1, sb, ss, device)
+    one, m1 = model_lib.train_step(convert.train_state_from_numpy(s0, scfg, device), batch, scfg)
+    two, m2 = model_lib.train_step(convert.train_state_from_numpy(s0, scfg, device), batch, scfg)
+    check(_leaf_digests(one) == _leaf_digests(two)
+          and all(torch.equal(m1[k], m2[k]) for k in m1),
+          f"{tag}: two train_steps from one state differ")
+    del s0, one, two
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        kw = dict(steps=2 * tr["resume_at"], batch=sb, seq=ss, seed=SEED, log_every=100,
+                  device=device)
+        full, full_losses = train_lib.train(arch, "smoke", **kw)
+        _, first = train_lib.train(arch, "smoke", **dict(
+            kw, steps=tr["resume_at"], ckpt_dir=str(tmp), ckpt_every=tr["resume_at"]))
+        resumed, rest = train_lib.train(arch, "smoke", **dict(
+            kw, ckpt_dir=str(tmp), ckpt_every=tr["resume_at"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(_leaf_digests(resumed) == _leaf_digests(full) and first + rest == full_losses,
+          f"{tag}: {tr['resume_at']} steps + resume to {2 * tr['resume_at']} differ from "
+          f"{2 * tr['resume_at']} uninterrupted")
+    print(f"  {tag} smoke width on the card ({arch}, B={sb}, S={ss}): two train_steps from one "
+          f"state bit for bit; {tr['resume_at']} steps + resume to {2 * tr['resume_at']} == "
+          f"{2 * tr['resume_at']} uninterrupted, bit for bit (params, moments, ODL state, "
+          f"losses)")
+
+
+def phase_train(device="cuda"):
+    """6l: the training path at qwen3-4b's full width, then mamba2-780m's
+    and recurrentgemma-9b's at 6 of its 38 layers (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
     from repro_torch.models import layers
     from repro_torch.models import model as model_lib
 
@@ -4190,12 +4375,10 @@ def phase_train(device="cuda"):
     tr = TRAIN
     cfg = configs.get_config(tr["arch"], tr["variant"])
     tcfg = TrainConfig()
-    b, seq = tr["batch"], tr["seq"]
+    b = tr["batch"]
     res = {"allocated_before": torch.cuda.memory_allocated()}
-    graphs.reset_replay_counts()
-    ops.reset_launch_counts()
     with _ShapeLog() as log:
-        # (a) the TrainState on the card, from the seed; each slice's sum.
+        # (a) the TrainState on the card, from the seed.
         t0 = time.perf_counter()
         state = model_lib.init_train_state(cfg, SEED, tcfg, device)
         _sync(device)
@@ -4208,7 +4391,6 @@ def phase_train(device="cuda"):
         tensor_bytes = 4 * res["params"]
         check(res["allocated_after_build"] - res["allocated_before"] >= 3 * tensor_bytes,
               f"train (a): {res['allocated_after_build']} bytes after the build")
-        before = _param_slice_sums(state.params)
         del state
         torch.cuda.empty_cache()
         print(f"training (6l, {tr['arch']} {tr['variant']}, {tcfg.param_dtype} master params, "
@@ -4219,92 +4401,10 @@ def phase_train(device="cuda"):
               f"{res['build_s']:.2f} s")
 
         # (b) launch.train.train at full width: B x S tokens a step, B ODL rows.
-        steps = []
-        last = [time.perf_counter()]
-
-        def on_step(step, metrics):
-            _sync(device)
-            now = time.perf_counter()
-            steps.append({"step": step, "loss": float(metrics["loss"]),
-                          "grad_norm": float(metrics["grad_norm"]),
-                          "odl_query_frac": float(metrics["odl_query_frac"]),
-                          "odl_theta": float(metrics["odl_theta"]), "s": now - last[0]})
-            last[0] = now
-
-        torch.cuda.reset_peak_memory_stats()
-        last[0] = time.perf_counter()
-        state, losses = train_lib.train(tr["arch"], tr["variant"], steps=tr["steps"], batch=b,
-                                        seq=seq, seed=SEED, log_every=1, device=device,
-                                        on_step=on_step)
-        _sync(device)
-        res["peak_bytes"] = torch.cuda.max_memory_allocated()
-        res["launches"] = dict(ops.launch_counts)
-        res["replays"] = dict(graphs.kernel_replays)
-        check(len(losses) == tr["steps"] and all(math.isfinite(x) for x in losses),
-              f"train (b): losses {losses}")
-        moved = _param_slice_sums(state.params) != before
-        check(bool(moved.all()), f"train (b): {int((~moved).sum())} of {moved.numel()} param "
-                                 f"slices did not move")
-        queried = sum(round(r["odl_query_frac"] * b) for r in steps)
-        count = int(state.odl.elm.count)
-        check(count == queried and count == int(state.odl.prune.queries),
-              f"train (b): odl count {count}, queried rows {queried}")
-        del state
-        torch.cuda.empty_cache()
-        per_step = [r["s"] for r in steps]
-        steady = sorted(per_step[1:])[len(per_step[1:]) // 2]
-        tokens = b * seq
-        flops = 6.0 * res["params"] * tokens  # model FLOPs; remat's recompute not counted
-        res.update(losses=losses, steps=steps, s_per_step=per_step, steady_s=steady,
-                   tokens_per_s=tokens / steady, model_flops=flops,
-                   bf16_peak_share=flops / steady / PEAK_BF16_FLOPS, odl_count=count,
-                   slices=moved.numel())
-        for name in TRAIN_KERNELS:
-            check(res["launches"].get(name, 0) > 0, f"train (b): {name} not launched")
-        print(f"  (b) launch.train.train({tr['arch']} {tr['variant']}, {tr['steps']} steps, B={b}, "
-              f"S={seq}): losses {[round(x, 4) for x in losses]}, all finite; all "
-              f"{moved.numel()} param slices moved; odl count {count} == {queried} queried rows; "
-              f"per step odl_query_frac {[r['odl_query_frac'] for r in steps]}, odl_theta "
-              f"{[r['odl_theta'] for r in steps]}, s/step {[round(x, 3) for x in per_step]} "
-              f"(step 1 includes the build); steady {steady:.3f} s (median of steps 2-"
-              f"{tr['steps']}, host clock, synchronised), {tokens / steady:.0f} tokens/s; "
-              f"allocator peak {res['peak_bytes']} bytes; model FLOPs a step 6 x N x tokens = "
-              f"{flops:.3e} ({100 * res['bf16_peak_share']:.1f} % of the bf16 dense peak, "
-              f"information) ({card})")
+        res.update(_train_steps(tr["arch"], tr["variant"], device, card, "(b)"))
 
         # (c) smoke width on the card: replay and resume, bit for bit.
-        scfg = configs.get_config(tr["arch"], "smoke")
-        sb, ss = tr["smoke_batch"], tr["smoke_seq"]
-        s0 = model_lib.init_train_state(scfg, SEED, tcfg, device)
-        stream_ = TokenStream(TokenStreamConfig(vocab_size=scfg.vocab_size, seq_len=ss,
-                                                global_batch=sb, n_domains=scfg.odl.n_out,
-                                                seed=SEED))
-        batch = {k: torch.as_tensor(v, device=device) for k, v in stream_.batch(1).items()}
-        one, m1 = model_lib.train_step(convert.train_state_from_numpy(s0, scfg, device), batch, scfg)
-        two, m2 = model_lib.train_step(convert.train_state_from_numpy(s0, scfg, device), batch, scfg)
-        check(_leaf_digests(one) == _leaf_digests(two)
-              and all(torch.equal(m1[k], m2[k]) for k in m1),
-              "train (c): two train_steps from one state differ")
-        del s0, one, two
-        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-        try:
-            kw = dict(steps=2 * tr["resume_at"], batch=sb, seq=ss, seed=SEED, log_every=100,
-                      device=device)
-            full, full_losses = train_lib.train(tr["arch"], "smoke", **kw)
-            _, first = train_lib.train(tr["arch"], "smoke", **dict(
-                kw, steps=tr["resume_at"], ckpt_dir=str(tmp), ckpt_every=tr["resume_at"]))
-            resumed, rest = train_lib.train(tr["arch"], "smoke", **dict(
-                kw, ckpt_dir=str(tmp), ckpt_every=tr["resume_at"]))
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        check(_leaf_digests(resumed) == _leaf_digests(full) and first + rest == full_losses,
-              f"train (c): {tr['resume_at']} steps + resume to {2 * tr['resume_at']} differ "
-              f"from {2 * tr['resume_at']} uninterrupted")
-        del full, resumed
-        print(f"  (c) smoke width on the card (B={sb}, S={ss}): two train_steps from one state "
-              f"bit for bit; {tr['resume_at']} steps + resume to {2 * tr['resume_at']} == "
-              f"{2 * tr['resume_at']} uninterrupted, bit for bit (params, moments, ODL state, "
-              f"losses)")
+        _train_replay_resume(tr["arch"], device, "(c)")
 
         # (d) odl_update at n_in = d_model from a warm head built on the CPU:
         # rows prune; the card's decisions equal the CPU's.
@@ -4334,14 +4434,225 @@ def phase_train(device="cuda"):
               f"{int(odl.elm.count)}, level {int(odl.prune.level)}): {round(float(mh['odl_query_frac']) * b)} "
               f"of {b} rows queried on both; decisions, count and PruneState exact; P "
               f"{dp:.2e} in units of I/ridge (< 2e-5), beta max |diff| {db:.2e} (< 2e-4)")
+
+        # (e) the SSD stack at full width and (f) the hybrid stack at 6 of
+        # its 38 layers, each as (b).
+        for key, (arch, fam) in zip(("ssm", "hybrid"), TRAIN_FAMILIES.items()):
+            fcfg, note = configs.get_config(arch, tr["variant"]), ""
+            if fam["depth"] is not None:
+                note = (f" at {fam['depth']} of its {fcfg.n_layers} layers (reduced: depth "
+                        f"{fcfg.n_layers} -> {fam['depth']}, one card)")
+                fcfg = fcfg.replace(n_layers=fam["depth"])
+            res[key] = _train_steps(arch, tr["variant"], device, card, fam["tag"], cfg=fcfg,
+                                    note=note)
+            check(res[key]["params"] == fam["params"],
+                  f"train {fam['tag']}: {res[key]['params']} params, want {fam['params']}")
     missing = log.missing()
     check(not missing, f"train: shapes phases 2-4 did not hold: {missing}")
     res["shapes"] = {k: sorted(v) for k, v in log.shapes.items() if v}
     res["seconds"] = time.perf_counter() - t_phase
     print(f"  kernel shapes on 6l's path, each held in phases 2-4: {res['shapes']}")
-    print(f"  kernels on 6l's main path (b) (launches + replays): "
-          + str({k: res['launches'].get(k, 0) + res['replays'].get(k, 0) for k in TRAIN_KERNELS}))
+    for part, r in (("(b)", res), ("(e)", res["ssm"]), ("(f)", res["hybrid"])):
+        print(f"  kernels on 6l's main path {part} (launches + replays): "
+              + str({k: r['launches'].get(k, 0) + r['replays'].get(k, 0) for k in TRAIN_KERNELS}))
     print(f"  phase 6l took {res['seconds']:.1f} s ({card})")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 6o: whisper-small's encoder-decoder (models/encdec.py)
+# ---------------------------------------------------------------------------
+
+
+def _cut_encdec(params, cfg, depth):
+    """The first ``depth`` encoder and decoder layers (views) and their
+    config."""
+    if depth == cfg.n_layers == cfg.n_enc_layers:
+        return params, cfg
+    cut = dict(params, enc_layers=_first_layers(params["enc_layers"], depth),
+               dec_layers=_first_layers(params["dec_layers"], depth))
+    return cut, cfg.replace(n_layers=depth, n_enc_layers=depth)
+
+
+def _encdec_decode(params, cfg, caches, toks, device):
+    """``encdec.decode_step`` over every token of ``toks`` (B, n) from
+    position 0: the hidden states (B, n, d) and each step's ms (host clock,
+    synchronised)."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    pos = torch.zeros((toks.shape[0],), dtype=torch.int32, device=toks.device)
+    hs, ms = [], []
+    for i in range(toks.shape[1]):
+        _sync(device)
+        t0 = time.perf_counter()
+        h, caches = encdec.decode_step(params, toks[:, i:i + 1], caches, pos, cfg)
+        _sync(device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        hs.append(h)
+        pos = pos + 1
+    return torch.cat(hs, 1), ms
+
+
+def _profile_calls(fn, n, device):
+    """``fn`` called ``n`` times under ``torch.profiler`` after one warm-up
+    call: per call the device busy ms (every kernel and copy), the wall ms
+    under the profiler, the device ops and the three costliest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    _sync(device)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        _sync(device)
+        wall = 1e3 * (time.perf_counter() - t0)
+    work = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for name, dur in work:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + dur / 1e3 / n
+    busy = sum(dur for _, dur in work) / 1e3
+    return {"busy_ms": busy / n, "wall_ms": wall / n, "device_ops": len(work) / n,
+            "busy_share": busy / wall if wall else float("nan"),
+            "top": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:3])}
+
+
+def _profile_text(p):
+    return (f"device busy {p['busy_ms']:.2f} ms a call in {p['wall_ms']:.2f} wall "
+            f"({100 * p['busy_share']:.1f} % busy), {p['device_ops']:.0f} device ops a call; "
+            f"costliest {', '.join(f'{k} {v:.2f}' for k, v in p['top'].items())} ms")
+
+
+def _encdec_vs_teacher(params, cfg, frames, toks, device):
+    """6o (b) at one depth: ``encdec_prefill`` of ``frames``, then the decode
+    of ``toks`` against ``decode_train``'s teacher-forced hidden over them;
+    returns the excess over atol 0.15 / rtol 0.05 and the Frobenius and max
+    abs differences."""
+    from repro_torch.models import encdec
+    from repro_torch.models import model as model_lib
+
+    enc, caches = model_lib.encdec_prefill(params, frames, cfg, ENCDEC["max_len"])
+    want = encdec.decode_train(params, toks, enc, cfg)
+    got, _ = _encdec_decode(params, cfg, caches, toks, device)
+    fro, mx = _fro_and_max(got, want)
+    return {"excess": _within(got, want, 0.15, 0.05), "fro_rel": fro, "max_abs": mx}
+
+
+def phase_encdec(device="cuda"):
+    """6o: whisper-small's encoder-decoder at full width (see the module
+    docstring)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import encdec, layers
+    from repro_torch.models import model as model_lib
+
+    t_phase = time.perf_counter()
+    card = _card()
+    torch.cuda.empty_cache()
+    ed = ENCDEC
+    cfg = configs.get_config(ed["arch"], ed["variant"])
+    b, t_frames, n_dec = ed["batch"], ed["frames"], ed["decode"]
+    res = {"allocated_before": torch.cuda.memory_allocated()}
+    print(f"encdec (6o, {ed['arch']} {ed['variant']}: {cfg.n_enc_layers} encoder and "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, attention {cfg.attention_impl}) on {card}: "
+          f"{res['allocated_before']} bytes allocated before it")
+    with _ShapeLog() as log:
+        # (a) the serving params on the card from the seed; count them.
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model_lib.build_params(cfg, SEED, device)
+        _sync(device)
+        res["build_s"] = time.perf_counter() - t0
+        res["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["params"] = sum(t.numel() for t in _model_leaves(params))
+        schema_count = layers.count_params(model_lib.build_schema(cfg))
+        check(res["params"] == schema_count == ed["params"],
+              f"encdec (a): {res['params']} params built, schema {schema_count}")
+        print(f"  (a) {res['params']} parameters (count_params {schema_count}), built in "
+              f"{res['build_s']:.2f} s, allocator peak {res['build_peak_bytes']} bytes")
+
+        # (b) B streams of T frames encoded, n_dec tokens decoded.
+        gen = torch.Generator().manual_seed(SEED)
+        frames = torch.randn((b, t_frames, cfg.d_model), generator=gen).to(device)
+        toks = torch.randint(0, cfg.vocab_size, (b, n_dec), generator=gen).to(device)
+        depth = ed["bound_depth"]
+        bounded = _encdec_vs_teacher(*_cut_encdec(params, cfg, depth), frames, toks, device)
+        check(bounded["excess"] <= 0, f"encdec (b): at {depth} layers decode beyond "
+                                      f"decode_train by {bounded}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _sync(device)
+        t0 = time.perf_counter()
+        enc, caches = model_lib.encdec_prefill(params, frames, cfg, ed["max_len"])
+        _sync(device)
+        res["prefill_s"] = time.perf_counter() - t0
+        res["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+        check(tuple(enc.shape) == (b, t_frames, cfg.d_model)
+              and bool(torch.isfinite(enc.float()).all()), "encdec (b): encoder states")
+        res["cache_bytes"] = {k: sum(t.numel() * t.element_size() for t in _model_leaves({k: v}))
+                              for k, v in caches.items()}
+        clone = {k: ({n: a.clone() for n, a in v.items()} if isinstance(v, dict) else v.clone())
+                 for k, v in caches.items()}
+        want = encdec.decode_train(params, toks, enc, cfg)
+        got, ms = _encdec_decode(params, cfg, caches, toks, device)
+        again, _ = _encdec_decode(params, cfg, clone, toks, device)
+        check(torch.equal(got, again) and all(torch.equal(caches["self"][k], clone["self"][k])
+                                              for k in caches["self"]),
+              "encdec (b): the replayed decode differs")
+        check(bool(torch.isfinite(got.float()).all()), "encdec (b): decode not finite")
+        fro, mx = _fro_and_max(got, want)
+        res["b"] = {"bounded": bounded, "full": {"excess": _within(got, want, 0.15, 0.05),
+                                                 "fro_rel": fro, "max_abs": mx}}
+        res["decode_ms"] = _pcts(ms)
+        pos = torch.full((b,), n_dec - 1, dtype=torch.int32, device=device)
+        res["decode_profile"] = _profile_calls(
+            lambda: encdec.decode_step(params, toks[:, -1:], clone, pos, cfg), 4, device)
+        del enc, caches, clone, want, got, again, frames
+        torch.cuda.empty_cache()
+        full = res["b"]["full"]
+        print(f"  (b) encdec_prefill of B={b} x {t_frames} frames (max_len {ed['max_len']}) in "
+              f"{1e3 * res['prefill_s']:.1f} ms (host clock, synchronised), allocator peak "
+              f"{res['prefill_peak_bytes']} bytes, caches {res['cache_bytes']} bytes; "
+              f"{n_dec} decode_steps against decode_train's teacher-forced hidden: at {depth} "
+              f"layers within atol 0.15, rtol 0.05 (excess {bounded['excess']:.4f}, Frobenius "
+              f"rel {bounded['fro_rel']:.4f}, max abs {bounded['max_abs']:.4f}); through all "
+              f"{cfg.n_layers} (printed) excess {full['excess']:.4f}, Frobenius rel "
+              f"{full['fro_rel']:.4f}, max abs {full['max_abs']:.4f}; a decode replayed from "
+              f"cloned caches bit for bit; decode ms per token at B={b} (host clock, "
+              f"synchronised, eager) p50 {res['decode_ms']['p50']:.2f}, p95 "
+              f"{res['decode_ms']['p95']:.2f}; profiled (4 tokens): "
+              f"{_profile_text(res['decode_profile'])} ({card})")
+        del params
+        torch.cuda.empty_cache()
+
+        # (c) training at full width as 6l (b), and two train_steps profiled;
+        # (d) smoke width as 6l (c).
+        res["train"] = _train_steps(ed["arch"], ed["variant"], device, card, "(c)")
+        state = model_lib.init_train_state(cfg, SEED, device=device)
+        batch = _train_batch(cfg, 1, TRAIN["batch"], TRAIN["seq"], device)
+        res["train_profile"] = _profile_calls(
+            lambda: model_lib.train_step(state, batch, cfg), 2, device)
+        del state, batch
+        torch.cuda.empty_cache()
+        print(f"  (c) a train_step profiled (2 steps, B={TRAIN['batch']}, S={TRAIN['seq']}): "
+              f"{_profile_text(res['train_profile'])} ({card})")
+        _train_replay_resume(ed["arch"], device, "(d)")
+    missing = log.missing()
+    check(not missing, f"encdec: shapes phases 2-4 did not hold: {missing}")
+    res["shapes"] = {k: sorted(v) for k, v in log.shapes.items() if v}
+    res["seconds"] = time.perf_counter() - t_phase
+    r = res["train"]
+    print(f"  kernel shapes on 6o's path, each held in phases 2-4: {res['shapes']}")
+    print(f"  kernels on 6o's main path (c) (launches + replays): "
+          + str({k: r['launches'].get(k, 0) + r['replays'].get(k, 0) for k in TRAIN_KERNELS}))
+    print(f"  phase 6o took {res['seconds']:.1f} s ({card})")
     return res
 
 
@@ -4675,6 +4986,24 @@ def phase_times(device="cuda"):
         **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))),
     )
     del P, beta, H, Y
+    # The projection at the other training paths' shapes (6o (c), 6l (e)-(f)):
+    # 32 pooled rows of whisper-small's, mamba2-780m's and recurrentgemma-9b's
+    # d_model.
+    for key, (b, n_in, n) in K1_FAMILY_TRAIN.items():
+        x = _cycling_x(device, b, n_in)
+        alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
+        c = float(1.0 / n_in ** 0.5)
+        by_name["xorshift_projection"][key] = dict(
+            shape=[b, n_in, n],
+            ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
+            plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n),
+                                reps=PLAIN_REPS),
+            library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
+            **dict(zip(("bound_ms", "bound_by"), _bound(
+                flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
+                peak_flops=PEAK_TF32_FLOPS))),
+        )
+        del x, alpha
     # The MoE archs' serving shapes (phase 6m): 256 streams of
     # deepseek-moe-16b's d_model 2,048 and of deepseek-v2-236b's 5,120.
     for key, (b, n_in, n), plan, seed in (("moe", K1_MOE, PLAN_MOE, SEED + 14),
@@ -4714,14 +5043,18 @@ def phase_times(device="cuda"):
     print(f"time the two-stage route at the fleet shape: {rows[1]['two_stage_ms']:.4f} ms")
     for name in ("xorshift_projection", "oselm_rls_update_fleet", "oselm_rls_update",
                  "plan_rows"):
-        for key in ("backbone", "wide", "train", "moe", "mla", "ssm", "hybrid"):
+        for key in ("backbone", "wide", "train", "moe", "mla", "ssm", "hybrid",
+                    *K1_FAMILY_TRAIN):
             w = by_name[name].get(key)
             if w is None:
                 continue
             lib = "none" if w["library_ms"] is None else f"{w['library_ms']:.4f} ms"
             where = {"backbone": "serve", "wide": "widest", "train": "training",
                      "moe": "deepseek-moe-16b serve", "mla": "deepseek-v2-236b serve",
-                     "ssm": "mamba2-780m serve", "hybrid": "recurrentgemma-9b serve"}[key]
+                     "ssm": "mamba2-780m serve", "hybrid": "recurrentgemma-9b serve",
+                     "encdec_train": "whisper-small training",
+                     "ssm_train": "mamba2-780m training",
+                     "hybrid_train": "recurrentgemma-9b training"}[key]
             print(f"time {name} at the backbone's {where} "
                   f"shape {w['shape']}: kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
@@ -4880,6 +5213,7 @@ def main(argv=None) -> int:
     trained = phase_train()
     moe = phase_moe()
     recurrent = phase_recurrent()
+    encdec_res = phase_encdec()
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -4967,6 +5301,15 @@ def main(argv=None) -> int:
             # launches (the training step captures no graph).
             "train_launches": trained["launches"].get(name, 0),
             "train_replays": trained["replays"].get(name, 0),
+            # The other training paths, each counted from 0 around its
+            # launch.train.train run: whisper-small (phase 6o (c)),
+            # mamba2-780m (6l (e)) and recurrentgemma-9b at 6 layers (6l (f)).
+            "encdec_train_launches": encdec_res["train"]["launches"].get(name, 0),
+            "encdec_train_replays": encdec_res["train"]["replays"].get(name, 0),
+            "ssm_train_launches": trained["ssm"]["launches"].get(name, 0),
+            "ssm_train_replays": trained["ssm"]["replays"].get(name, 0),
+            "hybrid_train_launches": trained["hybrid"]["launches"].get(name, 0),
+            "hybrid_train_replays": trained["hybrid"]["replays"].get(name, 0),
             # The MoE archs' serving path (phase 6m, (a)-(f)): eager launches
             # and graph replays in this process, and, apart, in its two
             # workers (summed from their own scrapes).
@@ -5010,6 +5353,9 @@ def main(argv=None) -> int:
             # Phase 7 at 6n's serving shapes (n_in 1,536 and 4,096), where timed.
             "ssm": t.get("ssm"),
             "hybrid": t.get("hybrid"),
+            # Phase 7 at 6o (c)'s and 6l (e)-(f)'s training shapes (n_in 768,
+            # 1,536 and 4,096), where timed.
+            **{key: t.get(key) for key in K1_FAMILY_TRAIN},
             "ok": True,
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s")

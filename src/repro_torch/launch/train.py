@@ -1,8 +1,10 @@
 """Training driver: data pipeline -> train_step -> checkpoint/restart
 (PyTorch counterpart of ``repro/launch/train.py``).
 
-Runs the dense backbones on the card (or the CPU with ``--device cpu``, at
-smoke width).  Fault tolerance as in the reference: async keep-3
+Runs the dense, SSD and hybrid backbones and the encoder-decoder (whisper,
+fed the reference's stubbed frames: standard normal (B, S, d_model) f32
+drawn from ``step``) on the card (or the CPU with ``--device cpu``, at smoke
+width).  Fault tolerance as in the reference: async keep-3
 checkpoints every ``ckpt_every`` steps, a NaN guard that rolls back to the
 last good checkpoint and skips the offending batch, and deterministic
 seekable data (``TokenStream.batch(step)``), so a run restored at step N
@@ -19,6 +21,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs, convert, resolve_device
@@ -34,6 +37,12 @@ def make_step(cfg: ModelConfig, tcfg: TrainConfig):
         return model_lib.train_step(state, batch, cfg, tcfg)
 
     return step
+
+
+def frames(step: int, batch: int, seq: int, d_model: int) -> np.ndarray:
+    """The encoder-decoder's stubbed frame embeddings of ``step``, the
+    reference's draw: (batch, seq, d_model) standard normal f32."""
+    return np.random.default_rng(step).normal(0, 1, (batch, seq, d_model)).astype(np.float32)
 
 
 def train(
@@ -78,7 +87,10 @@ def train(
     losses = []
     t0 = time.time()
     for step in range(start + 1, steps + 1):
-        batch_t = {k: torch.as_tensor(v, device=device) for k, v in stream.batch(step).items()}
+        batch_np = stream.batch(step)
+        if cfg.enc_dec:
+            batch_np["frames"] = frames(step, batch, seq, cfg.d_model)
+        batch_t = {k: torch.as_tensor(v, device=device) for k, v in batch_np.items()}
         state, metrics = step_fn(state, batch_t)
         loss = float(metrics["loss"])
         losses.append(loss)

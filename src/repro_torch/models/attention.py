@@ -1,5 +1,5 @@
-"""Grouped-query attention (full or sliding-window) and DeepSeek-V2's
-multi-head latent attention (PyTorch counterpart of
+"""Grouped-query attention (full or sliding-window), DeepSeek-V2's
+multi-head latent attention and cross-attention (PyTorch counterpart of
 ``repro/models/attention.py``).
 
 The KV-cache conventions for decode::
@@ -24,8 +24,9 @@ same tensors: a serving loop consumes its cache, as the reference's jitted
 loop donates it.  Callers that replay a decode from one prefill clone the
 prefill's caches first (``launch.serve._decode_feats`` does).
 
-Cross-attention is not ported yet (ROADMAP Queue 1 item 6.4, with the
-encoder-decoder).
+Cross-attention (whisper's decoder) attends over the encoder's states
+with no mask but ``src_valid``; its decode reads K and V that
+``models/encdec.py`` projects once from the encoder output.
 """
 
 from __future__ import annotations
@@ -41,9 +42,6 @@ from repro_torch.models import layers
 from repro_torch.models.layers import Leaf, apply_rope, cast, rmsnorm
 
 NEG_INF = -1e9  # bf16-safe large negative
-
-_NOT_PORTED = ("{} is not ported yet: ROADMAP Queue 1 item 6 takes cross-attention "
-               "with enc-dec (whisper) in a later slice")
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +80,16 @@ def mla_schema(cfg: ModelConfig) -> dict:
         ),
         "wo": Leaf((h, cfg.v_head_dim, d), ("heads", "head_dim", "embed"),
                    fan_in=h * cfg.v_head_dim),
+    }
+
+
+def cross_schema(cfg: ModelConfig) -> dict:
+    d, hd, h = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
+    return {
+        "wq": Leaf((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": Leaf((d, h, hd), ("embed", "heads", "head_dim")),
+        "wv": Leaf((d, h, hd), ("embed", "heads", "head_dim")),
+        "wo": Leaf((h, hd, d), ("heads", "head_dim", "embed"), fan_in=h * hd),
     }
 
 
@@ -404,9 +412,26 @@ def mla_decode(x, p, cfg: ModelConfig, cache: dict, pos: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Not ported yet
+# Cross attention (whisper decoder)
 # ---------------------------------------------------------------------------
 
 
-def cross_attention(*args, **kwargs):
-    raise NotImplementedError(_NOT_PORTED.format("cross-attention"))
+def cross_attend(x, p, k, v, src_valid=None):
+    """x (B,Sq,d) attending over k/v (B,Sk,H,hd), the projected encoder
+    states, masked where ``src_valid`` (B,Sk) is False.  Scores in f32,
+    divided by sqrt(hd); probabilities in v's dtype; the PV product a bf16
+    product in the reference: accumulated in f32, rounded once."""
+    q = _proj(x, p["wq"])
+    scores = torch.einsum("bqhe,bkhe->bhqk", q.float(), k.to(q.dtype).float())
+    scores = scores / math.sqrt(q.shape[-1])
+    if src_valid is not None:
+        scores = scores + torch.where(src_valid, 0.0, NEG_INF)[:, None, None, :]
+    probs = torch.softmax(scores, -1).to(v.dtype)
+    o = torch.einsum("bhqk,bkhe->bqhe", probs.float(), v.float()).to(v.dtype)
+    b, s = o.shape[:2]
+    return o.reshape(b, s, -1).to(x.dtype) @ cast(p["wo"]).reshape(-1, x.shape[-1])
+
+
+def cross_attention(x, p, ctx, src_valid=None):
+    """x: (B, Sq, d) queries; ctx: (B, Sk, d) encoder output."""
+    return cross_attend(x, p, _proj(ctx, p["wk"]), _proj(ctx, p["wv"]), src_valid)

@@ -10,8 +10,11 @@ Master params are f32 (``TrainConfig.param_dtype``); the backbone computes
 in bf16, as the reference does.  The step writes the new params and moments
 into the ``TrainState`` it is given (the reference's jitted step donates
 it): a caller that needs the old state clones it first.  Dense, MoE (GQA or
-MLA attention), SSD and hybrid RG-LRU stacks serve; only the dense ones
-train yet (``require_trainable``).
+MLA attention), SSD and hybrid RG-LRU stacks serve; the dense, SSD and
+hybrid stacks and the encoder-decoder (whisper) train, the MoE and MLA ones
+not yet (``require_trainable``).  The encoder-decoder serves through
+``encdec_prefill`` and ``encdec.decode_step``, as the reference's does: the
+decoder-only serving entry points below raise for it.
 
 Every backbone carries the paper's ODL head: ``serve_step`` decodes one
 token, then the fleet engine's ``gate`` runs on each stream's last hidden
@@ -40,7 +43,7 @@ from repro_torch import engine, resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core import drift as drift_mod
 from repro_torch.core import oselm, pruning
-from repro_torch.models import layers, transformer
+from repro_torch.models import encdec, layers, transformer
 from repro_torch.models.layers import softmax_cross_entropy
 from repro_torch.optim import adam
 
@@ -50,20 +53,26 @@ from repro_torch.optim import adam
 
 
 def build_schema(cfg: ModelConfig) -> dict:
+    if cfg.enc_dec:
+        return encdec.encdec_schema(cfg)
     return transformer.lm_schema(cfg)
+
+
+def stacked_names(cfg: ModelConfig) -> list:
+    """The top-level subtrees of the schema whose leaves stack layers (or
+    pattern groups): ``layers``; ``groups`` and ``tail`` for a hybrid
+    stack; ``enc_layers`` and ``dec_layers`` for the encoder-decoder."""
+    return [name for name, sub in build_schema(cfg).items() if isinstance(sub, dict)
+            and next(leaf for _, leaf in layers._iter_leaves(sub)).axes[0] == "layers"]
 
 
 def require_trainable(cfg: ModelConfig) -> None:
     """Raise for the stacks the port serves but cannot train yet: MoE (the
-    aux loss in the step), MLA, the SSD stack and the hybrid RG-LRU stack."""
-    transformer.require_dense(cfg)
-    what = ("MoE and MLA stacks" if cfg.n_experts or cfg.use_mla else
-            "the SSD stack (mamba2)" if cfg.family == "ssm" else
-            "the hybrid RG-LRU stack (recurrentgemma)" if cfg.hybrid_pattern else None)
-    if what is not None:
+    aux loss and routing in the step) and MLA."""
+    if cfg.n_experts or cfg.use_mla:
         raise NotImplementedError(
-            f"{cfg.arch_id}: training {what} is not ported yet; ROADMAP Queue 1 item 6 "
-            "lists it after their serving path")
+            f"{cfg.arch_id}: training MoE and MLA stacks is not ported yet; ROADMAP Queue 1 "
+            "item 6.6 lists it next")
 
 
 def elm_config(cfg: ModelConfig) -> oselm.OSELMConfig:
@@ -133,10 +142,15 @@ def init_train_state(cfg: ModelConfig, seed: int = 0, tcfg: TrainConfig = TrainC
 # ---------------------------------------------------------------------------
 
 
-def _forward_loss(params, batch, cfg: ModelConfig, remat: bool, layer_params=None):
-    hidden, aux = transformer.lm_hidden(params, batch["tokens"], cfg, remat=remat,
-                                        layer_params=layer_params)
-    logits = transformer.lm_logits(params, hidden, cfg)
+def _forward_loss(params, batch, cfg: ModelConfig, remat: bool):
+    if cfg.enc_dec:
+        enc = encdec.encode(params, batch["frames"], cfg, remat=remat)
+        hidden = encdec.decode_train(params, batch["tokens"], enc, cfg, remat=remat)
+        logits = encdec.logits(params, hidden)
+        aux = 0.0
+    else:
+        hidden, aux = transformer.lm_hidden(params, batch["tokens"], cfg, remat=remat)
+        logits = transformer.lm_logits(params, hidden, cfg)
     ce = softmax_cross_entropy(logits, batch["labels"])
     loss = ce + 0.01 * aux
     feats = torch.mean(hidden.float(), dim=1)  # (B, d) pooled
@@ -147,28 +161,34 @@ def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, remat: bool = Tr
     """(loss, feats (B, d) f32 detached, grads): the gradient of the loss with
     respect to every param, a tree like ``params`` in the params' dtype.
 
-    Autograd differentiates one view per layer of each stacked leaf, whose
-    ``.grad`` is preset to the matching slice of a zeroed stacked buffer, so
-    each layer's gradient is added into place: a stacked leaf's gradient is
+    Autograd differentiates one view per layer (per group of a hybrid
+    stack) of each stacked leaf (``stacked_names``), whose ``.grad`` is
+    preset to the matching slice of a zeroed stacked buffer, so each
+    layer's gradient is added into place: a stacked leaf's gradient is
     never assembled from per-layer copies (at full width a layer-stacked
     leaf is 3.6 GB in f32)."""
     require_trainable(cfg)
-    stacked = params["layers"]
-    grads = {"layers": _map(torch.zeros_like, stacked)}
-    views = []
-    for i in range(cfg.n_layers):
-        def one(p, g, i=i):
-            v = p[i].detach().requires_grad_()
-            v.grad = g[i]
-            return v
-
-        views.append(_map(one, stacked, grads["layers"]))
-    top = {k: v.detach().requires_grad_() for k, v in params.items() if k != "layers"}
-    loss, (_, feats) = _forward_loss(dict(top, layers=stacked), batch, cfg, remat, views)
+    names = stacked_names(cfg)
+    grads, inputs = {}, {}
+    for name in names:
+        grads[name] = _map(torch.zeros_like, params[name])
+        depth = adam.leaves(params[name])[0].shape[0]
+        inputs[name] = [_map(functools.partial(_layer_view, i=i), params[name], grads[name])
+                        for i in range(depth)]
+    top = _map(lambda v: v.detach().requires_grad_(),
+               {k: v for k, v in params.items() if k not in names})
+    loss, (_, feats) = _forward_loss(dict(top, **inputs), batch, cfg, remat)
     loss.backward()
-    for k, v in top.items():
-        grads[k] = v.grad if v.grad is not None else torch.zeros_like(v)
+    grads.update(_map(lambda v: v.grad if v.grad is not None else torch.zeros_like(v), top))
     return loss.detach(), feats.detach(), grads
+
+
+def _layer_view(p, g, i):
+    """Layer i of the stacked leaf ``p`` as a leaf of its own whose gradient
+    accumulates into layer i of ``g``."""
+    v = p[i].detach().requires_grad_()
+    v.grad = g[i]
+    return v
 
 
 def _map(fn, tree, *rest):
@@ -255,10 +275,11 @@ def train_step(
 ) -> tuple[TrainState, dict]:
     """One optimizer step with optional gradient accumulation.
 
-    batch: tokens/labels (B, S) + odl_labels (B,), tensors on the state's
-    device.  The gradients are ``accumulate_grads``'s; the head trains on
-    all B rows' features at once.  The params and moments of ``state`` are
-    updated in place.
+    batch: tokens/labels (B, S) [+ frames (B, S, d) f32 for the
+    encoder-decoder] + odl_labels (B,), tensors on the state's device.  The
+    gradients are ``accumulate_grads``'s; the head trains on all B rows'
+    features at once.  The params and moments of ``state`` are updated in
+    place.
     """
     require_trainable(cfg)
     loss, feats, grads = accumulate_grads(state.params, batch, cfg, tcfg)
@@ -355,3 +376,11 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_len: Optio
         odl=engine.init_fleet(core_config(cfg), tokens.shape[0], tokens.device),
     )
     return hidden, state
+
+
+def encdec_prefill(params: dict, frames: torch.Tensor, cfg: ModelConfig, max_len: int):
+    """The encoder-decoder's prefill, on the frames' device: (encoder states
+    (B, T, d), decode caches for ``encdec.decode_step`` with ``max_len``
+    self-attention slots)."""
+    enc = encdec.encode(params, frames, cfg)
+    return enc, encdec.init_caches(params, enc, cfg, max_len)

@@ -25,8 +25,9 @@ local attention's ring of K and V).  ``lm_hidden`` is the training forward
 too, with the reference's remat, and sums the MoE layers' aux loss in
 layer order as the reference's scan carry does.
 
-The encoder-decoder (whisper) raises ``NotImplementedError``: ROADMAP Queue
-1 item 6 ports it in a later slice.
+The encoder-decoder (whisper) has entry points of its own
+(``model.encdec_prefill``, ``encdec.decode_step``): the ones here raise
+``NotImplementedError`` for it, as the reference's have no enc-dec branch.
 """
 
 from __future__ import annotations
@@ -42,12 +43,13 @@ from repro_torch.models.layers import Leaf, cast, rmsnorm, stack_schema, swiglu
 
 
 def require_dense(cfg: ModelConfig) -> None:
-    """Raise for the family the port has no backbone for yet: the
-    encoder-decoder (dense, MoE, SSD and hybrid stacks have one)."""
+    """Raise for the encoder-decoder, which the decoder-only entry points
+    here do not run (dense, MoE, SSD and hybrid stacks do)."""
     if cfg.enc_dec:
         raise NotImplementedError(
-            f"{cfg.arch_id}: the encoder-decoder (whisper) is not ported yet; ROADMAP Queue 1 "
-            "item 6 lists it after the decoder-only serving paths")
+            f"{cfg.arch_id}: the encoder-decoder (whisper) is not a decoder-only stack; its "
+            "entry points are model.encdec_prefill and encdec.decode_step (encdec.encode and "
+            "encdec.decode_train to train)")
 
 
 # ---------------------------------------------------------------------------
@@ -121,8 +123,12 @@ def lm_schema(cfg: ModelConfig) -> dict:
     return s
 
 
-def _layer(stacked: dict, i: int) -> dict:
-    """Layer i's params: a view of every stacked leaf at index i."""
+def _layer(stacked, i: int) -> dict:
+    """Layer i's params: a view of every stacked leaf at index i, or item i
+    of a list of per-layer trees (a training step's views, whose gradients
+    it gathers: ``model.loss_and_grads``)."""
+    if isinstance(stacked, list):
+        return stacked[i]
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
 
 
@@ -205,16 +211,13 @@ def lm_hidden(
     cfg: ModelConfig,
     positions: Optional[torch.Tensor] = None,
     remat: bool = True,
-    layer_params: Optional[list] = None,
 ) -> tuple[torch.Tensor, torch.Tensor | float]:
     """Token ids -> final hidden states (B, S, d) [compute dtype], aux loss
     (the MoE layers' sum, a 0-d f32 tensor; 0.0 for a dense stack).
 
-    ``layer_params`` holds each layer's params (a dense or MoE stack); by
-    default they are views of the stacked leaves at each index.  A training
-    step passes views of its own, whose gradients it gathers
-    (``model.loss_and_grads``).  An SSD stack runs its layers, a hybrid
-    stack its groups and then its tail.
+    A dense, MoE or SSD stack runs its layers, a hybrid stack its groups and
+    then its tail; a stacked subtree of ``params`` may be a list of its
+    layers' trees (``_layer``).
 
     ``remat`` recomputes each layer (each group of a hybrid stack) in the
     backward pass instead of keeping its activations
@@ -224,21 +227,24 @@ def lm_hidden(
     require_dense(cfg)
     if positions is None:
         positions = _positions(tokens)
-    if layer_params is None:
-        fns = _stack_fns(params, cfg)
-    else:
-        fns = [(_dense_layer, lp) for lp in layer_params]
-    h = _embed(params, tokens)
+    h, aux = run_layers(_embed(params, tokens), _stack_fns(params, cfg), remat, cfg, positions)
+    return rmsnorm(h, params["final_norm"]), aux
+
+
+def run_layers(h, fns, remat: bool, *args):
+    """``fn(h, lp, *args)`` -> (h, aux) for each (fn, lp) of ``fns`` in
+    order: the last h and the aux losses' sum.  With ``remat``, and where
+    autograd records the stack, each call is recomputed in the backward pass
+    instead of keeping its activations."""
     recompute = remat and torch.is_grad_enabled() and h.requires_grad
     aux = 0.0
     for fn, lp in fns:
         if recompute:
-            h, a = checkpoint(fn, h, lp, cfg, positions, use_reentrant=False,
-                              preserve_rng_state=False)
+            h, a = checkpoint(fn, h, lp, *args, use_reentrant=False, preserve_rng_state=False)
         else:
-            h, a = fn(h, lp, cfg, positions)
+            h, a = fn(h, lp, *args)
         aux = aux + a
-    return rmsnorm(h, params["final_norm"]), aux
+    return h, aux
 
 
 def lm_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -3,10 +3,11 @@ held against the JAX package's (``repro.configs``, ``repro.models``).
 
 Configs are data: ``ARCH_IDS`` and every field of every arch's full and
 smoke config are equal, and the five dense archs, the two MoE archs and
-the SSD and hybrid archs count the reference's parameters (the MoE, MLA,
-SSD and RG-LRU layers themselves are held in ``tests/test_torch_moe.py``,
-``tests/test_torch_mla.py``, ``tests/test_torch_ssm.py`` and
-``tests/test_torch_rglru.py``).  ``Leaf.std`` is held to the init-scale
+the SSD and hybrid archs and the encoder-decoder count the reference's
+parameters (the MoE, MLA, SSD and RG-LRU layers and the encoder-decoder
+themselves are held in ``tests/test_torch_moe.py``,
+``tests/test_torch_mla.py``, ``tests/test_torch_ssm.py``,
+``tests/test_torch_rglru.py`` and ``tests/test_torch_encdec.py``).  ``Leaf.std`` is held to the init-scale
 repair: 1/sqrt of the dims a weight contracts with.  Layers take the same numpy inputs in both packages: f32
 results within 1e-6, bf16 results within one bf16 ulp of the reference's
 (relative 2^-8 of the value, plus 2^-8 of the row's scale for values that
@@ -71,6 +72,7 @@ FULL_PARAMS = {
     "deepseek-v2-236b": 239_375_569_920,
     "mamba2-780m": 780_148_992,
     "recurrentgemma-9b": 10_444_771_328,
+    "whisper-small": 263_864_064,
 }
 FRO_REL, MAX_ABS = 3e-2, 0.15  # bf16 stack against the JAX package (see above)
 # Logits and cache leaves: worst seen 3.0 % of the array's largest
@@ -156,12 +158,6 @@ def test_every_config_field_equals_the_reference(arch):
 def test_full_width_param_counts(arch):
     cfg = configs.get_config(arch, "full")
     assert layers.count_params(model_lib.build_schema(cfg)) == FULL_PARAMS[arch]
-
-
-@pytest.mark.parametrize("arch", ["whisper-small"])
-def test_families_not_ported_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        model_lib.build_schema(configs.get_config(arch, "smoke"))
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ the graphed decode tick over the nested cache tree (two sets of the
 recurrent leaves, read and written in turns), the loaders of ``convert``,
 decode against prefill inside the port, a recurrentgemma-9b ``decode``
 tenant migrated between two port workers on the CPU, bit for bit its solo
-run, and the training entry points raising (ROADMAP Queue 1 item 6).
+run, and the training entry points raising on what cannot be trained on.
 Tests marked ``cuda`` run on the card and skip elsewhere:
 
     PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_recurrent_serve.py
@@ -296,14 +296,30 @@ def test_convert_loads_recurrent_leaves_and_caches():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_entry_points_raise(arch):
+    """Both stacks train (``tests/test_torch_train_families.py`` holds their
+    gradients): the entry points build a TrainState and take a finite loss
+    and gradient, and raise only on what cannot be trained on: a checkpoint
+    tree whose recurrent leaf is misshapen, and for mamba2 a sequence that
+    its chunked scan cannot split (the reference asserts it)."""
     cfg = configs.get_config(arch, "smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        model_lib.init_train_state(cfg, device=CPU)
-    params = model_lib.build_params(cfg, 0, CPU)
-    batch = {"tokens": torch.zeros((2, 4), dtype=torch.int64),
-             "labels": torch.zeros((2, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        model_lib.loss_and_grads(params, batch, cfg)
+    state = model_lib.init_train_state(cfg, device=CPU)
+    batch = {"tokens": torch.zeros((2, 16), dtype=torch.int64),
+             "labels": torch.zeros((2, 16), dtype=torch.int64)}
+    loss, feats, grads = model_lib.loss_and_grads(state.params, batch, cfg)
+    assert torch.isfinite(loss) and tuple(feats.shape) == (2, cfg.d_model)
+    assert grads.keys() == state.params.keys()
+    bad = convert.train_state_to_numpy(state)
+    leaf = "layers/ssd/conv_w" if cfg.family == "ssm" else "groups/b0_rec/rec/w_r"
+    sub = bad.params
+    for k in leaf.split("/")[:-1]:
+        sub = sub[k]
+    sub[leaf.split("/")[-1]] = sub[leaf.split("/")[-1]][..., :-1]
+    with pytest.raises(ValueError, match=leaf):
+        convert.train_state_from_numpy(bad, cfg, CPU)
+    if cfg.family == "ssm":
+        short = {k: torch.zeros((2, cfg.ssm_chunk + 4), dtype=torch.int64) for k in batch}
+        with pytest.raises(ValueError, match="not divisible by chunk"):
+            model_lib.loss_and_grads(state.params, short, cfg)
 
 
 def test_hybrid_decode_tenant_migrates_between_port_workers():
