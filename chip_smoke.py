@@ -233,13 +233,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    the reference's loop draws them) as 6l (b), then two ``train_step``s in
    a profiler window; (d) smoke width as 6l (c).  Every shape 6o launched
    a kernel at must be one phases 2-4 held;
+6p. the MoE and MLA stacks' training path (``models/moe.py``'s backward,
+   ``models/attention.py``'s MLA), expert parallelism and the model-side
+   mesh, after 6o has freed its memory: (a) a deepseek-moe-16b TrainState
+   on the card at full width and 4 of its 28 layers (2,770,880,512
+   parameters; f32 params, m, v and gradients, 16 bytes a parameter), its
+   build seconds and allocator bytes; (b) ``launch.train.train`` for 12
+   steps at B=32, S=64 as 6l (b), with every step's aux loss finite and
+   0.01 aux printed, then two ``train_step``s in a profiler window (the
+   head's device ms, under ``train.head``, against the backbone's, and the
+   busy share); (c) at smoke width, for both MoE archs, 6l (c); (d)
+   deepseek-v2-236b at full width and 1 of its 60 layers (5,020,697,600
+   parameters) with bf16 master params and f32 moments (12 bytes a
+   parameter), (b) at B=8, S=64, its routed experts cut 160 -> 16 only if
+   the estimate does not fit the card's free memory (printed); (e)
+   ``moe_block_ep`` on a 2 x 4 (data, model) mesh of ``cuda:0`` entries,
+   one deepseek-moe-16b layer at full width, x (8, 256, 2,048) f32 with
+   TF32 off, at capacity factor E/k against the dense block within 1e-5 of
+   max |y|, aux within 1e-6 of the token shards' mean (the reference's
+   pmean) and within rtol 0.05 of the whole batch's; the pairs each token
+   shard drops at the default 1.25; the EP and dense blocks' ms (one card,
+   eight entries, exchanges device-local: not a multi-GPU time); two
+   smoke-width ``train_step``s with ``moe_impl="ep"`` under the mesh
+   against the meshless ones, losses and params within 1e-5; (f)
+   ``pipeline_forward`` on an 8-entry ``("stage",)`` mesh against
+   ``sequential_reference`` within 1e-5 at the reference test's shapes and
+   at d 2,048; (g) deepseek-moe-16b smoke params ``reshard_tree``d onto a
+   (4, 2) mesh, saved and ``rescale``d onto (2, 2), every shard bit for
+   bit the slice its placement names.  In (b) and (d) the projection must
+   launch twice and kernel 3 once a step; every shape 6p launched a kernel
+   at must be one phases 2-4 held;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
    N=256 (S=16,384, P 4 GiB) and, with the plan's pass in ``serve``, at 6k's
    serving shape (256 streams, n_in 2,560); the projection and the one-head
-   RLS update at 6l's training shape (32 rows of 2,560; k = 32), and the
-   projection at 6o (c)'s and 6l (e)-(f)'s (32 rows of 768, 1,536 and
-   4,096); the projection and the plan's pass in ``serve`` at 6m's (256
+   RLS update at 6l's training shape (32 rows of 2,560; k = 32), the
+   projection at 6o (c)'s, 6l (e)-(f)'s and 6p (b), (d)'s (32 rows of 768,
+   1,536, 4,096 and 2,048; 8 of 5,120) and the RLS update at 6p's (k = 32
+   and 8); the projection and the plan's pass in ``serve`` at 6m's (256
    streams of n_in 2,048 and 5,120) and 6n's (n_in 1,536 and 4,096); the
    plan's pass in ``algo1`` (reads x) and ``train_phase`` (reads no x), in
    ``serve`` at n_in 8,192 (x read from device memory), and its reduced
@@ -303,7 +334,8 @@ K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 1
              (256, 2560, 128), (512, 2560, 128), (4, 64, 128), (32, 2560, 128), (8, 64, 128),
              (256, 2048, 128), (512, 2048, 128), (256, 5120, 128), (256, 64, 128),
              (256, 1536, 128), (512, 1536, 128), (256, 4096, 128), (512, 4096, 128),
-             (32, 768, 128), (32, 1536, 128), (32, 4096, 128), (FLEET_STREAMS, 561, 256)]
+             (32, 768, 128), (32, 1536, 128), (32, 4096, 128), (32, 2048, 128),
+             (8, 5120, 128), (FLEET_STREAMS, 561, 256)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
              (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (8192, 128, 1, 6),
              (12288, 128, 1, 6), (1024, 128, 1, 6), (2048, 128, 1, 6), (3072, 128, 1, 6),
@@ -319,11 +351,16 @@ K1_BACKBONE, K2_BACKBONE = (256, 2560, 128), (256, 128, 1, 6)
 # Phase 6l's full-width training shape of the projection (B = 32 pooled rows
 # of d_model 2,560), held by phase 2 and timed by phase 7 with K3_TRAIN.
 K1_TRAIN = (32, 2560, 128)
-# The training shapes of the projection on 6o (c) and 6l (e)-(f): B = 32 pooled
-# rows of whisper-small's d_model 768, mamba2-780m's 1,536 and
-# recurrentgemma-9b's 4,096, held by phase 2 and timed by phase 7.
+# The training shapes of the projection on 6o (c), 6l (e)-(f) and 6p (b), (d):
+# B = 32 pooled rows of whisper-small's d_model 768, mamba2-780m's 1,536,
+# recurrentgemma-9b's 4,096 and deepseek-moe-16b's 2,048, and B = 8 of
+# deepseek-v2-236b's 5,120, held by phase 2 and timed by phase 7; and of the
+# one-head RLS update on 6p (k = B rows), held by phase 4 and timed by
+# phase 7.
 K1_FAMILY_TRAIN = {"encdec_train": (32, 768, 128), "ssm_train": (32, 1536, 128),
-                   "hybrid_train": (32, 4096, 128)}
+                   "hybrid_train": (32, 4096, 128), "moe_train": (32, 2048, 128),
+                   "mla_train": (8, 5120, 128)}
+K3_FAMILY_TRAIN = {"moe_train": (1, 128, 32, 6), "mla_train": (1, 128, 8, 6)}
 PLAN_BACKBONE, PLAN_WIDE = (256, 128, 6, 2560), (256, 128, 6, 8192)
 # Phase 6m's serving shapes (256 streams of deepseek-moe-16b's d_model 2,048,
 # two fused tenants 512 rows; 256 of deepseek-v2-236b's 5,120, and of its
@@ -511,6 +548,25 @@ TRAIN_FAMILIES = {"mamba2-780m": dict(tag="(e)", params=780_148_992, depth=None)
 # (c)-(d) train as 6l (b)-(c).
 ENCDEC = dict(arch="whisper-small", variant="full", params=263_864_064, batch=64, frames=1500,
               max_len=448, decode=32, bound_depth=2)
+# Phase 6p, the MoE and MLA stacks' training path: each arch at full width
+# and ``depth`` layers with ``param_dtype`` master params (deepseek-v2-236b's
+# bf16 is the reference TrainConfig's note for it), 6l (b) at ``batch`` x
+# ``seq``; deepseek-v2-236b's routed experts cut to ``experts_cut`` only if
+# its state's estimate does not fit the card's free memory.
+MOE_TRAIN = {
+    "deepseek-moe-16b": dict(tag="(b)", depth=4, params=2_770_880_512, batch=32, seq=64,
+                             param_dtype="float32"),
+    "deepseek-v2-236b": dict(tag="(d)", depth=1, params=5_020_697_600, batch=8, seq=64,
+                             param_dtype="bfloat16", experts_cut=16),
+}
+# 6p (e): the EP block on a (data, model) mesh of one card's entries, one
+# deepseek-moe-16b layer at full width on x of ``x`` (B, S); smoke-width
+# steps at ``smoke_batch`` x ``smoke_seq``.  (f): the pipeline at the
+# reference test's shapes (8 stages, 4 microbatches of 2 rows, d 16) and at
+# d 2,048.  (g): the rescale from one dev mesh to another.
+EP = dict(mesh=(2, 4), x=(8, 256), smoke_batch=8, smoke_seq=32)
+PIPE = dict(stages=8, microbatches=4, batch=2, widths=(16, 2048))
+RESCALE = dict(arch="deepseek-moe-16b", meshes=((4, 2), (2, 2)))
 # The kernels the training path launches every step.
 TRAIN_KERNELS = ("xorshift_projection", "oselm_rls_update")
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
@@ -4212,17 +4268,22 @@ def _clustered_feats(rng, n, centers, ambiguous=False):
     return feats.astype(np.float32), labels
 
 
-def _train_steps(arch, variant, device, card, tag, cfg=None, note=""):
+def _train_steps(arch, variant, device, card, tag, cfg=None, note="", tcfg=None, batch=None,
+                 seq=None, after=None):
     """6l (b) for one config (``cfg``, or ``arch``/``variant``'s):
-    ``launch.train.train`` for TRAIN's steps at its batch x seq, the
+    ``launch.train.train`` for TRAIN's steps at ``batch`` x ``seq`` (TRAIN's
+    by default) under ``tcfg`` (the default ``TrainConfig``), the
     projection and one-head RLS launches (and graph replays) counted from 0
     around it; every loss finite, every param slice moved (against the
-    seed's params drawn beforehand), the head's count equal to the queried
-    rows, each path kernel launched once (RLS) or twice (projection) a step.
-    Returns the results."""
+    seed's params drawn beforehand, in the master params' dtype), the head's
+    count equal to the queried rows, each path kernel launched once (RLS)
+    or twice (projection) a step; for an MoE stack every step's aux loss
+    finite and 0.01 aux printed.  ``after(state, cfg, tcfg)``, if given,
+    runs on the trained state before it is freed.  Returns the results."""
     import torch
 
     from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
     from repro_torch.engine import graphs
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_lib
@@ -4231,9 +4292,10 @@ def _train_steps(arch, variant, device, card, tag, cfg=None, note=""):
 
     tr = TRAIN
     cfg = cfg or configs.get_config(arch, variant)
-    b, seq, n_steps = tr["batch"], tr["seq"], tr["steps"]
+    tcfg = tcfg or TrainConfig()
+    b, seq, n_steps = batch or tr["batch"], seq or tr["seq"], tr["steps"]
     schema = model_lib.build_schema(cfg)
-    init = layers.init_params(schema, SEED, device, dtype=torch.float32)
+    init = layers.init_params(schema, SEED, device, dtype=getattr(torch, tcfg.param_dtype))
     n_params = sum(t.numel() for t in _model_leaves(init))
     before = _param_slice_sums(init, cfg)
     del init
@@ -4248,14 +4310,18 @@ def _train_steps(arch, variant, device, card, tag, cfg=None, note=""):
                       "grad_norm": float(metrics["grad_norm"]),
                       "odl_query_frac": float(metrics["odl_query_frac"]),
                       "odl_theta": float(metrics["odl_theta"]), "s": now - last[0]})
+        if cfg.n_experts:
+            steps[-1]["aux"] = float(auxes.values[-1])
         last[0] = now
 
     torch.cuda.reset_peak_memory_stats()
     graphs.reset_replay_counts()
     ops.reset_launch_counts()
     last[0] = time.perf_counter()
-    state, losses = train_lib.train(arch, variant, steps=n_steps, batch=b, seq=seq, seed=SEED,
-                                    log_every=n_steps, device=device, cfg=cfg, on_step=on_step)
+    with _AuxLog() as auxes:
+        state, losses = train_lib.train(arch, variant, steps=n_steps, batch=b, seq=seq,
+                                        seed=SEED, log_every=n_steps, device=device, cfg=cfg,
+                                        on_step=on_step, tcfg=tcfg)
     _sync(device)
     res = {"peak_bytes": torch.cuda.max_memory_allocated(), "launches": dict(ops.launch_counts),
            "replays": dict(graphs.kernel_replays), "params": n_params}
@@ -4268,6 +4334,11 @@ def _train_steps(arch, variant, device, card, tag, cfg=None, note=""):
     count = int(state.odl.elm.count)
     check(count == queried and count == int(state.odl.prune.queries),
           f"{tag}: odl count {count}, queried rows {queried}")
+    if cfg.n_experts:
+        check(len(auxes.values) == n_steps and all(math.isfinite(r["aux"]) for r in steps),
+              f"{tag}: aux losses {[r.get('aux') for r in steps]}")
+    if after is not None:
+        res.update(after(state, cfg, tcfg))
     del state
     torch.cuda.empty_cache()
     per_step = [r["s"] for r in steps]
@@ -4293,7 +4364,36 @@ def _train_steps(arch, variant, device, card, tag, cfg=None, note=""):
           f"{tokens / steady:.0f} tokens/s; allocator peak {res['peak_bytes']} bytes; model "
           f"FLOPs a step 6 x N x tokens = {flops:.3e} ({100 * res['bf16_peak_share']:.1f} % of "
           f"the bf16 dense peak, information); path kernels launched {got} ({card})")
+    if cfg.n_experts:
+        res["aux"] = [r["aux"] for r in steps]
+        print(f"  {tag} 0.01 aux per step (the MoE layers' load-balancing loss in the loss): "
+              f"{[round(0.01 * r['aux'], 6) for r in steps]}, all finite")
     return res
+
+
+class _AuxLog:
+    """While active, keeps the aux loss of every ``transformer.lm_hidden``
+    call (the MoE layers' sum; one a training step at ``microbatches`` 1),
+    detached, in ``values``."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+
+        self.values = []
+        self._saved = transformer.lm_hidden
+
+        def logged(*a, **kw):
+            hidden, aux = self._saved(*a, **kw)
+            self.values.append(aux.detach() if hasattr(aux, "detach") else aux)
+            return hidden, aux
+
+        transformer.lm_hidden = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+
+        transformer.lm_hidden = self._saved
 
 
 def _train_batch(cfg, step, b, seq, device):
@@ -4656,6 +4756,382 @@ def phase_encdec(device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6p: the MoE and MLA stacks' training path, expert parallelism and the
+# model-side mesh (models/moe.py, models/attention.py, distributed/sharding.py,
+# distributed/pipeline.py, runtime/checkpoint.py)
+# ---------------------------------------------------------------------------
+
+
+def _train_split(prof, n_steps, wall_ms):
+    """6p (b): device ms a training step of the ODL head (every kernel and
+    copy that starts inside a device-side span of ``train.head``, by name)
+    and of the backbone (every other one: the forward, the backward, which
+    autograd launches from its own thread, and AdamW), the backbone's six
+    costliest kernels, and the device busy share of the window."""
+    from torch.autograd import DeviceType
+
+    spans, work = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name == "train.head":
+            spans.append((e.time_range.start, e.time_range.end))
+        elif not e.name.startswith("train."):
+            work.append((e.name, e.time_range.start, e.time_range.end - e.time_range.start))
+    head = {"projection": 0.0, "rls": 0.0, "rest_of_head": 0.0}
+    backbone, backbone_ms = {}, 0.0
+    for name, start, dur in work:
+        if any(a <= start < b for a, b in spans):
+            part = ("projection" if "proj_kernel" in name else "rls"
+                    if "rls_single_kernel" in name else "rest_of_head")
+            head[part] += dur / 1e3 / n_steps
+        else:
+            backbone_ms += dur / 1e3 / n_steps
+            backbone[name[:80]] = backbone.get(name[:80], 0.0) + dur / 1e3 / n_steps
+    busy = sum(dur for _, _, dur in work) / 1e3
+    return {"backbone_ms": backbone_ms, "head_ms": sum(head.values()), "head": head,
+            "backbone_top": dict(sorted(backbone.items(), key=lambda kv: -kv[1])[:6]),
+            "annotated": bool(spans), "busy_ms": busy / n_steps, "wall_ms": wall_ms / n_steps,
+            "busy_share": busy / wall_ms if wall_ms else float("nan")}
+
+
+def _profile_train(state, cfg, tcfg, b, seq, device, card, tag):
+    """6p (b), (d): two ``train_step``s of the trained state in a profiler
+    window, after one more unprofiled; ``_train_split`` of the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as model_lib
+
+    batch = _train_batch(cfg, TRAIN["steps"] + 1, b, seq, device)
+    model_lib.train_step(state, batch, cfg, tcfg)
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            model_lib.train_step(state, batch, cfg, tcfg)
+        _sync(device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    sp = _train_split(prof, 2, wall_ms)
+    del prof, batch
+    torch.cuda.empty_cache()
+    if not sp["annotated"]:
+        print(f"  {tag} the split: not measured (the profiler gave no device-side span of "
+              "train.head)")
+    print(f"  {tag} a train_step at B={b}, S={seq} (2 steps profiled): device ms backbone "
+          f"{sp['backbone_ms']:.2f} (forward, backward, AdamW), ODL head {sp['head_ms']:.4f} "
+          f"(projection {sp['head']['projection']:.4f}, RLS {sp['head']['rls']:.4f}, the rest "
+          f"of the head {sp['head']['rest_of_head']:.4f}); device busy {sp['busy_ms']:.2f} of "
+          f"{sp['wall_ms']:.2f} ms wall ({100 * sp['busy_share']:.1f} %) ({card})")
+    print(f"      the backbone's six costliest kernels, device ms a step: "
+          + "; ".join(f"{name} {v:.3f}" for name, v in sp["backbone_top"].items()))
+    return {"profile": sp}
+
+
+def _moe_train_arch(arch, mt, device, card):
+    """6p (a)-(b) or (d): ``arch`` at full width and ``mt["depth"]`` layers
+    with ``mt["param_dtype"]`` master params: the TrainState built on the
+    card and counted, then 6l (b) at ``mt``'s batch x seq with its aux
+    losses, and two steps profiled.  With ``experts_cut`` the routed experts
+    are cut to that many where the state's estimate does not fit the card's
+    free memory."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+
+    tcfg = TrainConfig(param_dtype=mt["param_dtype"])
+    full = configs.get_config(arch, "full")
+    cfg = full.replace(n_layers=mt["depth"])
+    # Bytes a parameter: params and gradients in the master params' dtype,
+    # m and v in f32.
+    width = 4 if tcfg.param_dtype == "float32" else 2
+    per_param = 2 * width + 8
+    schema = model_lib.build_schema(cfg)
+    n = layers.count_params(schema)
+    largest = max(math.prod(leaf.shape) for _, leaf in layers._iter_leaves(schema))
+    free, total = torch.cuda.mem_get_info()
+    estimate = per_param * n + 3 * 4 * largest  # + the draw of the largest leaf in f32, twice
+    cut = ""
+    if "experts_cut" in mt and estimate > free:
+        cfg = cfg.replace(n_experts=mt["experts_cut"])
+        cut = (f"; routed experts {full.n_experts} -> {mt['experts_cut']}: the estimate "
+               f"{estimate} bytes exceeds the {free} free")
+        n = layers.count_params(model_lib.build_schema(cfg))
+    else:
+        check(n == mt["params"], f"{arch}: {n} parameters at depth {mt['depth']}")
+    note = (f" at {mt['depth']} of its {full.n_layers} layers (reduced: depth {full.n_layers} "
+            f"-> {mt['depth']}, one card{cut}), {tcfg.param_dtype} master params")
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = model_lib.init_train_state(cfg, SEED, tcfg, device)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    after_build = torch.cuda.memory_allocated()
+    built = sum(t.numel() for t in _model_leaves(state.params))
+    check(built == n, f"{arch}: {built} params built, schema {n}")
+    held = after_build - before
+    state_bytes = (per_param - width) * n
+    check(held >= state_bytes, f"{arch}: {held} bytes after the build against {state_bytes}")
+    del state
+    torch.cuda.empty_cache()
+    tag = mt["tag"]
+    build_tag = "(a)" if tag == "(b)" else tag
+    print(f"  {build_tag} {arch} full{note}: {built} parameters "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{'MLA' if cfg.use_mla else 'GQA'} attention, {cfg.n_experts} routed experts top-"
+          f"{cfg.top_k} of d_ff {cfg.d_ff_expert} + {cfg.n_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}); the TrainState built on the card in {build_s:.2f} s, allocator "
+          f"{after_build} bytes after the build ({held} for it; params, m and v "
+          f"{state_bytes}); estimate with the gradients {per_param} x N = {per_param * n} "
+          f"bytes; card memory {free} free of {total} ({card})")
+    res = _train_steps(arch, "full", device, card, tag, cfg=cfg, note=note, tcfg=tcfg,
+                       batch=mt["batch"], seq=mt["seq"],
+                       after=lambda st, c, t: _profile_train(st, c, t, mt["batch"], mt["seq"],
+                                                             device, card, tag))
+    res.update(params=built, build_s=build_s, allocated_after_build=after_build,
+               estimate=per_param * n, cut=cut)
+    return res
+
+
+def _entry(device):
+    """The mesh entry of 6p's meshes: the card's first device."""
+    return "cuda:0" if device == "cuda" else device
+
+
+def _rows_repeated(batch):
+    """``batch`` with every row the first row's."""
+    return {k: v[:1].expand_as(v).contiguous() for k, v in batch.items()}
+
+
+def _moe_ep(device, card):
+    """6p (e): ``moe_block_ep`` on a (data, model) dev mesh of one card's
+    entries against the dense block, in f32 with TF32 off; each token
+    shard's dropped pairs at the default capacity; both blocks timed; two
+    smoke-width ``train_step``s through it against the meshless ones."""
+    import torch
+
+    from repro_torch import configs, convert
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers, moe
+    from repro_torch.models import model as model_lib
+
+    d_, m_ = EP["mesh"]
+    mesh = mesh_lib.make_dev_mesh(d_, m_, devices=[_entry(device)] * (d_ * m_))
+    cfg = configs.get_config("deepseek-moe-16b", "full")
+    nodrop = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    b, s = EP["x"]
+    t = b * s
+    p = layers.init_params(moe.moe_schema(cfg), SEED, device, dtype=torch.float32)
+    x = torch.randn((b, s, cfg.d_model), generator=_gen(device, SEED + 21), device=device)
+    tok_axes, n_split, t_loc, cap = moe.ep_layout(t, nodrop, mesh)
+    check(tok_axes == ("data", "model") and n_split == d_ * m_, f"ep (e): layout {tok_axes}")
+    y_dense, aux_dense = moe._moe_block_dense(x, p, nodrop)
+    y_ep, aux_ep = moe.moe_block_ep(x, p, nodrop, mesh)
+    shards = x.reshape(n_split, t_loc, -1)
+    aux_shards = torch.stack([moe.route(xs, p["router"], nodrop)[3] for xs in shards]).mean()
+    err = float((y_ep - y_dense).abs().max() / y_dense.abs().max())
+    aux_err = abs(float(aux_ep) - float(aux_shards)) / abs(float(aux_shards))
+    aux_vs_dense = abs(float(aux_ep) - float(aux_dense)) / abs(float(aux_dense))
+    check(err <= 1e-5 and aux_err <= 1e-6 and aux_vs_dense <= 0.05,
+          f"ep (e): y {err}, aux against the shards' mean {aux_err}, against dense "
+          f"{aux_vs_dense}")
+    del y_dense, y_ep
+    # The default capacity: each token shard's dropped pairs.
+    _, _, _, cap_d = moe.ep_layout(t, cfg, mesh)
+    drops = [int((~moe.dispatch_slots(moe.route(xs, p["router"], cfg)[2], cfg.n_experts,
+                                      cap_d)[2]).sum()) for xs in shards]
+    dense_drop = int((~moe.dispatch_slots(moe.route(x.reshape(t, -1), p["router"], cfg)[2],
+                                          cfg.n_experts, moe._capacity(cfg, t))[2]).sum())
+    ep_ms = _call_ms(lambda: moe.moe_block_ep(x, p, cfg, mesh))
+    dense_ms = _call_ms(lambda: moe._moe_block_dense(x, p, cfg))
+    del p, x, shards
+    torch.cuda.empty_cache()
+    print(f"  (e) moe_block_ep on a {d_} x {m_} (data, model) mesh of cuda:0 entries, one "
+          f"deepseek-moe-16b layer at full width, x ({b}, {s}, {cfg.d_model}) f32, TF32 off: at "
+          f"capacity factor {nodrop.capacity_factor:.2f} (E/k: nothing drops) y within "
+          f"{err:.2e} of max |y| of the dense block's (<= 1e-5); aux {float(aux_ep):.6f}, the "
+          f"mean of the {n_split} token shards' aux losses within {aux_err:.1e} (<= 1e-6; the "
+          f"reference's pmean), the whole batch's {float(aux_dense):.6f} within rtol "
+          f"{aux_vs_dense:.4f} (the reference test's 0.05); at the default "
+          f"{cfg.capacity_factor}: capacity {cap_d} a shard, pairs dropped per token shard "
+          f"{drops} of {t_loc * cfg.top_k} (the dense block over all {t} tokens drops "
+          f"{dense_drop}); block ms (CUDA events around single calls, median of 5) EP "
+          f"{ep_ms:.2f}, dense {dense_ms:.2f}: one card, {d_ * m_} mesh entries, the exchanges "
+          f"device-local, not a multi-GPU time ({card})")
+
+    # Two smoke-width train_steps through the EP block, against the meshless.
+    scfg = configs.get_config("deepseek-moe-16b", "smoke")
+    scfg = scfg.replace(moe_impl="ep", capacity_factor=scfg.n_experts / scfg.top_k)
+    host = convert.train_state_to_numpy(model_lib.init_train_state(scfg, SEED, TrainConfig(),
+                                                                   device))
+    meshed, plain = (convert.train_state_from_numpy(host, scfg, device) for _ in range(2))
+    losses = []
+    for step in (1, 2):
+        batch = _rows_repeated(_train_batch(scfg, step, EP["smoke_batch"], EP["smoke_seq"],
+                                            device))
+        with sharding.activate(mesh):
+            meshed, m_ep = model_lib.train_step(meshed, batch, scfg)
+        plain, m_plain = model_lib.train_step(plain, batch, scfg)
+        for key in ("loss", "grad_norm"):
+            a, b_ = float(m_ep[key]), float(m_plain[key])
+            check(abs(a - b_) <= 1e-5 * abs(b_), f"ep (e): step {step} {key} {a} against {b_}")
+        losses.append((float(m_ep["loss"]), float(m_plain["loss"])))
+    worst = max(float((a - b_).abs().max()) for a, b_ in
+                zip(_model_leaves(meshed.params), _model_leaves(plain.params)))
+    check(worst <= 1e-5, f"ep (e): params after two steps differ by {worst}")
+    print(f"  (e) two smoke-width train_steps (B={EP['smoke_batch']}, S={EP['smoke_seq']}, one "
+          f"sequence repeated, so that every token shard routes alike and the shards' mean aux "
+          f"is the batch's; capacity factor E/k) with moe_impl='ep' under the mesh against the "
+          f"same steps without it, f32: losses {losses} within 1e-5; params within {worst:.1e} "
+          f"(<= 1e-5)")
+    return {"err": err, "aux_err": aux_err, "aux_vs_dense": aux_vs_dense, "drops": drops,
+            "dense_drop": dense_drop, "ep_ms": ep_ms, "dense_ms": dense_ms,
+            "train_params_err": worst}
+
+
+def _pipeline_check(device, card):
+    """6p (f): ``pipeline_forward`` on a ("stage",) mesh of cuda:0 entries
+    against ``sequential_reference``, f32 with TF32 off."""
+    import torch
+
+    from repro_torch.distributed import pipeline
+    from repro_torch.launch import mesh as mesh_lib
+
+    n, m, b = PIPE["stages"], PIPE["microbatches"], PIPE["batch"]
+    mesh = mesh_lib.make_mesh((n,), ("stage",), devices=[_entry(device)] * n)
+    errs = {}
+    for d in PIPE["widths"]:
+        gen = _gen(device, SEED + 22 + d)
+        h = torch.randn((m, b, d), generator=gen, device=device)
+        w = torch.randn((n, d, d), generator=gen, device=device) / math.sqrt(d)
+
+        def stage_fn(x, p):
+            return torch.tanh(x @ p["w"])
+
+        got = pipeline.pipeline_forward(h, {"w": w}, stage_fn, mesh)
+        want = pipeline.sequential_reference(h, {"w": w}, stage_fn, n)
+        errs[d] = float((got - want).abs().max())
+        check(tuple(got.shape) == (m, b, d) and errs[d] <= 1e-5, f"pipeline (f): d {d}, "
+                                                                  f"max |diff| {errs[d]}")
+    frac = pipeline.bubble_fraction(n, m)
+    check(frac == 7 / 11, f"pipeline (f): bubble fraction {frac}")
+    print(f"  (f) pipeline_forward on a ('stage',) mesh of {n} cuda:0 entries, {m} microbatches "
+          f"of {b} rows, {n + m - 1} ticks: against sequential_reference max |diff| "
+          + ", ".join(f"{v:.1e} at d {d}" for d, v in errs.items())
+          + f" (<= 1e-5); bubble fraction {frac:.4f} = 7/11 ({card})")
+    return errs
+
+
+def _rescale_check(device, card):
+    """6p (g): smoke params ``reshard_tree``d onto one dev mesh of cuda:0
+    entries, saved, and ``rescale``d onto another: every shard bit for bit
+    the slice its placement names, on its entry."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime import checkpoint
+
+    schema = model_lib.build_schema(configs.get_config(RESCALE["arch"], "smoke"))
+    params = layers.init_params(schema, SEED, device)
+    (da, ma), (db, mb) = RESCALE["meshes"]
+    mesh_a = mesh_lib.make_dev_mesh(da, ma, devices=[_entry(device)] * (da * ma))
+    mesh_b = mesh_lib.make_dev_mesh(db, mb, devices=[_entry(device)] * (db * mb))
+
+    def slices_hold(tree, mesh, what):
+        n_shards = split = 0
+        for (path, sh), (_, whole) in zip(checkpoint._flatten(tree), checkpoint._flatten(params),
+                                          strict=True):
+            check(isinstance(sh, sharding.Sharded) and sh.placement.mesh == mesh, f"{what} {path}")
+            index_map = sh.placement.indices_map(tuple(whole.shape))
+            split += any(s != slice(None) for s in next(iter(index_map.values())))
+            for pos, index in index_map.items():
+                shard = sh.shards[pos]
+                check(shard.device == torch.device(_entry(device))
+                      and torch.equal(shard, whole[index]),
+                      f"{what}: {path} at {pos} is not the slice its placement names")
+                n_shards += 1
+        return n_shards, split
+
+    with sharding.activate(mesh_a):
+        specs = layers.param_specs(schema)
+    placed = checkpoint.reshard_tree(params, mesh_a, specs)
+    shards_a, split_a = slices_hold(placed, mesh_a, "rescale (g) before")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_rescale_"))
+    try:
+        mgr = checkpoint.CheckpointManager(str(tmp), keep=1)
+        mgr.save(1, placed)
+        step, restored = checkpoint.rescale(mgr, schema, mesh_b)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(step == 1, f"rescale (g): restored step {step}")
+    shards_b, split_b = slices_hold(restored, mesh_b, "rescale (g) after")
+    leaves = sum(1 for _ in _model_leaves(params))
+    print(f"  (g) {RESCALE['arch']} smoke params ({leaves} leaves) reshard_tree'd onto a "
+          f"{da} x {ma} mesh of cuda:0 entries ({shards_a} shards, {split_a} leaves split), "
+          f"saved, and rescale'd onto {db} x {mb} ({shards_b} shards, {split_b} leaves split): "
+          f"every shard bit for bit the slice its placement names, on its entry ({card})")
+    return {"shards": [shards_a, shards_b], "split": [split_a, split_b]}
+
+
+def phase_moe_train(device="cuda"):
+    """6p: the MoE and MLA stacks' training path, expert parallelism, the
+    pipeline and the rescale (see the module docstring)."""
+    import torch
+
+    from repro_torch.models import layers
+
+    t_phase = time.perf_counter()
+    card = _card()
+    torch.cuda.empty_cache()
+    res = {"allocated_before": torch.cuda.memory_allocated()}
+    print(f"moe training (6p: deepseek-moe-16b and deepseek-v2-236b at full width, cut in "
+          f"depth; expert parallelism, the pipeline and the rescale on meshes of cuda:0 "
+          f"entries) on {card}: {res['allocated_before']} bytes allocated before it")
+    with _ShapeLog() as log:
+        arch = "deepseek-moe-16b"
+        res[arch] = _moe_train_arch(arch, MOE_TRAIN[arch], device, card)
+        for arch in MOE_TRAIN:
+            _train_replay_resume(arch, device, "(c)")
+        arch = "deepseek-v2-236b"
+        res[arch] = _moe_train_arch(arch, MOE_TRAIN[arch], device, card)
+        saved = (layers.COMPUTE_DTYPE, torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        layers.COMPUTE_DTYPE = torch.float32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            res["ep"] = _moe_ep(device, card)
+            res["pipeline"] = _pipeline_check(device, card)
+        finally:
+            (layers.COMPUTE_DTYPE, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+        res["rescale"] = _rescale_check(device, card)
+    missing = log.missing()
+    check(not missing, f"moe training: shapes phases 2-4 did not hold: {missing}")
+    res["shapes"] = {k: sorted(v) for k, v in log.shapes.items() if v}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  kernel shapes on 6p's path, each held in phases 2-4: {res['shapes']}")
+    for arch, mt in MOE_TRAIN.items():
+        r = res[arch]
+        print(f"  kernels on 6p's main path {mt['tag']} (launches + replays): "
+              + str({k: r['launches'].get(k, 0) + r['replays'].get(k, 0) for k in TRAIN_KERNELS}))
+    print(f"  phase 6p took {res['seconds']:.1f} s ({card})")
+    return res
+
+
 def _device_ms(fn, reps=20, rounds=3):
     """Device time of one call of ``fn``: CUDA events around a batch of
     calls, the median of ``rounds`` batches.  A sleep kernel keeps the card
@@ -5004,6 +5480,19 @@ def phase_times(device="cuda"):
                 peak_flops=PEAK_TF32_FLOPS))),
         )
         del x, alpha
+    # The one-head RLS update at 6p's training shapes (k = 32 and 8 rows).
+    for key, (s, n, k, m) in K3_FAMILY_TRAIN.items():
+        P, beta, H, Y = (a[0] for a in _rls_inputs(s, n, k, m, device, SEED + 18 + k))
+        by_name["oselm_rls_update"][key] = dict(
+            shape=[s, n, k, m],
+            ms=_device_ms(lambda: ops.oselm_rls_update(P, beta, H, Y)),
+            plain_ms=_device_ms(lambda: ref.rls_update_ref(P[None], beta[None], H[None],
+                                                           Y[None]), reps=PLAIN_REPS),
+            library_ms=_device_ms(lambda: _rls_composite(P[None], beta[None], H[None], Y[None]),
+                                  reps=PLAIN_REPS),
+            **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))),
+        )
+        del P, beta, H, Y
     # The MoE archs' serving shapes (phase 6m): 256 streams of
     # deepseek-moe-16b's d_model 2,048 and of deepseek-v2-236b's 5,120.
     for key, (b, n_in, n), plan, seed in (("moe", K1_MOE, PLAN_MOE, SEED + 14),
@@ -5054,7 +5543,9 @@ def phase_times(device="cuda"):
                      "ssm": "mamba2-780m serve", "hybrid": "recurrentgemma-9b serve",
                      "encdec_train": "whisper-small training",
                      "ssm_train": "mamba2-780m training",
-                     "hybrid_train": "recurrentgemma-9b training"}[key]
+                     "hybrid_train": "recurrentgemma-9b training",
+                     "moe_train": "deepseek-moe-16b training",
+                     "mla_train": "deepseek-v2-236b training"}[key]
             print(f"time {name} at the backbone's {where} "
                   f"shape {w['shape']}: kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
@@ -5214,6 +5705,7 @@ def main(argv=None) -> int:
     moe = phase_moe()
     recurrent = phase_recurrent()
     encdec_res = phase_encdec()
+    moe_train = phase_moe_train()
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -5310,6 +5802,12 @@ def main(argv=None) -> int:
             "ssm_train_replays": trained["ssm"]["replays"].get(name, 0),
             "hybrid_train_launches": trained["hybrid"]["launches"].get(name, 0),
             "hybrid_train_replays": trained["hybrid"]["replays"].get(name, 0),
+            # The MoE and MLA stacks' training paths (phase 6p (b) and (d)),
+            # each counted from 0 around its launch.train.train run.
+            "moe_train_launches": moe_train["deepseek-moe-16b"]["launches"].get(name, 0),
+            "moe_train_replays": moe_train["deepseek-moe-16b"]["replays"].get(name, 0),
+            "mla_train_launches": moe_train["deepseek-v2-236b"]["launches"].get(name, 0),
+            "mla_train_replays": moe_train["deepseek-v2-236b"]["replays"].get(name, 0),
             # The MoE archs' serving path (phase 6m, (a)-(f)): eager launches
             # and graph replays in this process, and, apart, in its two
             # workers (summed from their own scrapes).
@@ -5353,8 +5851,9 @@ def main(argv=None) -> int:
             # Phase 7 at 6n's serving shapes (n_in 1,536 and 4,096), where timed.
             "ssm": t.get("ssm"),
             "hybrid": t.get("hybrid"),
-            # Phase 7 at 6o (c)'s and 6l (e)-(f)'s training shapes (n_in 768,
-            # 1,536 and 4,096), where timed.
+            # Phase 7 at 6o (c)'s, 6l (e)-(f)'s and 6p (b), (d)'s training
+            # shapes (n_in 768, 1,536, 4,096, 2,048 and 5,120; the RLS update
+            # at k = 32 and 8), where timed.
             **{key: t.get(key) for key in K1_FAMILY_TRAIN},
             "ok": True,
         })

@@ -44,8 +44,8 @@ class ModelConfig:
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
     # 'dense': scatter-dispatch; 'ep': explicit expert parallelism with
-    # all-to-all dispatch (the reference's two MoE implementations; the
-    # port runs 'ep' as 'dense', having no mesh with a 'model' axis).
+    # all-to-all dispatch under a mesh with a 'model' axis (dense without
+    # one), the reference's two MoE implementations.
     moe_impl: str = "dense"
 
     # --- MLA (deepseek-v2) ---

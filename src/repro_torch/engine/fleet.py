@@ -537,14 +537,12 @@ def split_fleet(
     ``n_shards`` (default: the current mesh's fleet-axis size, 1 with no
     mesh), divide each shard into ``block``-stream blocks (default
     ``DEFAULT_STREAM_BLOCK``, capped at the shard width), and put shard k's
-    blocks on ``devices[k]`` (default: the current mesh's devices, else the
-    fleet's own device).  Every block owns its tensors."""
+    blocks on ``devices[k]`` (default: the current mesh's
+    ``fleet_devices()``, else the fleet's own device).  Every block owns its tensors."""
     if n_shards is None:
         n_shards = sharding.fleet_axis_size()
     if devices is None:
-        mesh = sharding.mesh_or_none()
-        if mesh is not None:
-            devices = list(mesh.devices)
+        devices = sharding.fleet_devices()
     if devices is not None and len(devices) < n_shards:
         raise ValueError(f"{n_shards} shards > {len(devices)} devices")
     s = state.elm.P.shape[0]

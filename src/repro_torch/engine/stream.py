@@ -1148,8 +1148,8 @@ class ShardedStreamSession:
     windows of one full-width tick source.
 
     Everything per tick is shard-local: shard k's state rows live on
-    ``devices[k]`` (the current mesh's devices, or the fleet's own device);
-    its plan and learn dispatches, pending ring, backpressure state and
+    ``devices[k]`` (the current mesh's ``fleet_devices()``, or the fleet's
+    own device); its plan and learn dispatches, pending ring, backpressure state and
     teacher cover only rows ``[k*width, (k+1)*width)``; and a label learns
     back only into the shard that planned the query.  Each shard gets a
     row window of the incoming tick (a view for a shard with no padding).
@@ -1189,9 +1189,7 @@ class ShardedStreamSession:
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         if devices is None:
-            mesh = sharding.mesh_or_none()
-            if mesh is not None:
-                devices = list(mesh.devices)
+            devices = sharding.fleet_devices()
         if devices is not None and len(devices) < n_shards:
             raise ValueError(f"{n_shards} shards > {len(devices)} devices")
         if hasattr(teachers, "tenant"):

@@ -1,40 +1,66 @@
-"""Device meshes (PyTorch counterpart of ``repro/launch/mesh.py``'s fleet
-mesh).
+"""Device meshes (PyTorch counterpart of ``repro/launch/mesh.py``): the
+fleet mesh, the small (data, model) mesh of the model side, and a mesh of
+any axes (the pipeline's ``("stage",)``).
 
-``make_fleet_mesh`` is a function, not a module constant, so importing this
-module touches no device.
+Each is a function, not a module constant, so importing this module
+touches no device.  ``make_production_mesh`` (the 256- and 512-chip pods)
+is not here yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.distributed.sharding import FleetMesh
+from repro_torch.distributed.sharding import Mesh
 
 
-def make_fleet_mesh(n: int = 0, devices: Optional[Sequence] = None) -> FleetMesh:
-    """1-D ``("fleet",)`` mesh over the first ``n`` entries of ``devices``
-    (``n <= 0``: all of them).
-
-    ``devices`` defaults to every visible CUDA device; without one it
-    raises unless the caller names devices.  An explicit list may repeat a
-    device (``["cuda:0"] * 4``: four shards on one card) or name the CPU
-    (``["cpu"] * 8``), the port's counterpart of the JAX package's
-    ``--xla_force_host_platform_device_count``.  ``n`` greater than the
-    list raises, as in the reference.
-    """
+def _visible(devices: Optional[Sequence], what: str) -> list:
+    """``devices`` as ``torch.device``s (default: every visible CUDA device;
+    without one it raises unless the caller names devices)."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "make_fleet_mesh: no CUDA device is visible; name the devices "
+                f"{what}: no CUDA device is visible; name the devices "
                 "(devices=['cpu'] * n) to build a mesh on the CPU")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    devices = [torch.device(d) for d in devices]
-    avail = len(devices)
+    return [torch.device(d) for d in devices]
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A mesh of ``shape`` over axes ``axes`` on the first prod(shape)
+    entries of ``devices``, row-major (the reference's ``_make_mesh``).
+
+    ``devices`` defaults to every visible CUDA device; without one it
+    raises unless the caller names devices.  An explicit list may repeat a
+    device (``["cuda:0"] * 8``: eight entries on one card) or name the CPU
+    (``["cpu"] * 8``), the port's counterpart of the JAX package's
+    ``--xla_force_host_platform_device_count``."""
+    shape = tuple(int(n) for n in shape)
+    devices = _visible(devices, "make_mesh")
+    if math.prod(shape) > len(devices):
+        raise ValueError(f"a mesh of {shape} needs {math.prod(shape)} entries > "
+                         f"{len(devices)} visible devices")
+    return Mesh(tuple(devices[:math.prod(shape)]), tuple(axes), shape)
+
+
+def make_dev_mesh(data: int = 2, model: int = 2, devices: Optional[Sequence] = None) -> Mesh:
+    """A small ``("data", "model")`` mesh (the reference's CPU multi-device
+    tests use (2, 4), (4, 2) and (2, 2)), with ``make_mesh``'s device
+    rules."""
+    return make_mesh((data, model), ("data", "model"), devices)
+
+
+def make_fleet_mesh(n: int = 0, devices: Optional[Sequence] = None) -> Mesh:
+    """1-D ``("fleet",)`` mesh over the first ``n`` entries of ``devices``
+    (``n <= 0``: all of them), with ``make_mesh``'s device rules; ``n``
+    greater than the list raises, as in the reference."""
+    devices = _visible(devices, "make_fleet_mesh")
     if n <= 0:
-        n = avail
-    if n > avail:
-        raise ValueError(f"mesh-fleet {n} > {avail} visible devices")
-    return FleetMesh(tuple(devices[:n]))
+        n = len(devices)
+    if n > len(devices):
+        raise ValueError(f"mesh-fleet {n} > {len(devices)} visible devices")
+    return Mesh(tuple(devices[:n]))

@@ -1,10 +1,10 @@
 """Training driver: data pipeline -> train_step -> checkpoint/restart
 (PyTorch counterpart of ``repro/launch/train.py``).
 
-Runs the dense, SSD and hybrid backbones and the encoder-decoder (whisper,
-fed the reference's stubbed frames: standard normal (B, S, d_model) f32
-drawn from ``step``) on the card (or the CPU with ``--device cpu``, at smoke
-width).  Fault tolerance as in the reference: async keep-3
+Runs every backbone: the dense, MoE (GQA and MLA attention), SSD and
+hybrid stacks and the encoder-decoder (whisper, fed the reference's
+stubbed frames: standard normal (B, S, d_model) f32 drawn from ``step``),
+on the card (or the CPU with ``--device cpu``, at smoke width).  Fault tolerance as in the reference: async keep-3
 checkpoints every ``ckpt_every`` steps, a NaN guard that rolls back to the
 last good checkpoint and skips the offending batch, and deterministic
 seekable data (``TokenStream.batch(step)``), so a run restored at step N
@@ -59,15 +59,17 @@ def train(
     device=None,
     cfg: ModelConfig | None = None,
     on_step=None,
+    tcfg: TrainConfig | None = None,
 ):
     """Train ``arch``/``variant`` (or ``cfg``, a config given outright) for
     ``steps`` steps on ``device`` (CUDA unless named); returns (state,
-    losses of the steps this call ran).  A ``ckpt_dir`` that holds a
-    checkpoint resumes from its latest step.  ``on_step(step, metrics)``,
+    losses of the steps this call ran).  ``tcfg`` replaces the default
+    ``TrainConfig(microbatches=microbatches)`` (bf16 master params, say).
+    A ``ckpt_dir`` that holds a checkpoint resumes from its latest step.  ``on_step(step, metrics)``,
     if given, is called after every step that was kept."""
     device = resolve_device(device)
     cfg = cfg or configs.get_config(arch, variant)
-    tcfg = TrainConfig(microbatches=microbatches)
+    tcfg = tcfg or TrainConfig(microbatches=microbatches)
     stream = TokenStream(
         TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
                           n_domains=cfg.odl.n_out, seed=seed)

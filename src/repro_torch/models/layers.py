@@ -2,8 +2,10 @@
 (PyTorch counterpart of ``repro/models/layers.py``).
 
 Params are plain nested dicts of tensors.  Every leaf is declared once via
-``Leaf(shape, axes, init)``; ``init_params`` materializes a schema, and
-``count_params`` counts it, from that one declaration.
+``Leaf(shape, axes, init)``; ``init_params`` materializes a schema,
+``count_params`` counts it, ``abstract_params`` gives its shapes on the
+meta device, and ``param_specs`` its layout on the current mesh
+(``distributed.sharding``), all from that one declaration.
 
 Numerics follow the reference: activations in bf16 (``COMPUTE_DTYPE``),
 norms computed in f32 on f32 weights, rotary embeddings in f32.  A serving
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding
 
 # ---------------------------------------------------------------------------
 # Param schema
@@ -116,6 +119,54 @@ def init_params(
         dt = dtype(leaf) if callable(dtype) else dtype
         sub[path[-1]] = leaf.initializer(gen, device, dt)
     return out
+
+
+_BIG = 1 << 20  # params above this get the ensure-model-sharded post-pass
+_FSDP = 1 << 22  # params above this are additionally FSDP-sharded over data
+
+
+def _leaf_spec(leaf: Leaf) -> sharding.PartitionSpec:
+    """The leaf's layout under the current mesh, by the reference's rules:
+    its logical axes resolved at its shape; past ``_BIG`` elements 'model'
+    is put on a divisible dim if the axes gave it none, past ``_FSDP``
+    'data' too (ZeRO-3).  An embedding table keeps its natural 'vocab'
+    rule alone."""
+    spec = sharding.resolve(*leaf.axes, shape=leaf.shape)
+    if leaf.init == "embed":
+        return spec
+    n = int(np.prod(leaf.shape))
+    if n >= _BIG:
+        spec = sharding.ensure_axis_sharded(spec, leaf.shape, "model")
+    if n >= _FSDP:
+        spec = sharding.ensure_axis_sharded(spec, leaf.shape, "data")
+    return spec
+
+
+def _tree_of(schema, fn) -> dict:
+    out: dict = {}
+    for path, leaf in _iter_leaves(schema):
+        sub = out
+        for k in path[:-1]:
+            sub = sub.setdefault(k, {})
+        sub[path[-1]] = fn(leaf)
+    return out
+
+
+def param_specs(schema) -> dict:
+    """A ``PartitionSpec`` per leaf under the current mesh, in the schema's
+    structure."""
+    return _tree_of(schema, _leaf_spec)
+
+
+def abstract_params(schema, dtype: torch.dtype = torch.float32):
+    """(meta-device tensors of the schema's shapes in ``dtype``, and under
+    a mesh the matching tree of ``Placement``s, else None): the leaves'
+    shapes and layouts with nothing allocated."""
+    params = _tree_of(schema, lambda leaf: torch.empty(leaf.shape, dtype=dtype, device="meta"))
+    mesh = sharding.mesh_or_none()
+    if mesh is None:
+        return params, None
+    return params, _tree_of(schema, lambda leaf: sharding.Placement(mesh, _leaf_spec(leaf)))
 
 
 def stack_schema(schema, n: int, axis_name: str = "layers"):

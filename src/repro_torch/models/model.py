@@ -9,12 +9,13 @@ RLS kernel on the card) and costs no label.  The head takes no gradient.
 Master params are f32 (``TrainConfig.param_dtype``); the backbone computes
 in bf16, as the reference does.  The step writes the new params and moments
 into the ``TrainState`` it is given (the reference's jitted step donates
-it): a caller that needs the old state clones it first.  Dense, MoE (GQA or
-MLA attention), SSD and hybrid RG-LRU stacks serve; the dense, SSD and
-hybrid stacks and the encoder-decoder (whisper) train, the MoE and MLA ones
-not yet (``require_trainable``).  The encoder-decoder serves through
-``encdec_prefill`` and ``encdec.decode_step``, as the reference's does: the
-decoder-only serving entry points below raise for it.
+it): a caller that needs the old state clones it first.  Dense, MoE (GQA
+or MLA attention), SSD and hybrid RG-LRU stacks and the encoder-decoder
+(whisper) serve and train; an MoE stack's loss adds 0.01 times its
+layers' load-balancing aux loss, as the reference's does.  The
+encoder-decoder serves through ``encdec_prefill`` and
+``encdec.decode_step``, as the reference's does: the decoder-only serving
+entry points below raise for it.
 
 Every backbone carries the paper's ODL head: ``serve_step`` decodes one
 token, then the fleet engine's ``gate`` runs on each stream's last hidden
@@ -64,15 +65,6 @@ def stacked_names(cfg: ModelConfig) -> list:
     stack; ``enc_layers`` and ``dec_layers`` for the encoder-decoder."""
     return [name for name, sub in build_schema(cfg).items() if isinstance(sub, dict)
             and next(leaf for _, leaf in layers._iter_leaves(sub)).axes[0] == "layers"]
-
-
-def require_trainable(cfg: ModelConfig) -> None:
-    """Raise for the stacks the port serves but cannot train yet: MoE (the
-    aux loss and routing in the step) and MLA."""
-    if cfg.n_experts or cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training MoE and MLA stacks is not ported yet; ROADMAP Queue 1 "
-            "item 6.6 lists it next")
 
 
 def elm_config(cfg: ModelConfig) -> oselm.OSELMConfig:
@@ -130,7 +122,6 @@ def init_train_state(cfg: ModelConfig, seed: int = 0, tcfg: TrainConfig = TrainC
                      device=None) -> TrainState:
     """Master params in ``tcfg.param_dtype`` (f32 by default) drawn from
     ``seed`` on ``device`` (CUDA unless named), zero moments, a fresh head."""
-    require_trainable(cfg)
     device = resolve_device(device)
     params = layers.init_params(build_schema(cfg), seed, device,
                                 dtype=getattr(torch, tcfg.param_dtype))
@@ -167,7 +158,6 @@ def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, remat: bool = Tr
     layer's gradient is added into place: a stacked leaf's gradient is
     never assembled from per-layer copies (at full width a layer-stacked
     leaf is 3.6 GB in f32)."""
-    require_trainable(cfg)
     names = stacked_names(cfg)
     grads, inputs = {}, {}
     for name in names:
@@ -279,12 +269,14 @@ def train_step(
     encoder-decoder] + odl_labels (B,), tensors on the state's device.  The
     gradients are ``accumulate_grads``'s; the head trains on all B rows'
     features at once.  The params and moments of ``state`` are updated in
-    place.
+    place.  The backbone's step and the head's update run under the
+    profiler ranges ``train.backbone`` and ``train.head``.
     """
-    require_trainable(cfg)
-    loss, feats, grads = accumulate_grads(state.params, batch, cfg, tcfg)
-    new_params, new_opt, gnorm = adam.update(grads, state.opt, state.params, tcfg)
-    new_odl, odl_metrics = odl_update(state.odl, feats, batch["odl_labels"], cfg)
+    with torch.profiler.record_function("train.backbone"):
+        loss, feats, grads = accumulate_grads(state.params, batch, cfg, tcfg)
+        new_params, new_opt, gnorm = adam.update(grads, state.opt, state.params, tcfg)
+    with torch.profiler.record_function("train.head"):
+        new_odl, odl_metrics = odl_update(state.odl, feats, batch["odl_labels"], cfg)
     metrics = {"loss": loss, "grad_norm": gnorm, **odl_metrics}
     return TrainState(params=new_params, opt=new_opt, odl=new_odl), metrics
 

@@ -27,14 +27,19 @@ The capacity is a Python int of the shapes, and nothing here reads a value
 back to the host, so a decode step with MoE layers captures as one CUDA
 graph.
 
-``moe_impl="ep"`` runs the explicit expert-parallel block only under a mesh
-with a ``"model"`` axis, as the reference does; the port's only mesh
-(``distributed.sharding.FleetMesh``) has none, so it always runs the dense
-block.  The EP block itself is ROADMAP Queue 1 item 6.5, with the
-model-axis mesh it needs.
+``moe_impl="ep"`` runs the explicit expert-parallel block
+(``moe_block_ep``) under a mesh with a ``"model"`` axis, as the reference
+does: each token shard routes and dispatches its own tokens, an exchange
+over ``"model"`` sends every expert's capacity buffers to the mesh entry
+that holds the expert, the expert products run there on the local experts'
+weights, and the reverse exchange brings the rows back for the combine.
+The exchanges are explicit tensor moves between mesh entries
+(``distributed.sharding``).  Without such a mesh it runs the dense block.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -73,9 +78,7 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig):
     """x: (B, S, d) -> (y, aux_loss).  Dispatches on cfg.moe_impl."""
     mesh = sharding.mesh_or_none()
     if cfg.moe_impl == "ep" and mesh is not None and "model" in mesh.axis_names:
-        raise NotImplementedError(
-            "moe_block_ep needs a mesh with a 'model' axis; ROADMAP Queue 1 item 6.5 "
-            "ports it with make_dev_mesh")
+        return moe_block_ep(x, p, cfg, mesh)
     return _moe_block_dense(x, p, cfg)
 
 
@@ -112,40 +115,157 @@ def dispatch_slots(idx_k: torch.Tensor, n_experts: int, cap: int):
     return flat_e, pos, pos < cap
 
 
+def _dispatch(xt: torch.Tensor, flat_e, pos, keep, n_experts: int, cap: int):
+    """The (E, cap, d) capacity buffers of T tokens: pair (t, j) at row
+    ``flat_e * cap + pos`` of an (E cap + 1, d) buffer; every dropped pair
+    writes the trash row E cap, which is sliced away (so a dropped pair's
+    input gradient is exactly 0)."""
+    t, d = xt.shape
+    k = flat_e.shape[0] // t
+    rows = torch.where(keep, flat_e * cap + pos, n_experts * cap)
+    buf = xt.new_zeros((n_experts * cap + 1, d))
+    buf.index_copy_(0, rows, xt[:, None].expand(t, k, d).reshape(t * k, d))
+    return buf[: n_experts * cap].view(n_experts, cap, d)
+
+
+def _experts(buf: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+    """Batched products over the expert axis: (E', C, d) -> (E', C, d)."""
+    return _dot(_silu(_dot(buf, wg)) * _dot(buf, wu), wd)
+
+
+def _combine(out_e: torch.Tensor, flat_e, pos, keep, gate_k, dtype) -> torch.Tensor:
+    """Each pair's expert row (zero where dropped) times its gate, added
+    per token in choice order: (T, d)."""
+    e, cap, d = out_e.shape
+    t, k = gate_k.shape
+    gathered = out_e.reshape(e * cap, d)[flat_e * cap + torch.clamp_max(pos, cap - 1)]
+    gathered = torch.where(keep[:, None], gathered, 0)
+    contrib = (gathered * gate_k.reshape(-1)[:, None].to(dtype)).view(t, k, d)
+    y = torch.zeros_like(contrib[:, 0])
+    for j in range(k):
+        y = y + contrib[:, j]
+    return y
+
+
+def _shared(xt: torch.Tensor, sh: dict) -> torch.Tensor:
+    """The shared experts: the always-on dense path."""
+    return _dot(_silu(_dot(xt, sh["wg"])) * _dot(xt, sh["wu"]), sh["wd"])
+
+
 def _moe_block_dense(x: torch.Tensor, p: dict, cfg: ModelConfig):
     """Scatter-dispatch top-k MoE (the reference's baseline block)."""
     b, s, d = x.shape
     t = b * s
-    e, k = cfg.n_experts, cfg.top_k
+    e = cfg.n_experts
     cap = _capacity(cfg, t)
     xt = x.reshape(t, d)
-
     _, gate_k, idx_k, aux = route(xt, p["router"], cfg)
     flat_e, pos, keep = dispatch_slots(idx_k, e, cap)
-
-    # Dispatch: row e * cap + slot of an (E cap + 1, d) buffer; every
-    # dropped pair writes the trash row E cap, which no expert reads.
-    rows = torch.where(keep, flat_e * cap + pos, e * cap)
-    buf = x.new_zeros((e * cap + 1, d))
-    buf.index_copy_(0, rows, xt[:, None].expand(t, k, d).reshape(t * k, d))
-    buf = buf[: e * cap].view(e, cap, d)
-
-    # The experts: batched products over the expert axis.
-    h = _silu(_dot(buf, p["wg"])) * _dot(buf, p["wu"])
-    out_e = _dot(h, p["wd"]).view(e * cap, -1)
-
-    # Combine: each pair's expert row (zero where dropped) times its gate,
-    # added per token in choice order.
-    gathered = out_e[flat_e * cap + torch.clamp_max(pos, cap - 1)]
-    gathered = torch.where(keep[:, None], gathered, 0)
-    w = gate_k.reshape(-1)[:, None].to(x.dtype)
-    contrib = (gathered * w).view(t, k, -1)
-    y = torch.zeros_like(contrib[:, 0])
-    for j in range(k):
-        y = y + contrib[:, j]
-
-    # Shared experts: the always-on dense path.
+    out_e = _experts(_dispatch(xt, flat_e, pos, keep, e, cap), p["wg"], p["wu"], p["wd"])
+    y = _combine(out_e, flat_e, pos, keep, gate_k, x.dtype)
     if "shared" in p:
-        sh = p["shared"]
-        y = y + _dot(_silu(_dot(xt, sh["wg"])) * _dot(xt, sh["wu"]), sh["wd"])
+        y = y + _shared(xt, p["shared"])
+    return y.view(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Explicit expert parallelism: phases with the exchanges between them
+# ---------------------------------------------------------------------------
+#
+# The reference's ``moe_block_ep`` is one function under ``shard_map`` with
+# two all-to-alls over "model" inside it.  One process calls the mesh's
+# positions one after another, so here the function is cut at the
+# exchanges: (1) every position routes and dispatches its token shard into
+# (E, C_loc, d) buffers; (2) position (.., j) gathers the [j E/m, (j+1) E/m)
+# experts' buffers of every position of its model row, concatenated along
+# capacity in model order: (E/m, m C_loc, d); (3) the expert products on its
+# local experts' weights; (4) the reverse exchange: position (.., j) gathers
+# capacity block j of every model-row position's output, concatenated along
+# the experts in model order: (E, C_loc, d); (5) the combine.  An exchange
+# is a tensor moved to the receiving position's entry (none where two
+# entries name one device), so autograd runs through it.
+
+
+def ep_layout(n_tokens: int, cfg: ModelConfig, mesh: sharding.Mesh):
+    """The EP block's split of ``n_tokens`` tokens on ``mesh``, as the
+    reference's: ``(token axes, token shards, tokens a shard, capacity a
+    shard)``.  Tokens split over every data axis and "model" (so the m
+    model positions of a data row do not dispatch the same tokens), with
+    axes dropped from the right until the split divides; None where none
+    does (the block then runs dense)."""
+    tok_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names) + ("model",)
+    while tok_axes:
+        n_split = math.prod(mesh.shape[a] for a in tok_axes)
+        if n_tokens % n_split == 0:
+            t_loc = n_tokens // n_split
+            return tok_axes, n_split, t_loc, _capacity(cfg, t_loc)
+        tok_axes = tok_axes[:-1]
+    return None
+
+
+def _token_shard(pos: tuple, tok_axes: tuple, mesh: sharding.Mesh) -> int:
+    """The token shard mesh position ``pos`` holds: its coordinates along
+    the token axes, row-major (positions that differ on other axes hold the
+    same shard)."""
+    coord = dict(zip(mesh.axis_names, pos))
+    k = 0
+    for a in tok_axes:
+        k = k * mesh.shape[a] + coord[a]
+    return k
+
+
+def moe_block_ep(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh: sharding.Mesh):
+    """x: (B, S, d) -> (y, aux): the reference's EP block on ``mesh``, each
+    position's work on its entry; y and aux on x's device.  aux is the mean
+    of the token shards' aux losses (the reference's pmean over the token
+    axes); the shared experts run on all tokens."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    m = mesh.shape["model"]
+    if e % m:
+        raise ValueError(f"{e} experts do not split over a model axis of {m}")
+    layout = ep_layout(b * s, cfg, mesh)
+    if layout is None:
+        return _moe_block_dense(x, p, cfg)
+    tok_axes, n_split, t_loc, cap = layout
+    e_loc = e // m
+    mi = mesh.axis_names.index("model")
+    xt = x.reshape(b * s, d)
+    positions = list(mesh.positions())
+
+    def row(pos, j):  # the position of pos's model row at model index j
+        return pos[:mi] + (j,) + pos[mi + 1:]
+
+    # (1) route and dispatch each position's token shard.
+    routing, bufs, auxes = {}, {}, {}
+    for pos in positions:
+        dev = mesh.device_at(pos)
+        k = _token_shard(pos, tok_axes, mesh)
+        xs = xt[k * t_loc:(k + 1) * t_loc].to(dev)
+        _, gate_k, idx_k, auxes[pos] = route(xs, p["router"].to(dev), cfg)
+        flat_e, slot, keep = dispatch_slots(idx_k, e, cap)
+        routing[pos] = (flat_e, slot, keep, gate_k)
+        bufs[pos] = _dispatch(xs, flat_e, slot, keep, e, cap)
+    # (2) dispatch exchange and (3) the local experts' products.
+    out = {}
+    for pos in positions:
+        dev, j = mesh.device_at(pos), pos[mi]
+        experts = slice(j * e_loc, (j + 1) * e_loc)
+        recv = torch.cat([bufs[row(pos, jj)][experts].to(dev) for jj in range(m)], dim=1)
+        out[pos] = _experts(recv, *(p[w][experts].to(dev) for w in ("wg", "wu", "wd")))
+    # (4) return exchange and (5) the combine, at one position per token shard.
+    ys, shard_aux = {}, {}
+    for pos in positions:
+        k = _token_shard(pos, tok_axes, mesh)
+        if k in ys:
+            continue
+        dev, j = mesh.device_at(pos), pos[mi]
+        back = torch.cat([out[row(pos, jj)][:, j * cap:(j + 1) * cap].to(dev)
+                          for jj in range(m)], dim=0)
+        ys[k] = _combine(back, *routing[pos], x.dtype).to(x.device)
+        shard_aux[k] = auxes[pos].to(x.device)
+    y = torch.cat([ys[k] for k in range(n_split)])
+    aux = torch.stack([shard_aux[k] for k in range(n_split)]).mean()
+    if "shared" in p:
+        y = y + _shared(xt, p["shared"])
     return y.view(b, s, d), aux

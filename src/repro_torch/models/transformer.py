@@ -38,6 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import attention, moe, rglru, ssm
 from repro_torch.models.layers import Leaf, cast, rmsnorm, stack_schema, swiglu
 
@@ -237,14 +238,25 @@ def run_layers(h, fns, remat: bool, *args):
     autograd records the stack, each call is recomputed in the backward pass
     instead of keeping its activations."""
     recompute = remat and torch.is_grad_enabled() and h.requires_grad
+    captured = sharding.scope()
     aux = 0.0
     for fn, lp in fns:
         if recompute:
-            h, a = checkpoint(fn, h, lp, *args, use_reentrant=False, preserve_rng_state=False)
+            h, a = checkpoint(_scoped, captured, fn, h, lp, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
             h, a = fn(h, lp, *args)
         aux = aux + a
     return h, aux
+
+
+def _scoped(captured, fn, *args):
+    """``fn(*args)`` in the sharding scope the forward pass ran in: remat
+    recomputes it in the backward pass, which on the card autograd runs on
+    a thread of its own, where no scope is current (an MoE layer would run
+    the dense block there instead of the EP block)."""
+    with sharding.within(captured):
+        return fn(*args)
 
 
 def lm_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -11,9 +11,10 @@ Pallas kernel; so does this module, in plain torch ops.
 
 ``update`` writes the new moments and params into the tensors it is given
 and returns them (the reference's jitted step donates its state), one
-layer slice of a stacked leaf at a time, so that at full width it needs
-no more than a slice's worth of scratch beside the params, moments and
-gradients.  The gradients are scratch too: they are overwritten.
+layer slice of a stacked leaf at a time (a large slice in pieces along its
+first dim: ``_pieces``), so that at full width it needs no more than a
+piece's worth of scratch beside the params, moments and gradients.  The
+gradients are scratch too: they are overwritten.
 """
 
 from __future__ import annotations
@@ -55,6 +56,22 @@ def _slices(t: torch.Tensor):
     return t.unbind(0) if t.dim() >= 3 else (t,)
 
 
+# Elements: past this a layer's slice is updated in pieces along its first
+# dim, so the update's f32 temporaries stay under 256 MB each (a layer of
+# deepseek-v2-236b's routed experts is 1.26e9 elements).
+_PIECE = 1 << 26
+
+
+def _pieces(t: torch.Tensor):
+    """``_slices(t)``, each cut along its first dim into pieces of at most
+    ``_PIECE`` elements where it is larger."""
+    for s in _slices(t):
+        if s.numel() > _PIECE and s.dim() >= 2:
+            yield from s.split(max(1, _PIECE // s[0].numel()))
+        else:
+            yield s
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
     total = 0
@@ -82,7 +99,7 @@ def update(grads, state: AdamState, params, cfg: TrainConfig, lr_scale: float = 
     for g_leaf, m_leaf, v_leaf, p_leaf in zip(
         leaves(grads), leaves(state.m), leaves(state.v), leaves(params), strict=True
     ):
-        for g, m, v, p in zip(*map(_slices, (g_leaf, m_leaf, v_leaf, p_leaf)), strict=True):
+        for g, m, v, p in zip(*map(_pieces, (g_leaf, m_leaf, v_leaf, p_leaf)), strict=True):
             g = g.float() if g.dtype != torch.float32 else g
             p32 = p.float()
             g.mul_(clip)

@@ -32,9 +32,13 @@ composes base+delta by walking the chain.  The unit of a delta is a leaf: a
 fleet's P is one leaf, so any stream that learned rewrites all of it.
 
 ``restore`` returns numpy leaves, or, with ``shardings``, puts each leaf on
-the device named for it: checkpoints hold whole logical arrays, so the same
-bytes restore onto any device layout (a fleet saved from N shards is split
-into M by ``engine.split_fleet`` after the restore).
+the device named for it, or cuts it into the slices a
+``sharding.Placement`` names, each on its mesh entry: checkpoints hold
+whole logical arrays, so the same bytes restore onto any device layout.
+``rescale`` restores a model's params onto a mesh of another size by the
+schema's ``param_specs``; a fleet saved from N shards is split into M by
+``engine.split_fleet`` after the restore.  A ``sharding.Sharded`` leaf is
+saved whole (``Sharded.gather``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import sharding
 
 
 def _flatten(tree, path=()):
@@ -110,7 +116,10 @@ def to_host(leaf) -> np.ndarray:
     its bytes: on the card ``.cpu()`` copies into fresh host memory once the
     current stream's queued work has written them; on the CPU the tensor's
     buffer is copied (``.numpy()`` alone would alias it).  Anything else
-    goes through ``np.asarray``."""
+    goes through ``np.asarray``; a ``Sharded`` leaf is gathered whole
+    first."""
+    if isinstance(leaf, sharding.Sharded):
+        leaf = leaf.gather()
     if torch.is_tensor(leaf):
         leaf = leaf.detach()
         if leaf.device.type == "cpu":
@@ -258,8 +267,10 @@ class CheckpointManager:
         base chain (checkpoints without a ``kind`` field read as full).
 
         Leaves are numpy arrays; ``shardings``, a tree of the saved
-        structure whose leaves are a ``torch.device`` (or a name) or None,
-        makes each leaf a tensor on its device (None keeps the numpy leaf)."""
+        structure whose leaves are a ``torch.device`` (or a name), a
+        ``sharding.Placement`` or None, makes each leaf a tensor on its
+        device, or a ``Sharded`` of it on the placement's mesh (None keeps
+        the numpy leaf)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -290,7 +301,8 @@ class CheckpointManager:
 
 def _place(tree, shardings):
     """``tree``'s leaves as tensors on the devices of the matching leaves
-    of ``shardings`` (None: the leaf stays as it is)."""
+    of ``shardings``, or ``Sharded`` by a ``Placement`` there (None: the
+    leaf stays as it is)."""
     if isinstance(tree, dict):
         if set(tree) != set(shardings):
             raise ValueError(f"shardings keys {sorted(shardings)} != saved {sorted(tree)}")
@@ -300,4 +312,40 @@ def _place(tree, shardings):
         return tuple(seq) if isinstance(tree, tuple) else seq
     if shardings is None:
         return tree
+    if isinstance(shardings, sharding.Placement):
+        return shardings.place(tree)
     return torch.as_tensor(tree, device=torch.device(shardings))
+
+
+# ---------------------------------------------------------------------------
+# Elastic mesh rescale: restore any checkpoint onto any mesh
+# ---------------------------------------------------------------------------
+
+
+def shardings_for_schema(schema, mesh: sharding.Mesh) -> dict:
+    """A ``Placement`` per leaf of a param schema on ``mesh``
+    (``layers.param_specs`` under it)."""
+    from repro_torch.models import layers
+
+    with sharding.activate(mesh):
+        specs = layers.param_specs(schema)
+    return _map_specs(lambda s: sharding.Placement(mesh, s), specs)
+
+
+def _map_specs(fn, specs, *rest):
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, *(r[k] for r in rest)) for k, v in specs.items()}
+    return fn(specs, *rest)
+
+
+def reshard_tree(tree, mesh: sharding.Mesh, specs) -> dict:
+    """A live tree onto ``mesh``: each leaf a ``Sharded`` by its
+    PartitionSpec in ``specs`` (its slices on their entries; ``gather``
+    gives the whole leaf back)."""
+    return _map_specs(lambda s, a: sharding.Placement(mesh, s).place(a), specs, tree)
+
+
+def rescale(manager: CheckpointManager, schema, new_mesh: sharding.Mesh, step=None):
+    """Restore a checkpoint (the latest, or ``step``) of a model's params
+    onto a mesh of another size: ``(step, tree of Sharded)``."""
+    return manager.restore(step=step, shardings=shardings_for_schema(schema, new_mesh))

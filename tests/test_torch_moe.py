@@ -16,7 +16,8 @@ pattern is exact, y is within 1e-5 of the array's largest magnitude in f32
 ulp in bf16 (``test_torch_models._bf16_close``; the port's silu takes the
 reference's steps, and the block comes out bit for bit here), and aux is
 within rtol 1e-5 in f32.  ``moe_impl="ep"`` without a mesh that has a
-``"model"`` axis is the dense block bit for bit; two calls are bit for bit.
+``"model"`` axis is the dense block bit for bit, and under a (2, 2) mesh
+it runs the EP block; two calls are bit for bit.
 
 The stacks, deepseek-moe-16b (GQA) and deepseek-v2-236b (MLA) at their
 reference smoke configs (every layer MoE, capacity factor 1.25), on one
@@ -199,10 +200,19 @@ def test_ep_without_a_model_axis_is_the_dense_block_and_calls_repeat():
         with (sharding.activate(mesh) if mesh is not None else contextlib.nullcontext()):
             y_ep, aux_ep = moe.moe_block(x, p, ep)
         assert torch.equal(y_ep, y) and torch.equal(aux_ep, aux)
-    # A mesh with a "model" axis would run the reference's EP block: not ported.
-    with sharding.activate(sharding.FleetMesh((torch.device(CPU),), axis_names=("model",))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6.5"):
-            moe.moe_block(x, p, ep)
+    # A mesh with a "model" axis runs the EP block (held against the
+    # reference's in tests/test_torch_mesh_model.py): at capacity factor
+    # E/k, where no pair drops in either block, y equals the dense block's
+    # within a bf16 ulp of its scale, and aux is the token shards' mean.
+    nodrop = ep.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    y, _ = moe._moe_block_dense(x, p, nodrop)
+    mesh = sharding.Mesh((torch.device(CPU),) * 4, ("data", "model"), (2, 2))
+    with sharding.activate(mesh):
+        y_ep, aux_ep = moe.moe_block(x, p, nodrop)
+    assert y_ep.dtype == y.dtype and y_ep.shape == y.shape
+    assert (y_ep.float() - y.float()).abs().max() <= 2 ** -7 * y.float().abs().max()
+    shards = [moe.route(x.reshape(4, 4, -1)[i], p["router"], nodrop)[3] for i in range(4)]
+    torch.testing.assert_close(aux_ep, torch.stack(shards).mean(), rtol=1e-6, atol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ graphed decode tick over any cache dict, the parameter and cache loaders
 of ``convert``, and a deepseek-v2-236b ``decode`` tenant migrated between
 two port workers on the CPU, bit for bit its solo run.
 
-The training entry points raise for both archs (ROADMAP Queue 1 item 6).
+The training entry points build a state and a finite gradient for both archs.
 Tests marked ``cuda`` run on the card and skip elsewhere: the card's decode
 against the CPU's on the same weights, and two card decodes through
 ``_decode_feats`` (one CUDA graph a step) bit for bit, for both archs:
@@ -25,6 +25,7 @@ from repro_torch.engine import snapshot  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.optim import adam  # noqa: E402
 from repro_torch.runtime import elastic  # noqa: E402
 from repro_torch.runtime import worker as worker_mod  # noqa: E402
 
@@ -136,15 +137,22 @@ def test_convert_loads_expert_and_latent_leaves():
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_training_entry_points_raise(arch):
+def test_training_entry_points_build_a_state_and_a_finite_gradient(arch):
+    """A TrainState builds (f32 master params, zero moments), and
+    ``loss_and_grads`` gives a finite loss and a finite gradient for every
+    leaf, the routed experts' and the router's among them; the trainers
+    are held against the JAX package in ``tests/test_torch_train_moe.py``."""
     cfg = configs.get_config(arch, "smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        model_lib.init_train_state(cfg, device=CPU)
-    params = model_lib.build_params(cfg, 0, CPU)
+    state = model_lib.init_train_state(cfg, device=CPU)
+    assert {t.dtype for t in adam.leaves(state.params)} == {torch.float32}
+    assert not any(t.any() for t in adam.leaves(state.opt.m))
     batch = {"tokens": torch.zeros((2, 4), dtype=torch.int64),
              "labels": torch.zeros((2, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        model_lib.loss_and_grads(params, batch, cfg)
+    loss, feats, grads = model_lib.loss_and_grads(state.params, batch, cfg)
+    assert bool(torch.isfinite(loss)) and feats.shape == (2, cfg.d_model)
+    for g in adam.leaves(grads):
+        assert bool(torch.isfinite(g).all())
+    assert grads["layers"]["moe"]["router"].any() and grads["layers"]["moe"]["wg"].any()
 
 
 def test_mla_decode_tenant_migrates_between_port_workers():

@@ -162,7 +162,9 @@ need = {{"repro_torch.models.layers", "repro_torch.models.attention",
         "repro_torch.models.transformer", "repro_torch.models.model", "repro_torch.models.encdec",
         "repro_torch.launch.serve", "repro_torch.configs.base", "repro_torch.configs.qwen3_4b",
         "repro_torch.data.tokens", "repro_torch.examples.serve_cascade",
-        "repro_torch.optim.adam", "repro_torch.launch.train", "repro_torch.examples.train_lm_odl"}}
+        "repro_torch.optim.adam", "repro_torch.launch.train", "repro_torch.examples.train_lm_odl",
+        "repro_torch.distributed.sharding", "repro_torch.distributed.pipeline",
+        "repro_torch.launch.mesh", "repro_torch.runtime.checkpoint"}}
 assert need <= set(names), sorted(need - set(names))
 for name in names:
     importlib.import_module(name)

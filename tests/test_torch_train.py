@@ -48,9 +48,10 @@ In the port alone: two steps from one state bit for bit; remat equal to no
 remat (loss and grads within 1e-6); 4 steps + resume to 8 bit for bit 8
 uninterrupted ones through ``launch.train.train``; the NaN guard's
 rollback; ``main`` parsing every flag of the reference's; the CLI exiting 1
-with no card and no ``--device``; the example; the MoE and MLA stacks
-raising (the SSD and hybrid stacks and the encoder-decoder train:
-``tests/test_torch_train_families.py``).  Params come from one numpy tree per leaf
+with no card and no ``--device``; the example.  The other families train
+too: the SSD and hybrid stacks and the encoder-decoder in
+``tests/test_torch_train_families.py``, the MoE and MLA stacks in
+``tests/test_torch_train_moe.py``.  Params come from one numpy tree per leaf
 (``test_torch_models.numpy_params``): the JAX package's ``init_params``
 salts ``hash()``.  Every checkpoint directory is a ``tmp_path``.
 
@@ -704,12 +705,6 @@ def test_example_runs(tmp_path, capsys):
     p = train_lm_odl.preset_cfg("100m")
     assert p["cfg"].n_layers == 12 and p["cfg"].d_model == 768
     assert configs.get_config(ARCH, "smoke").n_layers == 2  # nothing patched
-
-
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-236b"])
-def test_families_not_ported_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        model_lib.init_train_state(configs.get_config(arch, "smoke"), device=CPU)
 
 
 def test_train_config_equals_the_reference():
