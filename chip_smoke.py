@@ -263,6 +263,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit the slice its placement names.  In (b) and (d) the projection must
    launch twice and kernel 3 once a step; every shape 6p launched a kernel
    at must be one phases 2-4 held;
+6q. the dry-run census (``launch/census.py``, ``launch/dryrun.py``), after
+   6p has freed its memory: (a) 6l (b)'s qwen3-4b training step (f32
+   master, remat, B=32, S=64) censused on a one-entry meta mesh and run
+   once on a one-entry mesh of the card under the census (the allocator
+   in expandable segments): the census's argument bytes against the
+   allocator's for building the state and batch (as asked exactly, and in
+   its 512-byte blocks within 512 bytes a leaf), arguments + the census's
+   live peak within 10 % of the step's allocator peak, the card's census
+   equal to meta's in FLOPs, bytes and exchanges, the census FLOPs over 6
+   N tokens (remat's recompute); (b) the same for 6k's serve tick (B=256,
+   128 slots, bf16 weights); (c) the EP block at 6p (e)'s shape and the
+   pipeline at 6p (f)'s under a census: all-to-all and collective-permute
+   counts and bytes equal to the analytic ones; (d) ``dryrun.run_cell``
+   for one arch per family at every LM shape on the 16 x 16 meta mesh
+   against the card's memory, one process a family (no card) beside
+   (a)-(c): one row per cell, status, peak, fits, flops_total and
+   bytes_total; an error fails the phase.  Every
+   shape 6q launched a kernel at must be one phases 2-4 held;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
    N=256 (S=16,384, P 4 GiB) and, with the plan's pass in ``serve``, at 6k's
@@ -567,6 +585,20 @@ MOE_TRAIN = {
 EP = dict(mesh=(2, 4), x=(8, 256), smoke_batch=8, smoke_seq=32)
 PIPE = dict(stages=8, microbatches=4, batch=2, widths=(16, 2048))
 RESCALE = dict(arch="deepseek-moe-16b", meshes=((4, 2), (2, 2)))
+# 6q: the dry-run census.  (a) 6l (b)'s training step (TRAIN: B=32, S=64,
+# f32 master params, remat) and (b) 6k's serve tick (BACKBONE: B=256, 128
+# slots, bf16 weights: the dry-run's ``w16`` decode cell), each censused on
+# meta and run on a one-entry mesh of the card: the argument bytes within
+# ``leaf_bytes`` of the allocator's a leaf (its 512-byte blocks), the
+# census's arguments + live peak within ``peak_rtol`` of the step's
+# allocator peak, the census on the card equal to the one on meta.  (c) the
+# EP block at EP's shape and the pipeline at PIPE's, their exchanges
+# against the analytic count.  (d) ``dryrun.run_cell`` for one arch per
+# family at every LM shape on the 16 x 16 meta mesh, one process a family
+# (no card), side by side while (a)-(c) run.
+CENSUS = dict(leaf_bytes=512, peak_rtol=0.10,
+              families=("qwen3-4b", "deepseek-moe-16b", "mamba2-780m", "recurrentgemma-9b",
+                        "chameleon-34b", "whisper-small"))
 # The kernels the training path launches every step.
 TRAIN_KERNELS = ("xorshift_projection", "oselm_rls_update")
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
@@ -5132,6 +5164,239 @@ def phase_moe_train(device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6q: the dry-run census (launch/census.py, launch/dryrun.py) on the
+# card and on the meta device
+# ---------------------------------------------------------------------------
+
+
+def _census_sweep_child(arch: str, device_bytes: int) -> int:
+    """``--census-sweep``: 6q (d)'s cells of one arch, one JSON line each,
+    on the meta device (this process never touches the card)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    for shape in configs.LM_SHAPES:
+        try:
+            rec = dryrun.run_cell(arch, shape.name, False, device_bytes_limit=device_bytes)
+        except Exception as e:  # noqa: BLE001 — reported, and 6q fails on it
+            rec = {"arch": arch, "shape": shape.name, "status": "error",
+                   "error": f"{type(e).__name__}: {e}"}
+        print(json.dumps(rec), flush=True)
+    print(json.dumps({"sweep_seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def _start_census_sweep():
+    """6q (d): one process a family (the host's cores run them side by side
+    while 6q (a)-(c) hold the card), none touching the card
+    (``CUDA_VISIBLE_DEVICES`` empty), one thread each.  Returns the device
+    memory they hold the cells against and, by arch, (process, output
+    file)."""
+    import atexit
+    import os
+    import tempfile
+
+    import torch
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = {}
+    for arch in CENSUS["families"]:
+        out, err = tempfile.TemporaryFile(mode="w+"), tempfile.TemporaryFile(mode="w+")
+        procs[arch] = (subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--census-sweep", arch, str(total)],
+            stdout=out, stderr=err, text=True, env=env), out, err)
+    atexit.register(lambda: [p.kill() for p, _, _ in procs.values() if p.poll() is None])
+    return total, procs
+
+
+def _census_card_checks(tag, r, card):
+    """6q (a), (b): the census's arguments against the allocator's, its
+    peak against the step's, the card's census against meta's."""
+    slack = CENSUS["leaf_bytes"] * r["n_leaves"]
+    over = r["allocated_bytes"] - r["argument_bytes"]
+    check(0 <= over <= slack, f"census {tag}: allocator {r['allocated_bytes']} bytes for the "
+                              f"arguments against the census's {r['argument_bytes']} "
+                              f"({r['n_leaves']} leaves, at most {slack} of rounding)")
+    if r["requested_bytes"] is not None:
+        check(r["requested_bytes"] == r["argument_bytes"],
+              f"census {tag}: the allocator was asked for {r['requested_bytes']} bytes, "
+              f"the census counts {r['argument_bytes']}")
+    predicted = r["argument_bytes"] + r["temp_bytes"]
+    rel = (predicted - r["peak_allocated_bytes"]) / r["peak_allocated_bytes"]
+    check(abs(rel) <= CENSUS["peak_rtol"],
+          f"census {tag}: arguments + live peak {predicted} bytes against the step's allocator "
+          f"peak {r['peak_allocated_bytes']} ({100 * rel:+.2f} %)")
+    check(r["census_equal"], f"census {tag}: the card's census differs from meta's: FLOPs "
+                             f"{r['flops_card']} / {r['flops_meta']}, bytes {r['bytes_card']} / "
+                             f"{r['bytes_meta']}; first difference {r['first_difference']}")
+    print(f"  {tag} arguments: census {r['argument_bytes']} bytes in {r['n_leaves']} leaves; "
+          f"allocator {r['allocated_bytes']} (+{over} in 512-byte blocks), asked "
+          f"{r['requested_bytes']}; live peak {r['temp_bytes']} (on the card's census "
+          f"{r['card_temp_bytes']}); arguments + live peak {predicted} against the step's "
+          f"allocator peak {r['peak_allocated_bytes']} ({100 * rel:+.2f} %, limit "
+          f"{100 * CENSUS['peak_rtol']:.0f} %); census on the card == on meta: FLOPs "
+          f"{r['flops_card']}, bytes {r['bytes_card']}; entry points {r['kernel_calls']}; "
+          f"the card's census took {r['seconds']:.2f} s ({card})")
+
+
+def _census_exchanges(device, card):
+    """6q (c): the EP block at EP's shape on a 2 x 4 mesh of cuda:0 entries
+    and the pipeline at PIPE's, each once under a census: the exchanges
+    against the analytic count and bytes."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed import pipeline
+    from repro_torch.launch import census
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers, moe
+
+    cfg = configs.get_config("deepseek-moe-16b")
+    p = layers.init_params(moe.moe_schema(cfg), SEED + 30, device, dtype=torch.float32)
+    d, m = EP["mesh"]
+    mesh = mesh_lib.make_dev_mesh(d, m, devices=[_entry(device)] * (d * m))
+    b, s = EP["x"]
+    x = torch.randn((b, s, cfg.d_model), generator=_gen(device, SEED + 31), device=device)
+    with torch.no_grad(), census.StepCensus() as c:
+        moe.moe_block_ep(x, p, cfg, mesh)
+    got = census.collective_census(c)
+    _, n_split, _, cap = moe.ep_layout(b * s, cfg, mesh)
+    n_pos, block = d * m, (cfg.n_experts // m) * cap * cfg.d_model * x.element_size()
+    moves = 2 * n_pos * (m - 1)  # dispatch and return, from each model-row peer
+    want = {"all-to-all": {"count": moves, "bytes": moves * block}, "total_bytes": moves * block}
+    check(got == want, f"census (c): EP exchanges {got} against {want}")
+    print(f"  (c) moe_block_ep (deepseek-moe-16b, x {tuple(x.shape)} f32) on a {d} x {m} mesh of "
+          f"cuda:0 entries, {n_split} token shards, capacity {cap}: all-to-all {moves} moves, "
+          f"{moves * block} bytes = 2 x {n_pos} positions x {m - 1} peers x ({cfg.n_experts // m}"
+          f" experts x {cap} x {cfg.d_model} x 4 B), as counted ({card})")
+    del p, x
+    n, mb, rows = PIPE["stages"], PIPE["microbatches"], PIPE["batch"]
+    stage = mesh_lib.make_mesh((n,), ("stage",), devices=[_entry(device)] * n)
+    res = {"ep": got, "pipeline": {}}
+    for width in PIPE["widths"]:
+        h = torch.randn((mb, rows, width), generator=_gen(device, SEED + 32), device=device)
+        w = torch.randn((n, width, width), generator=_gen(device, SEED + 33),
+                        device=device) / math.sqrt(width)
+        with torch.no_grad(), census.StepCensus() as c:
+            pipeline.pipeline_forward(h, {"w": w}, lambda a, q: torch.tanh(a @ q["w"]), stage)
+        got = census.collective_census(c)
+        hops = (n + mb - 1) * (n - 1)
+        want = {"collective-permute": {"count": hops, "bytes": hops * rows * width * 4},
+                "total_bytes": hops * rows * width * 4}
+        check(got == want, f"census (c): pipeline hand-offs {got} against {want}")
+        res["pipeline"][width] = got
+        print(f"  (c) pipeline_forward, {n} stages, {mb} microbatches of {rows} x {width}: "
+              f"collective-permute {hops} hand-offs, {hops * rows * width * 4} bytes "
+              f"(= ({n} + {mb} - 1) ticks x {n - 1} x {rows * width * 4} B) ({card})")
+    return res
+
+
+def phase_census(device="cuda"):
+    """6q: the dry-run census (see the module docstring and ``CENSUS``)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+
+    t_phase = time.perf_counter()
+    card = _card()
+    total, procs = _start_census_sweep()
+    torch.cuda.empty_cache()
+    res = {"allocated_before": torch.cuda.memory_allocated()}
+    print(f"census (6q: the dry-run census on meta against the card; exchanges; the sweep) on "
+          f"{card}: {res['allocated_before']} bytes allocated before it")
+    cfg = configs.get_config(TRAIN["arch"])
+    n_params = layers.count_params(model_lib.build_schema(cfg))
+    with _ShapeLog() as log:
+        # (a) 6l (b)'s training step.
+        shape = ShapeConfig("train_6l", TRAIN["seq"], TRAIN["batch"], "train")
+        ops.reset_launch_counts()
+        r = dryrun.card_run(cfg, shape, TrainConfig(), False, device=device, seed=SEED)
+        r["launches"] = {k: v for k, v in ops.launch_counts.items() if v}
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        r["six_n_tokens"] = 6 * n_params * tokens
+        r["flops_over_6nt"] = r["flops_meta"] / r["six_n_tokens"]
+        print(f"  (a) train_step ({TRAIN['arch']} full, {n_params} parameters, f32 master, remat, "
+              f"B={TRAIN['batch']}, S={TRAIN['seq']}) on a one-entry mesh: census FLOPs "
+              f"{r['flops_meta']} = {r['flops_over_6nt']:.4f} x 6 N tokens ({r['six_n_tokens']}); "
+              f"bytes accessed {r['bytes_meta']}; launches {r['launches']}")
+        _census_card_checks("(a)", r, card)
+        check(all(r["launches"].get(k, 0) > 0 for k in TRAIN_KERNELS),
+              f"census (a): the step launched {r['launches']}")
+        res["train"] = r
+        # (b) 6k's serve tick, bf16 weights.
+        shape = ShapeConfig("serve_6k", BACKBONE["max_len"], BACKBONE["batch"], "decode")
+        ops.reset_launch_counts()
+        r = dryrun.card_run(cfg, shape, TrainConfig(), True, device=device, seed=SEED)
+        r["launches"] = {k: v for k, v in ops.launch_counts.items() if v}
+        r["two_n_tokens"] = 2 * n_params * BACKBONE["batch"]
+        r["flops_over_2nt"] = r["flops_meta"] / r["two_n_tokens"]
+        print(f"  (b) serve_step ({TRAIN['arch']} full, bf16 weights, B={BACKBONE['batch']}, "
+              f"{BACKBONE['max_len']} slots) on a one-entry mesh: census FLOPs {r['flops_meta']} "
+              f"= {r['flops_over_2nt']:.4f} x 2 N tokens; bytes accessed {r['bytes_meta']}; "
+              f"launches {r['launches']}")
+        _census_card_checks("(b)", r, card)
+        check(all(r["launches"].get(k, 0) > 0 for k in ("xorshift_projection", "plan_rows")),
+              f"census (b): the tick launched {r['launches']}")
+        res["serve"] = r
+        torch.cuda.empty_cache()
+        # (c) the exchanges.
+        res["exchanges"] = _census_exchanges(device, card)
+    missing = log.missing()
+    check(not missing, f"census: shapes phases 2-4 did not hold: {missing}")
+    # (d) the sweep, from its processes.
+    t_wait = time.perf_counter()
+    recs, seconds = [], {}
+    for arch, (proc, out, err) in procs.items():
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise AssertionError(f"census (d): {arch}'s cells did not end within 600 s")
+        out.seek(0)
+        err.seek(0)
+        lines = [json.loads(x) for x in out.read().splitlines() if x.strip()]
+        tail = err.read()[-2000:]
+        out.close()
+        err.close()
+        check(proc.returncode == 0 and lines,
+              f"census (d): {arch}'s process exited {proc.returncode}: {tail}")
+        recs += lines[:-1]
+        seconds[arch] = lines[-1]["sweep_seconds"]
+    waited = time.perf_counter() - t_wait
+    errors = [r for r in recs if r["status"] == "error"]
+    check(not errors, f"census (d): cells in error: {errors}")
+    check(len(recs) == len(CENSUS["families"]) * 4, f"census (d): {len(recs)} cells")
+    print(f"  (d) run_cell on the 16 x 16 meta mesh, one arch per family, every LM shape "
+          f"(device memory {total} bytes, the card's): {len(recs)} cells, one process a "
+          f"family, the slowest {max(seconds.values()):.1f} s ("
+          + ", ".join(f"{a} {v:.1f}" for a, v in seconds.items())
+          + f"); 6q waited {waited:.1f} s for them after (c)")
+    for r in recs:
+        if r["status"] != "ok":
+            print(f"    {r['arch']:<18} {r['shape']:<12} skipped: {r['reason']}")
+            continue
+        print(f"    {r['arch']:<18} {r['shape']:<12} ok   peak {r['peak_bytes']:>16} of {total} "
+              f"a device, fits {str(r['fits']):<5} flops_total {r['flops_total']:.6e} "
+              f"bytes_total {r['bytes_total']:.6e} census {r['census_s']} s")
+    res["sweep"] = {"cells": recs, "seconds": seconds, "waited": waited}
+    res["shapes"] = {k: sorted(v) for k, v in log.shapes.items() if v}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  kernel shapes on 6q's card runs, each held in phases 2-4: {res['shapes']}")
+    print(f"  phase 6q took {res['seconds']:.1f} s ({card})")
+    return res
+
+
 def _device_ms(fn, reps=20, rounds=3):
     """Device time of one call of ``fn``: CUDA events around a batch of
     calls, the median of ``rounds`` batches.  A sleep kernel keeps the card
@@ -5204,10 +5469,22 @@ def _bound(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
 
 
 def _rls_bound(s, n, k, m):
-    """The whole RLS update: P in and out, beta in and out, H and Y in;
-    2 S N^2 (2k + m) operations (PHt, the downdate, P' W) at the f32 rate."""
-    return _bound(flops=2.0 * s * n * n * (2 * k + m),
-                  nbytes=4.0 * (2 * s * n * n + 2 * s * n * m + s * k * n + s * k * m))
+    """The whole RLS update (``ops.kernel_cost``): P in and out, beta in and
+    out, H and Y in; 2 S N^2 (2k + m) operations (PHt, the downdate, P' W)
+    at the f32 rate."""
+    from repro_torch.kernels import ops
+
+    return _bound(*ops.kernel_cost("oselm_rls_update_fleet", (s, n, k, m)))
+
+
+def _projection_bound(b, n_in, n):
+    """The projection (``ops.kernel_cost``: x in, H out, 2 b n_in N
+    operations) as the kernel does it: three TF32 products on the tensor
+    cores, the work at the precision the kernel must deliver."""
+    from repro_torch.kernels import ops
+
+    flops, nbytes = ops.kernel_cost("xorshift_projection", (b, n_in, n))
+    return _bound(flops=3 * flops, nbytes=nbytes, peak_flops=PEAK_TF32_FLOPS)
 
 
 def _rls_composite(P, beta, H, Y):
@@ -5246,10 +5523,7 @@ def phase_times(device="cuda"):
     x = _cycling_x(device, b, n_in)
     alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
     c = float(1.0 / n_in ** 0.5)
-    # Three TF32 products on the tensor cores: the work at the precision the
-    # kernel must deliver.
-    bound_ms, bound_by = _bound(flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
-                                peak_flops=PEAK_TF32_FLOPS)
+    bound_ms, bound_by = _projection_bound(b, n_in, n)
     rows.append(dict(
         name="xorshift_projection",
         ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
@@ -5269,9 +5543,7 @@ def phase_times(device="cuda"):
         ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
         plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
         library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-        **dict(zip(("bound_ms", "bound_by"), _bound(
-            flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
-            peak_flops=PEAK_TF32_FLOPS))),
+        **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
     )
     del x, alpha
 
@@ -5343,12 +5615,6 @@ def phase_times(device="cuda"):
     # The plan's per-stream pass at the fleet shape, in its two byte classes:
     # algo1 reads x for the drift feature mean, train_phase reads no x. The
     # teacher is always available (no mask), as in run_fleet.
-    def nbytes(*trees):
-        from repro_torch.engine.types import tree_leaves
-
-        return float(sum(t.numel() * t.element_size() for t in tree_leaves(trees)
-                         if t is not None))
-
     def pass_times(shape, modes, seed):
         """The fused pass at (S, N, m, n_in) by mode: kernel, plain and bound."""
         s, n, m, n_in = shape
@@ -5363,17 +5629,15 @@ def phase_times(device="cuda"):
             def plain(mode=mode):
                 return ref.plan_rows_ref(**dict(args, x=x()), cfg=cfg, mode=mode)
 
-            r = kernel()
-            reads_x = mode != "train_phase"
-            reads = nbytes(args["h"], args["beta"], args["count"], args["prune"], args["drift"],
-                           args["meter"]) + (nbytes(args["x"]) if reads_x else 0.0)
-            writes = nbytes(tuple(r[:7]), r.prune, r.meter) + (
-                nbytes(r.drift) if reads_x else 0.0)
-            ops_ = 2.0 * s * n * m + (2.0 * s * n_in if reads_x else 0.0)
+            # The pass's whole call (``ops.kernel_cost``): h, beta, count and
+            # the state leaves in, x too where the detector steps; the plan's
+            # fields, prune and meter out, drift too where it steps.
+            ops_, moved = ops.kernel_cost("plan_rows", tuple(shape), mode=mode,
+                                          use_features=cfg.drift.use_features)
             out[mode] = dict(
                 shape=list(shape), ms=_device_ms(kernel),
-                plain_ms=_device_ms(plain, reps=PLAIN_REPS), bytes=reads + writes,
-                **dict(zip(("bound_ms", "bound_by"), _bound(flops=ops_, nbytes=reads + writes))))
+                plain_ms=_device_ms(plain, reps=PLAIN_REPS), bytes=moved,
+                **dict(zip(("bound_ms", "bound_by"), _bound(flops=ops_, nbytes=moved))))
         return out, args, x
 
     fused, args, x = pass_times(PLAN_SHAPES[0], ("algo1", "train_phase"), SEED + 8)
@@ -5392,8 +5656,7 @@ def phase_times(device="cuda"):
         plain_ms=_device_ms(lambda: ref.readout_ref(h, beta)),
         library_ms=_device_ms(lambda: torch.bmm(h[:, None, :], beta)),
         library="torch.bmm (cuBLAS batched)",
-        **dict(zip(("bound_ms", "bound_by"), _bound(
-            flops=2.0 * s * n * m, nbytes=4.0 * (s * n + s * n * m + s * m)))),
+        **dict(zip(("bound_ms", "bound_by"), _bound(*ops.kernel_cost("readout", (s, n, m))))),
     ))
     rows.append(dict(
         name="row_abs_mean",
@@ -5401,8 +5664,8 @@ def phase_times(device="cuda"):
         plain_ms=_device_ms(lambda: ref.row_abs_mean_ref(x())),
         library_ms=_device_ms(lambda: torch.mean(x().abs(), -1)),
         library="torch.mean(x.abs(), -1)",
-        **dict(zip(("bound_ms", "bound_by"), _bound(flops=2.0 * s * n_in,
-                                                     nbytes=4.0 * (s * n_in + s)))),
+        **dict(zip(("bound_ms", "bound_by"), _bound(*ops.kernel_cost("row_abs_mean",
+                                                                      (s, n_in))))),
     ))
     del h, beta, x, args
     # The three path kernels at the dense backbone's serving shape (phase
@@ -5418,9 +5681,7 @@ def phase_times(device="cuda"):
         ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
         plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
         library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-        **dict(zip(("bound_ms", "bound_by"), _bound(
-            flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
-            peak_flops=PEAK_TF32_FLOPS))),
+        **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
     )
     del x, alpha
     s, n, k, m = K2_BACKBONE
@@ -5445,9 +5706,7 @@ def phase_times(device="cuda"):
         ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
         plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
         library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-        **dict(zip(("bound_ms", "bound_by"), _bound(
-            flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
-            peak_flops=PEAK_TF32_FLOPS))),
+        **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
     )
     del x, alpha
     s, n, k, m = K3_TRAIN
@@ -5475,9 +5734,7 @@ def phase_times(device="cuda"):
             plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n),
                                 reps=PLAIN_REPS),
             library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-            **dict(zip(("bound_ms", "bound_by"), _bound(
-                flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
-                peak_flops=PEAK_TF32_FLOPS))),
+            **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
         )
         del x, alpha
     # The one-head RLS update at 6p's training shapes (k = 32 and 8 rows).
@@ -5508,9 +5765,7 @@ def phase_times(device="cuda"):
             plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n),
                                 reps=PLAIN_REPS),
             library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-            **dict(zip(("bound_ms", "bound_by"), _bound(
-                flops=3 * 2.0 * b * n_in * n, nbytes=4.0 * (b * n_in + b * n),
-                peak_flops=PEAK_TF32_FLOPS))),
+            **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
         )
         del x, alpha
         served, _, _ = pass_times(plan, ("serve",), seed)
@@ -5664,7 +5919,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-port", type=Path, metavar="PATH",
                     help="only time the port of the checkout at PATH; print one JSON line")
+    ap.add_argument("--census-sweep", nargs=2, metavar=("ARCH", "DEVICE_BYTES"),
+                    help=argparse.SUPPRESS)  # 6q (d)'s processes
     args = ap.parse_args(argv)
+    if args.census_sweep is not None:
+        return _census_sweep_child(args.census_sweep[0], int(args.census_sweep[1]))
     if args.time_port is not None:
         # Ahead of this checkout's src, so that PATH's repro_torch is imported.
         sys.path.insert(0, str(args.time_port.resolve() / "src"))
@@ -5706,6 +5965,7 @@ def main(argv=None) -> int:
     recurrent = phase_recurrent()
     encdec_res = phase_encdec()
     moe_train = phase_moe_train()
+    phase_census()
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"

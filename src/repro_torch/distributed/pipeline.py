@@ -12,7 +12,8 @@ tick handed them, and the last stage publishes microbatch t - (S - 1).
 The reference hands registers on with one ``ppermute`` a tick inside
 ``shard_map``; here one process runs the stages of a tick in turn, so the
 hand-off is an explicit move of each stage's output to the next stage's
-entry, made after every stage of the tick has read its register.
+entry (``sharding.exchange``: a ``collective-permute`` in a census), made
+after every stage of the tick has read its register.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.distributed.sharding import Mesh
+from repro_torch.distributed.sharding import Mesh, exchange
 
 
 def _map(fn, tree):
@@ -55,7 +56,8 @@ def pipeline_forward(
         if 0 <= t - last < m:
             outputs[t - last] = ys[last].to(h.device)
         # Hand off: stage s's output becomes stage s + 1's register.
-        regs = [regs[0]] + [ys[s - 1].to(devices[s]) for s in range(1, n_stages)]
+        regs = [regs[0]] + [exchange(ys[s - 1], (s - 1,), (s,), mesh, "collective-permute")
+                            for s in range(1, n_stages)]
     return torch.stack(outputs)
 
 

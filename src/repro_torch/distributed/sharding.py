@@ -19,9 +19,11 @@ process has no partitioner, so here placement and exchange are explicit:
   holds, as ``NamedSharding.devices_indices_map`` does; ``Placement.place``
   cuts a tensor into those slices, each on its entry (a ``Sharded``), and
   ``Sharded.gather`` puts the whole tensor back together;
-* a collective is a tensor moved between entries (``.to(device)`` plus
-  ``cat`` or ``split``): a peer copy between two cards, a device-local copy
-  (or none) where two entries name one device.
+* a collective is a tensor moved between entries (``exchange``: a
+  ``.to(device)``, then ``cat`` or ``split``): a peer copy between two
+  cards, a device-local copy (or none) where two entries name one device.
+  ``exchange`` also tallies the move into an open ``launch.census`` when
+  the two positions differ, whatever their devices.
 
 One process calls the shards one after another, so a shard cannot wait
 inside a collective for another: there is no generic ``shard_map`` here.
@@ -48,6 +50,8 @@ import threading
 from typing import Optional
 
 import torch
+
+from repro_torch.launch import census as _census
 
 _state = threading.local()
 
@@ -197,6 +201,25 @@ class Sharded:
                 out[index] = self.shards[pos].to(device)
                 written.add(key)
         return out
+
+
+def exchange(t: torch.Tensor, src: tuple, dst: tuple, mesh: Mesh,
+             kind: str = "all-to-all") -> torch.Tensor:
+    """``t``, held by mesh position ``src``, moved to position ``dst``'s
+    entry: ``t.to(device)``.  Under an open census a move between two
+    positions counts as one exchange of ``kind`` with t's bytes, and its
+    gradient's move back as another; without one, or from a position to
+    itself, it is the plain ``.to``."""
+    out = t.to(mesh.device_at(dst))
+    c = _census.active()
+    if c is None or src == dst:
+        return out
+    c.add_exchange(kind, t.numel() * t.element_size())
+    if out.requires_grad:
+        if out is t:  # the same device: a node of its own for the gradient's hook
+            out = t.view_as(t)
+        out.register_hook(lambda g: c.add_exchange(kind, g.numel() * g.element_size()))
+    return out
 
 
 def _current() -> tuple[Optional[Mesh], dict]:

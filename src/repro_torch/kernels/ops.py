@@ -1,8 +1,11 @@
-"""Device dispatch for the kernels, and their launch counts.
+"""Device dispatch for the kernels, their launch counts and their costs.
 
 A CPU tensor goes to the plain PyTorch version (``ref``); a CUDA tensor goes
 to the hand-written kernel, and a failed build or launch raises — there is
-no fallback.  Any other device raises.  The RLS update takes one of two
+no fallback.  A meta tensor (the dry-run's abstract state) gets outputs of
+the right shapes and dtypes on the meta device: nothing is computed, no
+kernel or plain version is reached and no launch is counted.  Any other
+device raises.  The RLS update takes one of two
 routes by shape (``rls_route``); that is a choice by shape, made before any
 launch, never a retry.
 
@@ -30,6 +33,12 @@ can say at which shapes it ran each kernel.  The keys of all three:
 Each wrapper's CPU path gives a row the same result whatever the number of
 rows beside it, as its kernel does on the card: a cohort's stacked dispatch
 must equal each member's own (``engine/cohort.py``).
+
+``kernel_cost(name, shape)`` is each entry point's whole call in FLOPs and
+bytes (each input read once, each output written once): ``chip_smoke.py``
+bounds the kernels with it, and under a ``launch.census.StepCensus`` every
+entry point adds it for its call, on any device, with the aten-level
+counting paused inside it.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from repro_torch.kernels import oselm_update as _oselm_update
 from repro_torch.kernels import plan_rows as _plan_rows
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import xorshift_proj as _xorshift_proj
+from repro_torch.launch import census as _census
 
 launch_counts = {
     "xorshift_projection": 0,
@@ -68,12 +78,74 @@ def _count(name: str, shape: tuple) -> None:
     launch_shapes[name].add(shape)
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"repro_torch kernels run on CUDA or CPU tensors, got {t.device}")
+def _route(t: torch.Tensor) -> str:
+    """``"cuda"`` (the kernel), ``"cpu"`` (the plain version) or ``"meta"``
+    (shapes only); any other device raises."""
+    if t.device.type in ("cuda", "cpu", "meta"):
+        return t.device.type
+    raise ValueError(f"repro_torch kernels run on CUDA, CPU or meta tensors, got {t.device}")
+
+
+# Bytes a stream of the plan's state: prune (five int32), drift (f32 mean
+# and var, int32 steps, hits and calm, bool active), meter (two f32).
+_PRUNE_BYTES, _DRIFT_BYTES, _METER_BYTES = 5 * 4, 5 * 4 + 1, 2 * 4
+# The plan's seven per-stream fields besides o: pred, confidence, theta
+# (4 bytes each) and queried, controller_on, mode_training (bool).
+_PLAN_FIELD_BYTES = 3 * 4 + 3 * 1
+
+
+def kernel_cost(name: str, shape: tuple, mode: str = "serve",
+                use_features: bool = True) -> tuple[float, float]:
+    """(FLOPs, bytes) of one whole call of entry point ``name`` at
+    ``shape``, keyed as ``launch_shapes`` keys it: each input read once,
+    each output written once, every product counted once (2 per
+    multiply-add; the projection's TF32 split into three products is the
+    kernel's own choice, not the work).
+
+    * ``xorshift_projection`` (S, n_in, N): x f32 in, H out;
+    * ``oselm_rls_update_fleet``, ``oselm_rls_update``, ``rls_two_stage``
+      (S, N, k, m): P and beta in and out, H and Y in; PH^T, the downdate
+      and P'W, 2 S N^2 (2k + m);
+    * ``plan_rows`` (S, N, m, n_in) in ``mode``: h, beta, count and the
+      prune, drift and meter leaves in, x too where the detector steps on
+      the features; o and the plan's fields, prune and meter out, drift
+      too where it steps; the readout and the feature mean;
+    * ``readout`` (S, N, m): h and beta in, o out;
+    * ``row_abs_mean`` (S, n): x in, the mean out.
+    """
+    if name == "xorshift_projection":
+        s, n_in, n = shape
+        return 2.0 * s * n_in * n, 4.0 * (s * n_in + s * n)
+    if name in ("oselm_rls_update_fleet", "oselm_rls_update", "rls_two_stage"):
+        s, n, k, m = shape
+        return (2.0 * s * n * n * (2 * k + m),
+                4.0 * (2 * s * n * n + 2 * s * n * m + s * k * n + s * k * m))
+    if name == "plan_rows":
+        s, n, m, n_in = shape
+        reads_x = mode != "train_phase" and use_features
+        reads = s * (4 * n + 4 * n * m + 4 + _PRUNE_BYTES + _DRIFT_BYTES + _METER_BYTES)
+        writes = s * (4 * m + _PLAN_FIELD_BYTES + _PRUNE_BYTES + _METER_BYTES)
+        if reads_x:
+            reads += 4 * s * n_in
+            writes += s * _DRIFT_BYTES
+        return 2.0 * s * n * m + (2.0 * s * n_in if reads_x else 0.0), float(reads + writes)
+    if name == "readout":
+        s, n, m = shape
+        return 2.0 * s * n * m, 4.0 * (s * n + s * n * m + s * m)
+    if name == "row_abs_mean":
+        s, n = shape
+        return 2.0 * s * n, 4.0 * (s * n + s)
+    raise KeyError(f"no cost for kernel {name!r}")
+
+
+def _add_cost(c, name: str, shape: tuple, outputs, inputs, **kw) -> None:
+    """The call's cost into the open census ``c`` (None: none open)."""
+    if c is not None:
+        c.add_kernel(name, *kernel_cost(name, shape, **kw), outputs, inputs)
+
+
+def _meta(shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def xorshift_projection(
@@ -87,37 +159,57 @@ def xorshift_projection(
 
     Accepts (..., n_in); leading dims are flattened for the kernel.
     """
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if _on_cuda(x2):
-        h = _xorshift_proj.xorshift_projection(
-            x2.contiguous(), seed, n_hidden, scale=scale, activation=activation
-        )
-        _count("xorshift_projection", (x2.shape[0], x2.shape[1], n_hidden))
-    else:
-        h = _ref.xorshift_projection_ref(x2, seed, n_hidden, scale=scale, activation=activation)
-    return h.reshape(lead + (n_hidden,))
+    with _census.kernel_call() as c:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        shape = (x2.shape[0], x2.shape[1], n_hidden)
+        route = _route(x2)
+        if route == "cuda":
+            h = _xorshift_proj.xorshift_projection(
+                x2.contiguous(), seed, n_hidden, scale=scale, activation=activation
+            )
+            _count("xorshift_projection", shape)
+        elif route == "cpu":
+            h = _ref.xorshift_projection_ref(x2, seed, n_hidden, scale=scale,
+                                             activation=activation)
+        else:
+            h = _meta((x2.shape[0], n_hidden))
+        h = h.reshape(lead + (n_hidden,))
+        _add_cost(c, "xorshift_projection", shape, h, x)
+        return h
 
 
 def readout(h: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """Per-stream readout o[s] = h[s] @ beta[s]: h (S, N), beta (S, N, m) -> (S, m)."""
-    if _on_cuda(h):
-        o = _plan_rows.readout(h.to(torch.float32).contiguous(), beta.contiguous())
-        _count("readout", tuple(beta.shape))
+    with _census.kernel_call() as c:
+        route = _route(h)
+        if route == "cuda":
+            o = _plan_rows.readout(h.to(torch.float32).contiguous(), beta.contiguous())
+            _count("readout", tuple(beta.shape))
+        elif route == "cpu":
+            o = _ref.readout_ref(h, beta)
+        else:
+            o = _meta((beta.shape[0], beta.shape[2]))
+        _add_cost(c, "readout", tuple(beta.shape), o, (h, beta))
         return o
-    return _ref.readout_ref(h, beta)
 
 
 def row_abs_mean(x: torch.Tensor) -> torch.Tensor:
     """mean(|x|) over the last axis: (..., n) -> (...) f32."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if _on_cuda(x2):
-        a = _plan_rows.row_abs_mean(x2.to(torch.float32).contiguous())
-        _count("row_abs_mean", tuple(x2.shape))
-    else:
-        a = _ref.row_abs_mean_ref(x2)
-    return a.reshape(lead)
+    with _census.kernel_call() as c:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        route = _route(x2)
+        if route == "cuda":
+            a = _plan_rows.row_abs_mean(x2.to(torch.float32).contiguous())
+            _count("row_abs_mean", tuple(x2.shape))
+        elif route == "cpu":
+            a = _ref.row_abs_mean_ref(x2)
+        else:
+            a = _meta((x2.shape[0],))
+        a = a.reshape(lead)
+        _add_cost(c, "row_abs_mean", tuple(x2.shape), a, x)
+        return a
 
 
 def plan_rows(
@@ -137,7 +229,19 @@ def plan_rows(
     """Everything ``plan`` does after the projection, for S streams:
     ``ref.PlanRows`` (the plan's fields and the new prune, drift and meter
     leaves).  With ``out`` the new leaves are written into those buffers."""
-    if _on_cuda(h):
+    with _census.kernel_call() as c:
+        r = _plan_rows_routed(h, beta, x, count, prune, drift, meter, cfg, mode,
+                              teacher_available, drift_active, out)
+        _add_cost(c, "plan_rows", (*beta.shape, x.shape[-1]), r,
+                  (h, beta, x, count, prune, drift, meter, out), mode=mode,
+                  use_features=cfg.drift.use_features)
+        return r
+
+
+def _plan_rows_routed(h, beta, x, count, prune, drift, meter, cfg, mode, teacher_available,
+                      drift_active, out):
+    route = _route(h)
+    if route == "cuda":
         if teacher_available is not None:
             teacher_available = teacher_available.to(torch.bool).contiguous()
         if drift_active is not None:
@@ -149,6 +253,21 @@ def plan_rows(
             count, prune, drift, meter, cfg, mode, teacher_available, drift_active, out=out)
         _count("plan_rows", (*beta.shape, x.shape[-1]))
         return r
+    if route == "meta":
+        # The kernel wrapper's outputs: new leaves (or ``out``'s), and in
+        # train_phase the detector's leaves passed through.
+        s, m = beta.shape[0], beta.shape[2]
+
+        def new(group):
+            return type(group)(*(_meta((s,), t.dtype) for t in group))
+
+        if out is None:
+            out = (new(prune), new(drift) if mode != "train_phase" else drift, new(meter))
+        b8 = torch.bool
+        return _ref.PlanRows(
+            outputs=_meta((s, m)), pred=_meta((s,), torch.int32), confidence=_meta((s,)),
+            queried=_meta((s,), b8), controller_on=_meta((s,), b8), theta=_meta((s,)),
+            mode_training=_meta((s,), b8), prune=out[0], drift=out[1], meter=out[2])
     r = _ref.plan_rows_ref(h, beta, x, count, prune, drift, meter, cfg, mode,
                            teacher_available, drift_active)
     if out is None:
@@ -168,7 +287,10 @@ def rls_route(n: int, k: int, m: int) -> str:
 
 
 def _rls(P, beta, H, Y, counter, out=None):
-    if not _on_cuda(P):
+    route = _route(P)
+    if route == "meta":
+        return out if out is not None else (torch.empty_like(P), torch.empty_like(beta))
+    if route == "cpu":
         if P.shape[0] == 1:
             # torch's CPU batched products hand a batch of one to matrix-vector
             # routines that sum in another order: a lone stream is updated as
@@ -206,7 +328,11 @@ def oselm_rls_update_fleet(
     Y (S,k,m) -> (P', beta'), Pallas numerics.  With ``out`` the update is
     written into those two buffers (which must not overlap the inputs) and
     they are returned; else into new ones."""
-    return _rls(P, beta, H, Y, "oselm_rls_update_fleet", out)
+    with _census.kernel_call() as c:
+        new = _rls(P, beta, H, Y, "oselm_rls_update_fleet", out)
+        _add_cost(c, "oselm_rls_update_fleet", (P.shape[0], P.shape[1], H.shape[1],
+                                                beta.shape[2]), new, (P, beta, H, Y, out))
+        return new
 
 
 def oselm_rls_update(
@@ -214,5 +340,9 @@ def oselm_rls_update(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Rank-k RLS update of one head: P (N,N), beta (N,m), H (k,N), Y (k,m)
     -> (P', beta').  The S = 1 case of ``oselm_rls_update_fleet``."""
-    new_p, new_beta = _rls(P[None], beta[None], H[None], Y[None], "oselm_rls_update")
-    return new_p[0], new_beta[0]
+    with _census.kernel_call() as c:
+        new_p, new_beta = _rls(P[None], beta[None], H[None], Y[None], "oselm_rls_update")
+        new = (new_p[0], new_beta[0])
+        _add_cost(c, "oselm_rls_update", (1, P.shape[0], H.shape[0], beta.shape[1]), new,
+                  (P, beta, H, Y))
+        return new

@@ -237,3 +237,20 @@ def rls_update_ref(
     """The whole rank-k RLS update with the Pallas numerics: the small
     operands, then the fused pass.  The plain version of both routes."""
     return rls_fused_ref(P, beta, *small_operands(P, beta, H, Y))
+
+
+def fused_elm_head_ref(
+    x: torch.Tensor,  # (k, n_in)
+    P: torch.Tensor,  # (N, N) f32
+    beta: torch.Tensor,  # (N, m) f32
+    Y: torch.Tensor,  # (k, m)
+    seed: int,
+    scale: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Projection + RLS update of one head, fused (what the serve and train
+    steps run): (H, P', beta').  Transcribes ``repro.kernels.ref.
+    fused_elm_head_ref``, with the kernels' RLS numerics (``rls_update_ref``:
+    no symmetrisation of P')."""
+    h = xorshift_projection_ref(x, seed, P.shape[0], scale)
+    new_p, new_beta = rls_update_ref(P[None], beta[None], h[None], Y[None])
+    return h, new_p[0], new_beta[0]

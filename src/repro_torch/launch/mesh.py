@@ -1,10 +1,14 @@
 """Device meshes (PyTorch counterpart of ``repro/launch/mesh.py``): the
-fleet mesh, the small (data, model) mesh of the model side, and a mesh of
-any axes (the pipeline's ``("stage",)``).
+production meshes of the dry-run, the fleet mesh, the small (data, model)
+mesh of the model side, and a mesh of any axes (the pipeline's
+``("stage",)``).
 
 Each is a function, not a module constant, so importing this module
-touches no device.  ``make_production_mesh`` (the 256- and 512-chip pods)
-is not here yet (ROADMAP Queue 1 item 7).
+touches no device.  ``make_production_mesh`` builds the reference's 256-
+and 512-chip pods with meta-device entries by default: the counterpart of
+the 512 placeholder CPU devices the JAX package's dry-run forces, so the
+dry-run (``launch/dryrun.py``) lays out and counts a pod's cell on a host
+with no card or one.
 """
 
 from __future__ import annotations
@@ -45,6 +49,18 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
         raise ValueError(f"a mesh of {shape} needs {math.prod(shape)} entries > "
                          f"{len(devices)} visible devices")
     return Mesh(tuple(devices[:math.prod(shape)]), tuple(axes), shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices: Optional[Sequence] = None) -> Mesh:
+    """16 x 16 over ``("data", "model")`` (one 256-chip pod) or 2 x 16 x 16
+    over ``("pod", "data", "model")`` (two pods), the reference's shapes.
+    The entries default to the meta device; ``devices`` names them, as
+    ``make_mesh`` takes them."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if devices is None:
+        devices = [torch.device("meta")] * math.prod(shape)
+    return make_mesh(shape, axes, devices)
 
 
 def make_dev_mesh(data: int = 2, model: int = 2, devices: Optional[Sequence] = None) -> Mesh:

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.distributed import sharding
+from repro_torch.launch import census
 
 # ---------------------------------------------------------------------------
 # Param schema
@@ -245,8 +246,9 @@ def gelu_mlp(x, wi, wo):
 
 @functools.lru_cache(maxsize=64)
 def _rope_frequencies(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(float(theta), exps)
+    with census.uncounted():
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+        return 1.0 / torch.pow(float(theta), exps)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:

@@ -30,6 +30,11 @@ variant the multiplexed serving path uses.
 
 A serving step writes the KV caches in place: the ``ServeState`` passed in
 is consumed, as the reference's jitted serving loop donates it.
+
+The dry-run's abstract state (``abstract_serve_state``,
+``abstract_train_state``, ``input_specs``) is built on the meta device:
+each returns a tree of meta tensors and, under a mesh, the matching tree
+of ``sharding.Placement``s (else None), as ``layers.abstract_params`` does.
 """
 
 from __future__ import annotations
@@ -38,12 +43,12 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import engine, resolve_device
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core import drift as drift_mod
 from repro_torch.core import oselm, pruning
+from repro_torch.distributed import sharding
 from repro_torch.models import encdec, layers, transformer
 from repro_torch.models.layers import softmax_cross_entropy
 from repro_torch.optim import adam
@@ -214,7 +219,11 @@ def odl_update(
     prune_mask = warm & ~drift_active & (conf > theta)
     queried = ~prune_mask  # (B,)
 
-    y = F.one_hot(odl_labels.long(), ecfg.n_out).to(torch.float32)
+    # One-hot by a comparison: the same ops on every device (F.one_hot takes
+    # a range check with a host sync on the CPU only), so a census of the
+    # step counts alike on the CPU, the card and the meta device.
+    classes = torch.arange(ecfg.n_out, device=odl_labels.device)
+    y = (odl_labels.long()[:, None] == classes).to(torch.float32)
     new_elm = oselm.sequential_update(odl.elm, feats, y, ecfg, mask=queried.to(torch.float32))
     agree = preds == odl_labels
     new_prune = pruning.scan_update(odl.prune, queried, agree, conf, pcfg)
@@ -376,3 +385,177 @@ def encdec_prefill(params: dict, frames: torch.Tensor, cfg: ModelConfig, max_len
     self-attention slots)."""
     enc = encdec.encode(params, frames, cfg)
     return enc, encdec.init_caches(params, enc, cfg, max_len)
+
+
+# ---------------------------------------------------------------------------
+# Abstract state builders (dry-run: meta tensors + Placements only)
+# ---------------------------------------------------------------------------
+
+
+def _is_record(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def _map_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of dicts and NamedTuples, the path a
+    tuple of keys and field names."""
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if _is_record(tree):
+        return type(tree)(*(_map_path(fn, v, path + (f,)) for f, v in zip(tree._fields, tree)))
+    return fn(path, tree)
+
+
+def _map_with(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over ``tree``'s structure (``other`` has
+    it too, its leaves of any kind)."""
+    if isinstance(tree, dict):
+        return {k: _map_with(fn, v, other[k]) for k, v in tree.items()}
+    if _is_record(tree):
+        return type(tree)(*(_map_with(fn, v, getattr(other, f))
+                            for f, v in zip(tree._fields, tree)))
+    return fn(tree, other)
+
+
+def _abstract_like(tree, axes_tree):
+    """A tree of tensors (meta or not) + its logical-axes tree -> (the
+    leaves as meta tensors, their Placements under the current mesh, else
+    None)."""
+    metas = _map_path(lambda _, t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
+    if sharding.mesh_or_none() is None:
+        return metas, None
+    return metas, _map_with(lambda t, axes: sharding.named_sharding(*axes, shape=tuple(t.shape)),
+                            metas, axes_tree)
+
+
+def _axes_like(tree, fn):
+    """An axes tree with ``tree``'s structure by ``fn(path, leaf)``."""
+    return _map_path(fn, tree)
+
+
+def cache_axes(path: tuple, leaf) -> tuple:
+    """Logical axes for one decode-cache leaf, keyed by leaf name + rank.
+
+    KV/latent caches shard their sequence dim over 'model' (flash-decoding
+    style length sharding — the natural decode TP axis) and batch over
+    ('pod','data'); recurrent states shard heads/width over 'model'.
+    """
+    name = path[-1].strip("'[]")
+    nd = leaf.ndim
+    lead: tuple = ("layers",)  # stacked layer/group dim
+    if name in ("k", "v"):  # (L, B, S, KV, hd)
+        return lead + ("batch", "seq_kv", "kv_heads", None)[: nd - 1]
+    if name in ("ckv", "k_rope"):  # (L, B, S, R)
+        return lead + ("batch", "seq_kv", None)[: nd - 1]
+    if name == "state":  # (L, B, H, P, N)
+        return lead + ("batch", "ssm_heads", None, None)[: nd - 1]
+    if name == "conv":  # (L, B, W-1, C)
+        return lead + ("batch", None, "mlp")[: nd - 1]
+    if name == "h":  # (L, B, W)
+        return lead + ("batch", "mlp")[: nd - 1]
+    return lead + ("batch",) + (None,) * (nd - 2)
+
+
+def _stream_axes(path, leaf) -> tuple:
+    return ("stream",) + (None,) * (leaf.ndim - 1)
+
+
+def abstract_serve_state(cfg: ModelConfig, batch: int, max_len: int):
+    """(``ServeState`` of meta tensors, its ``Placement``s or None): the
+    caches by ``cache_axes``, ``pos`` and the fleet's leaves on ``stream``."""
+    shapes = init_serve_state(cfg, batch, max_len, device="meta")
+    caches, cache_pl = _abstract_like(shapes.caches, _axes_like(shapes.caches, cache_axes))
+    pos, pos_pl = _sds((batch,), torch.int32, "stream")
+    odl, odl_pl = _abstract_like(shapes.odl, _axes_like(shapes.odl, _stream_axes))
+    state = ServeState(caches=caches, pos=pos, odl=odl)
+    if sharding.mesh_or_none() is None:
+        return state, None
+    return state, ServeState(caches=cache_pl, pos=pos_pl, odl=odl_pl)
+
+
+def abstract_train_state(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
+    """(``TrainState`` of meta tensors, its ``Placement``s or None): params
+    TP+FSDP-sharded by ``layers.param_specs``, f32 moments ZeRO-1, the
+    step and the head replicated."""
+    schema = build_schema(cfg)
+    params, param_pl = layers.abstract_params(schema, dtype=getattr(torch, tcfg.param_dtype))
+    mesh = sharding.mesh_or_none()
+    def moments():
+        return layers._tree_of(schema, lambda leaf: torch.empty(
+            leaf.shape, dtype=torch.float32, device="meta"))
+
+    step = torch.empty((), dtype=torch.int32, device="meta")
+    odl = init_odl_state(cfg, device="meta")
+    state = TrainState(params=params, opt=adam.AdamState(step=step, m=moments(), v=moments()),
+                       odl=odl)
+    if mesh is None:
+        return state, None
+
+    def moment_of(p, placement):
+        """ZeRO-1: moments get 'data' (and 'pod') on a free dim — unless the
+        param is already FSDP-sharded over data (then moments match it)."""
+        msh = mesh.shape
+        entries = list(placement.spec) + [None] * (p.dim() - len(placement.spec))
+        flat = [a for e in entries for a in (e if isinstance(e, tuple) else (e,))]
+        if "data" not in flat:
+            for axes_try in ((("pod", "data") if "pod" in msh else None), "data"):
+                if axes_try is None:
+                    continue
+                size = msh["pod"] * msh["data"] if isinstance(axes_try, tuple) else msh["data"]
+                placed = False
+                for i, e in enumerate(entries):
+                    if e is None and p.shape[i] % size == 0 and p.shape[i] >= size:
+                        entries[i] = axes_try
+                        placed = True
+                        break
+                if placed:
+                    break
+        return sharding.Placement(mesh, sharding.P(*entries))
+
+    def replicated(_, t):
+        return sharding.Placement(mesh, sharding.P())
+
+    m_pl = _map_with(moment_of, params, param_pl)
+    placements = TrainState(
+        params=param_pl,
+        opt=adam.AdamState(step=replicated((), step), m=m_pl, v=m_pl),
+        odl=_map_path(replicated, odl))
+    return state, placements
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs (meta tensors + Placements, no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _sds(shape_tuple, dtype, *names):
+    """(a meta tensor of ``shape_tuple``, its Placement by ``names`` under
+    the current mesh, else None)."""
+    return (torch.empty(shape_tuple, dtype=dtype, device="meta"),
+            sharding.named_sharding(*names, shape=tuple(shape_tuple)))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """(meta tensors of every model input of this (arch, shape) cell, by
+    name; their Placements under the current mesh, else None)."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "train":
+        specs = {
+            "tokens": _sds((b, s), i32, "batch", "seq"),
+            "labels": _sds((b, s), i32, "batch", "seq"),
+            "odl_labels": _sds((b,), i32, "batch"),
+        }
+        if cfg.enc_dec:
+            specs["frames"] = _sds((b, s, cfg.d_model), torch.float32, "batch", "seq", "embed")
+    elif shape.kind == "prefill":
+        if cfg.enc_dec:
+            specs = {"frames": _sds((b, s, cfg.d_model), torch.float32, "batch", "seq", "embed")}
+        else:
+            specs = {"tokens": _sds((b, s), i32, "batch", "seq")}
+    else:  # decode: one new token against an S-long cache
+        specs = {"token": _sds((b, 1), i32, "batch", None)}
+    metas = {k: v[0] for k, v in specs.items()}
+    if sharding.mesh_or_none() is None:
+        return metas, None
+    return metas, {k: v[1] for k, v in specs.items()}

@@ -182,8 +182,9 @@ def _moe_block_dense(x: torch.Tensor, p: dict, cfg: ModelConfig):
 # local experts' weights; (4) the reverse exchange: position (.., j) gathers
 # capacity block j of every model-row position's output, concatenated along
 # the experts in model order: (E, C_loc, d); (5) the combine.  An exchange
-# is a tensor moved to the receiving position's entry (none where two
-# entries name one device), so autograd runs through it.
+# is a tensor moved to the receiving position's entry by
+# ``sharding.exchange`` (no copy where two entries name one device; an
+# ``all-to-all`` in a census), so autograd runs through it.
 
 
 def ep_layout(n_tokens: int, cfg: ModelConfig, mesh: sharding.Mesh):
@@ -251,7 +252,8 @@ def moe_block_ep(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh: sharding.Mesh
     for pos in positions:
         dev, j = mesh.device_at(pos), pos[mi]
         experts = slice(j * e_loc, (j + 1) * e_loc)
-        recv = torch.cat([bufs[row(pos, jj)][experts].to(dev) for jj in range(m)], dim=1)
+        recv = torch.cat([sharding.exchange(bufs[row(pos, jj)][experts], row(pos, jj), pos,
+                                            mesh) for jj in range(m)], dim=1)
         out[pos] = _experts(recv, *(p[w][experts].to(dev) for w in ("wg", "wu", "wd")))
     # (4) return exchange and (5) the combine, at one position per token shard.
     ys, shard_aux = {}, {}
@@ -259,9 +261,10 @@ def moe_block_ep(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh: sharding.Mesh
         k = _token_shard(pos, tok_axes, mesh)
         if k in ys:
             continue
-        dev, j = mesh.device_at(pos), pos[mi]
-        back = torch.cat([out[row(pos, jj)][:, j * cap:(j + 1) * cap].to(dev)
-                          for jj in range(m)], dim=0)
+        j = pos[mi]
+        back = torch.cat([sharding.exchange(out[row(pos, jj)][:, j * cap:(j + 1) * cap],
+                                            row(pos, jj), pos, mesh) for jj in range(m)],
+                         dim=0)
         ys[k] = _combine(back, *routing[pos], x.dtype).to(x.device)
         shard_aux[k] = auxes[pos].to(x.device)
     y = torch.cat([ys[k] for k in range(n_split)])

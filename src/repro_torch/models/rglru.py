@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import census
 from repro_torch.models.layers import Leaf, dot
 from repro_torch.models.ssm import causal_conv, conv_step
 
@@ -48,7 +49,8 @@ def rglru_schema(cfg: ModelConfig) -> dict:
 @functools.lru_cache(maxsize=8)
 def _const(c: float, dtype: torch.dtype) -> float:
     """c rounded to ``dtype``, as jnp rounds a constant to its operand's."""
-    return float(torch.tensor(c, dtype=dtype))
+    with census.uncounted():
+        return float(torch.tensor(c, dtype=dtype))
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ package skip there):
 """
 
 import importlib.util
+import types
 
 import numpy as np
 import pytest
@@ -269,8 +270,13 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
         oselm_update.rls_fleet(P, beta, pht, g, w)
     with pytest.raises(ValueError, match="CUDA"):
         oselm_update.rls_single(P, beta, H, Y)
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        ops.xorshift_projection(torch.zeros(2, 8, device="meta"), 1, 4)
+    # The entry points take CUDA, CPU and meta tensors (meta: shapes only,
+    # no launch counted); any other device raises.
+    before = dict(ops.launch_counts)
+    h = ops.xorshift_projection(torch.zeros(2, 8, device="meta"), 1, 4)
+    assert h.device.type == "meta" and h.shape == (2, 4) and ops.launch_counts == before
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
+        ops._route(types.SimpleNamespace(device=torch.device("xpu")))
 
 
 # ---------------------------------------------------------------------------
