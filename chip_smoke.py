@@ -30,17 +30,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``tests/test_odl_system.py``'s claims, the trial run twice must give the
    same result, two trials must agree with the CPU (accuracy within 1 pt,
    comm within 2 pts), and the projection, the plan's pass and the
-   single-pass RLS (one per tick) must have launched at both widths.  Before it, the
+   single-pass RLS must have replayed at both widths (one RLS replay per
+   tick; each trial's ``run_fleet`` replays a 16-tick CUDA graph 63 times,
+   captured once per trial configuration, whose one-tick warm-up is the
+   one eager RLS launch per capture).  Before it, the
    kernels are held against their plain versions at the path's own shapes
    (one stream a tick; the boot's and the accuracy sets' batches);
 6. the fleet path: ``har_odl.full()`` at S=16,384 streams, ``train_phase``
-   for 32 ticks and ``algo1`` for 96, through ``run_fleet``; the launch
-   counts show both kernels ran, and the accounting identities hold;
+   for 32 ticks and ``algo1`` for 96, through ``run_fleet`` (one CUDA graph
+   of the whole run each; the first call's rate has its capture timed in,
+   and the capture ms and a second, replay-only call's rate are printed
+   apart); the graph replays show
+   the path's kernels ran once a tick, and the accounting identities hold;
    then a small fleet run on the card and on the CPU must agree, and a
    profiler window shows where a tick's device time goes (the RLS update
-   must be one kernel per tick there); 6b also lists the CUDA kernels of
-   one eager ``plan`` per mode, which must be the projection and the
-   plan's pass and nothing else;
+   must be one kernel per tick there: an eager ``fleet_step`` loop); 6b
+   also lists the CUDA kernels of one eager ``plan`` per mode, which must
+   be the projection and the plan's pass and nothing else;
+6r. ``run_fleet``'s chunk runner (one CUDA graph per chunk shape): (a)
+   phase 6's two runs with ``chunk=16`` and a ragged ``chunk=40``, each
+   bit for bit an eager ``fleet_step`` loop (final state and every
+   output), the path's kernels replayed at least once a tick, one capture
+   per (mode, chunk shape), the result in the caller's P with the default
+   donation and the caller's state untouched with ``donate=False``, which
+   replays the donating run's graph (no capture of its own); it
+   prints graphed and eager stream·ticks/s, capture ms and a profiled
+   replay window's device busy share; (b) one paper trial (S=1, N=128,
+   1,008 ticks) through the runner, in the trial harness's 16-tick chunks
+   and as one graph of all its ticks, each bit for bit the eager loop,
+   with its capture and replay ms;
 6c. the stream path: the same fleet through ``stream.run`` with the runners
    replayed as CUDA graphs and ticks shipped from host memory; with a
    zero-latency teacher it must equal ``run_fleet`` bit for bit, then
@@ -997,6 +1015,7 @@ def phase_paper_tables(device="cuda"):
     from repro_torch.core import memory_model as mm
     from repro_torch.core import power_model as pm
     from repro_torch.data import har
+    from repro_torch.engine import graphs
     from repro_torch.kernels import ops
 
     splits = har.generate(seed=0)
@@ -1006,7 +1025,12 @@ def phase_paper_tables(device="cuda"):
         sorted({1, len(splits.train_x), len(splits.test0_x), len(tx)}), device)
     trial = common.drift_trial
     runs: dict[tuple, list] = {}  # (variant, N, theta) -> results, in call order
+    # Eager launches (the accuracy sets' projections, each graph's one-tick
+    # warm-up) and graph replays (the 1008 ticks of a trial's run_fleet).
     per_n = {n: dict.fromkeys(ops.launch_counts, 0) for n in PAPER_WIDTHS}
+    per_n_replays = {n: dict.fromkeys(ops.launch_counts, 0) for n in PAPER_WIDTHS}
+    captures = dict.fromkeys(PAPER_WIDTHS, 0)
+    capture_ms = []
     trial_secs = []
 
     done: dict[tuple, dict] = {}  # trial arguments -> result
@@ -1020,17 +1044,26 @@ def phase_paper_tables(device="cuda"):
             served.append(key)
             return dict(done[key])
         before = dict(ops.launch_counts)
+        before_replays = dict(graphs.kernel_replays)
+        before_captures = graphs.capture_counts.get("chunk_runner", 0)
+        before_ms = graphs.capture_ms.get("chunk_runner", 0.0)
         t0 = time.perf_counter()
         r = trial(run_seed, theta, n_hidden, variant, dataset_seed, device)
         trial_secs.append(time.perf_counter() - t0)
         for k, v in ops.launch_counts.items():
             per_n[n_hidden][k] += v - before[k]
+            per_n_replays[n_hidden][k] += graphs.kernel_replays[k] - before_replays[k]
+        new_captures = graphs.capture_counts.get("chunk_runner", 0) - before_captures
+        captures[n_hidden] += new_captures
+        if new_captures:
+            capture_ms.append(graphs.capture_ms["chunk_runner"] - before_ms)
         runs.setdefault((variant, n_hidden, theta), []).append(r)
         done.setdefault(key, r)
         return dict(r)
 
     t_start = time.perf_counter()
     ops.reset_launch_counts()
+    graphs.reset_replay_counts()
     common.drift_trial = counted
     try:
         rows = (paper_tables.table1_memory() + paper_tables.table4_core()
@@ -1041,10 +1074,13 @@ def phase_paper_tables(device="cuda"):
     finally:
         common.drift_trial = trial
     launches = dict(ops.launch_counts)
+    replays = dict(graphs.kernel_replays)
     secs = time.perf_counter() - t_start
     print(f"paper tables on {device} ({PAPER_TRIALS} trial per drift row, {len(trial_secs)} "
           f"trials of {n_ticks} ticks run and {len(served)} repeats served from them, "
-          f"{secs:.1f} s; a trial {min(trial_secs):.2f}-{max(trial_secs):.2f} s):")
+          f"{secs:.1f} s; a trial {min(trial_secs):.2f}-{max(trial_secs):.2f} s, of it the "
+          f"run_fleet graph's capture {min(capture_ms):.1f}-{max(capture_ms):.1f} ms, "
+          f"{sum(captures.values())} captures in all):")
     for name, value, derived in rows:
         print(f"  {name},{value},{derived}")
     got = {name: value for name, value, _ in rows}
@@ -1108,19 +1144,26 @@ def phase_paper_tables(device="cuda"):
         check(abs(card["comm"] - cpu["comm"]) <= 0.02, f"card vs cpu {variant} N={n}: comm")
     print(f"  card vs cpu: {json.dumps(cross)}")
 
-    # The paper path went through the kernels at both widths.
+    # The paper path went through the kernels at both widths: one replay
+    # per tick, and one eager launch per capture (its one-tick warm-up).
     for n in PAPER_WIDTHS:
         for name in PAPER_KERNELS:
-            check(per_n[n][name] > 0, f"paper path N={n}: {name} never launched")
+            check(per_n_replays[n][name] > 0, f"paper path N={n}: {name} never replayed")
         n_rls = sum(r["queries"] + r["skips"] for (_, w, _), rs in runs.items() if w == n
                     for r in rs)
-        check(per_n[n]["oselm_rls_update_fleet"] == n_rls,
-              f"paper path N={n}: {per_n[n]['oselm_rls_update_fleet']} RLS launches, "
+        check(per_n_replays[n]["oselm_rls_update_fleet"] == n_rls,
+              f"paper path N={n}: {per_n_replays[n]['oselm_rls_update_fleet']} RLS replays, "
               f"not one per tick ({n_rls})")
-        check(per_n[n]["rls_two_stage"] == 0, f"paper path N={n}: two-stage route taken")
-    print(f"  launches by width: {json.dumps(per_n)}; kernels vs plain at the path's shapes: "
-          f"{json.dumps(errs)}")
-    return dict(launches=launches, errs=errs)
+        check(per_n[n]["oselm_rls_update_fleet"] == captures[n],
+              f"paper path N={n}: {per_n[n]['oselm_rls_update_fleet']} eager RLS launches, "
+              f"not one per capture ({captures[n]})")
+        check(per_n[n]["rls_two_stage"] + per_n_replays[n]["rls_two_stage"] == 0,
+              f"paper path N={n}: two-stage route taken")
+    print(f"  launches by width: {json.dumps(per_n)}; replays by width: "
+          f"{json.dumps(per_n_replays)}; captures by width: {json.dumps(captures)}; kernels vs "
+          f"plain at the path's shapes: {json.dumps(errs)}")
+    return dict(launches=launches, replays=replays, errs=errs, captures=captures,
+                capture_ms=capture_ms, trial_secs=trial_secs)
 
 
 def _fleet_ticks(data, n_ticks, n_streams, shift_at, device, seed):
@@ -1152,21 +1195,29 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def _run_fleet_once(cfg, xs, ys, mode, device):
+def _run_fleet_once(cfg, xs, ys, mode, device, **kw):
+    """One ``run_fleet`` from a fresh fleet, its accounting checked: (state,
+    outputs, seconds, launches + graph replays by kernel, replays alone).
+    On the card ``run_fleet`` replays a CUDA graph per chunk, whose kernels
+    raise ``graphs.kernel_replays``, not ``ops.launch_counts`` (there only
+    the warm-up before a capture launches)."""
     import torch
 
     from repro_torch import engine
+    from repro_torch.engine import graphs
     from repro_torch.kernels import ops
 
     n_ticks, n_streams = ys.shape
     state = engine.init_fleet(cfg, n_streams, device)
     _sync(device)
     ops.reset_launch_counts()
+    graphs.reset_replay_counts()
     t0 = time.perf_counter()
-    state, outs = engine.run_fleet(state, xs, ys, cfg, mode=mode)
+    state, outs = engine.run_fleet(state, xs, ys, cfg, mode=mode, **kw)
     _sync(device)
     secs = time.perf_counter() - t0
-    counts = dict(ops.launch_counts)
+    replays = dict(graphs.kernel_replays)
+    counts = {k: n + replays[k] for k, n in ops.launch_counts.items()}
     # Accounting identities with the teacher always available.
     observed = outs.mode_training.to(torch.int32).sum(0)
     check(torch.equal(state.prune.queries + state.prune.skips, observed),
@@ -1177,7 +1228,7 @@ def _run_fleet_once(cfg, xs, ys, mode, device):
     for name, t in (("beta", state.elm.beta), ("P", state.elm.P), ("outputs", outs.outputs)):
         check(bool(torch.isfinite(t).all()), f"{mode}: non-finite {name}")
     check(outs.pred.shape == (n_ticks, n_streams), f"{mode}: pred shape {tuple(outs.pred.shape)}")
-    return state, outs, secs, counts
+    return state, outs, secs, counts, replays
 
 
 def phase_fleet(device="cuda", n_streams=FLEET_STREAMS, n_hidden=128,
@@ -1188,18 +1239,28 @@ def phase_fleet(device="cuda", n_streams=FLEET_STREAMS, n_hidden=128,
     from repro_torch.configs import har_odl
     from repro_torch.data import har
 
+    from repro_torch.engine import fleet, graphs
+
     cfg = har_odl.full(n_hidden=n_hidden)
     data = har.generate(seed=SEED)
-    res = {"launches": {}}
+    res = {"launches": {}, "replays": {}}
     runs = {}
     for mode, n_ticks, shift_at in _fleet_modes(train_ticks, algo1_ticks):
         xs, ys = _fleet_ticks(data, n_ticks, n_streams, shift_at, device, SEED + n_ticks)
-        state, outs, secs, counts = _run_fleet_once(cfg, xs, ys, mode, device)
+        state, outs, secs, counts, replays = _run_fleet_once(cfg, xs, ys, mode, device)
         runs[mode] = (state, outs)
+        # The first call captures the run's graph (``_run_fleet_once`` zeroes
+        # the tallies before it): its capture and a second, replay-only call
+        # are read apart.
+        res[f"{mode}_capture_ms"] = graphs.capture_ms.get("chunk_runner", 0.0)
+        res[f"{mode}_replay_stream_ticks_per_s"] = (
+            n_streams * n_ticks / _run_fleet_once(cfg, xs, ys, mode, device)[2])
         for name, n in counts.items():
             if device == "cuda" and name in MODE_KERNELS[mode]:
-                check(n >= n_ticks, f"{mode}: {name} launched {n} < {n_ticks} times")
+                check(replays[name] >= n_ticks,
+                      f"{mode}: {name} replayed {replays[name]} < {n_ticks} times")
             res["launches"][name] = res["launches"].get(name, 0) + n
+            res["replays"][name] = res["replays"].get(name, 0) + replays[name]
         if device == "cuda":
             check(counts["rls_two_stage"] == 0, f"{mode}: the fleet shape took the two-stage route")
         res[f"{mode}_stream_ticks_per_s"] = n_streams * n_ticks / secs
@@ -1214,7 +1275,10 @@ def phase_fleet(device="cuda", n_streams=FLEET_STREAMS, n_hidden=128,
         else:
             check(bool(outs.queried.all()), "train_phase: a cold head skipped a query")
         del xs, ys, state, outs
-    print(f"fleet path (S={n_streams}, N={n_hidden}): {json.dumps(res)}")
+    fleet.release_chunk_graphs()  # the graphs' buffers
+    print(f"fleet path (S={n_streams}, N={n_hidden}; one graph a run: *_stream_ticks_per_s "
+          f"its first call, capture included, *_capture_ms and *_replay_stream_ticks_per_s "
+          f"apart): {json.dumps(res)}")
     return res, runs
 
 
@@ -1232,6 +1296,7 @@ def phase_cross_check(n_streams=256, n_ticks=32):
 
     from repro_torch.configs import har_odl
     from repro_torch.data import har
+    from repro_torch.engine import fleet
 
     cfg = har_odl.full()
     data = har.generate(seed=SEED)
@@ -1240,6 +1305,7 @@ def phase_cross_check(n_streams=256, n_ticks=32):
     for device in ("cuda", "cpu"):
         state, outs = _run_fleet_once(cfg, xs.to(device), ys.to(device), "train_phase", device)[:2]
         out[device] = (state.elm.beta.cpu(), state.elm.P.cpu(), outs)
+    fleet.release_chunk_graphs()
     (bc, pc, oc), (bp, pp, op) = out["cuda"], out["cpu"]
     for f in ("queried", "mode_training", "theta"):
         check(torch.equal(getattr(oc, f).cpu(), getattr(op, f)), f"cross-check: {f} differs")
@@ -1254,15 +1320,16 @@ def phase_cross_check(n_streams=256, n_ticks=32):
 
 def _train_phase_rate(device="cuda", n_streams=FLEET_STREAMS, n_ticks=TRAIN_TICKS):
     """Fleet ``train_phase`` stream-ticks per second (host clock), after a
-    warm-up run that takes the first launches, the allocator's growth and
-    the library handles out of the timing."""
+    warm-up run of the same shape that takes the first launches (the
+    graph's capture, where ``run_fleet`` replays one), the allocator's
+    growth and the library handles out of the timing."""
     from repro_torch.configs import har_odl
     from repro_torch.data import har
 
     cfg = har_odl.full()
     xs, ys = _fleet_ticks(har.generate(seed=SEED), n_ticks, n_streams, n_ticks, device,
                           SEED + n_ticks)
-    _run_fleet_once(cfg, xs[:4], ys[:4], "train_phase", device)
+    _run_fleet_once(cfg, xs, ys, "train_phase", device)  # captures the run's graph
     return n_streams * n_ticks / _run_fleet_once(cfg, xs, ys, "train_phase", device)[2]
 
 
@@ -1389,6 +1456,216 @@ def phase_profile(device="cuda", n_streams=FLEET_STREAMS, n_ticks=PROFILE_TICKS)
           f"{sum(learn_kernels.values())} launches of {len(learn_kernels)} kernels")
     return {"wall_ms": wall_ms, "device_ms": busy, "plan_kernels": plan_kernels,
             "learn_launches": sum(learn_kernels.values())}
+
+
+def _eager_fleet(state, xs, ys, cfg, mode, device):
+    """The ticks as a plain loop of eager ``fleet_step`` calls (no runner,
+    no graph): (state, outputs stacked over (T, S), seconds)."""
+    import torch
+
+    from repro_torch import engine
+
+    _sync(device)
+    t0 = time.perf_counter()
+    outs = []
+    for t in range(xs.shape[0]):
+        state, out = engine.fleet_step(state, xs[t], ys[t], cfg, mode=mode)
+        outs.append(out)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    return state, engine.types.tree_map(lambda *a: torch.stack(a), *outs), secs
+
+
+def _chunk_shapes(n_ticks, chunks):
+    """The chunk lengths ``run_fleet`` calls its runner at, over ``chunks``."""
+    shapes = set()
+    for chunk in chunks:
+        c, t = min(chunk, n_ticks), 0
+        while t < n_ticks:
+            shapes.add(min(c, n_ticks - t))
+            t += c
+    return shapes
+
+
+def _replay_busy(fn, device="cuda"):
+    """``torch.profiler`` over one call of ``fn`` (graph replays): (wall
+    ms, device busy ms, how many kernels it lists).  Device ms is None
+    where the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 if dev else None
+    return wall_ms, busy, len(dev)
+
+
+def phase_chunk_runner(device="cuda", n_streams=FLEET_STREAMS):
+    """6r: ``run_fleet``'s chunk runner (one CUDA graph replay per chunk).
+    (a) ``har_odl.full()`` at S=16,384, phase 6's two runs (``train_phase``
+    32 ticks, ``algo1`` 96 with the drift at 64) with ``chunk=16`` and with
+    a ragged ``chunk=40``, each bit for bit an eager ``fleet_step`` loop on
+    the same inputs (final state and every output); the projection, the
+    RLS update and the plan's pass replayed at least once a tick; one
+    capture per (mode, chunk shape); the result in the caller's P with the
+    default donation, the caller's state untouched with ``donate=False``
+    (which replays the donating run's graph);
+    graphed and eager stream·ticks/s, capture ms and a profiled replay
+    window's device busy share.  (b) one §3 paper trial (S=1, N=128, 1,008
+    ``train_phase`` ticks, the auto ladder) through the runner, in the trial
+    harness's chunks and as one graph of all its ticks, each bit for bit
+    the eager loop, with its capture and replay ms."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.benchmarks import common
+    from repro_torch.configs import har_odl
+    from repro_torch.core import pruning
+    from repro_torch.data import har
+    from repro_torch.engine import fleet, graphs
+    from repro_torch.engine.types import tree_leaves
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    card = _card()
+    cfg = har_odl.full()
+    data = har.generate(seed=SEED)
+    res = {"fleet": {}, "replays": dict.fromkeys(ops.launch_counts, 0)}
+    chunks = (16, 40)
+
+    def count(before):
+        for k, n in graphs.kernel_replays.items():
+            res["replays"][k] += n - before[k]
+
+    for mode, n_ticks, shift_at in _fleet_modes():
+        xs, ys = _fleet_ticks(data, n_ticks, n_streams, shift_at, device, SEED + n_ticks)
+        _eager_fleet(engine.init_fleet(cfg, n_streams, device), xs[:2], ys[:2], cfg, mode,
+                     device)  # warm-up: the eager rate below is a steady one
+        want, want_outs, eager_secs = _eager_fleet(engine.init_fleet(cfg, n_streams, device),
+                                                   xs, ys, cfg, mode, device)
+        fleet.release_chunk_graphs()
+        graphs.reset_replay_counts()
+        row = {"eager_stream_ticks_per_s": n_streams * n_ticks / eager_secs}
+        for chunk in chunks:
+            st0 = engine.init_fleet(cfg, n_streams, device)
+            ptr = st0.elm.P.data_ptr()
+            before = dict(graphs.kernel_replays)
+            _sync(device)
+            t0 = time.perf_counter()
+            st, outs = engine.run_fleet(st0, xs, ys, cfg, mode=mode, chunk=chunk)
+            _sync(device)
+            row[f"chunk{chunk}_first_call_s"] = time.perf_counter() - t0
+            count(before)
+            differ = _bitwise_differs(want, st) + _bitwise_differs(want_outs, outs)
+            check(not differ, f"6r {mode} chunk={chunk}: {differ} differ from the eager loop")
+            check(st.elm.P.data_ptr() == ptr,
+                  f"6r {mode} chunk={chunk}: the donated result is not in the caller's P")
+            for name in PATH_KERNELS:
+                got = graphs.kernel_replays[name] - before[name]
+                check(got >= n_ticks, f"6r {mode} chunk={chunk}: {name} replayed {got} < "
+                                      f"{n_ticks} times")
+            del st0, st, outs
+        shapes = _chunk_shapes(n_ticks, chunks)
+        check(graphs.capture_counts.get("chunk_runner") == len(shapes),
+              f"6r {mode}: {graphs.capture_counts.get('chunk_runner')} captures for chunk "
+              f"shapes {sorted(shapes)}")
+        row["captures"] = len(shapes)
+        row["chunk_shapes"] = sorted(shapes)
+        row["capture_ms"] = graphs.capture_ms.get("chunk_runner")
+        # Replays only: the graphed rate, then one profiled replay window.
+        before = dict(graphs.kernel_replays)
+        st0 = engine.init_fleet(cfg, n_streams, device)
+        _sync(device)
+        t0 = time.perf_counter()
+        engine.run_fleet(st0, xs, ys, cfg, mode=mode, chunk=16)
+        _sync(device)
+        row["graphed_stream_ticks_per_s"] = n_streams * n_ticks / (time.perf_counter() - t0)
+        st0 = engine.init_fleet(cfg, n_streams, device)
+        wall_ms, busy_ms, n_kernels = _replay_busy(
+            lambda: engine.run_fleet(st0, xs, ys, cfg, mode=mode, chunk=16), device)
+        count(before)
+        row["profiled_wall_ms"] = wall_ms
+        row["device_busy_ms"] = busy_ms
+        row["busy_share"] = None if busy_ms is None else busy_ms / wall_ms
+        row["profiled_kernels"] = n_kernels
+        del st0
+        if mode == "train_phase":
+            # donate=False: the caller's state is left as it was, and the
+            # graph is the donating run's (no capture).
+            st0 = engine.init_fleet(cfg, n_streams, device)
+            kept = [a.clone() for a in tree_leaves(st0)]
+            before = dict(graphs.kernel_replays)
+            st, outs = engine.run_fleet(st0, xs, ys, cfg, mode=mode, chunk=16, donate=False)
+            count(before)
+            check(graphs.capture_counts.get("chunk_runner") == len(shapes),
+                  "6r donate=False: captured a graph of its own")
+            check(all(torch.equal(a, b) for a, b in zip(tree_leaves(st0), kept)),
+                  "6r donate=False: the caller's state changed")
+            differ = _bitwise_differs(want, st) + _bitwise_differs(want_outs, outs)
+            check(not differ, f"6r donate=False: {differ} differ from the eager loop")
+            check(st.elm.P.data_ptr() != st0.elm.P.data_ptr(),
+                  "6r donate=False: the result shares the caller's P")
+            row["donate_false_bit_for_bit"] = True
+            del st0, st, outs, kept
+        res["fleet"][mode] = row
+        del xs, ys, want, want_outs
+        fleet.release_chunk_graphs()
+        print(f"chunk runner (6r (a), S={n_streams}, {mode}, {n_ticks} ticks, chunk 16 and 40) "
+              f"on {card}: bit for bit the eager loop; {json.dumps(row)}")
+
+    # (b) one paper trial through the runner.
+    splits = har.generate(seed=0)
+    pcfg, core = common.boot_core(splits, 0, "auto", 128, "hash", device)
+    ox, oy, _, _ = har.odl_split(splits, 0.6, 0)
+    xs = torch.as_tensor(ox, device=device)[:, None]
+    ys = torch.as_tensor(oy.astype("int32"), device=device)[:, None]
+    start = engine.broadcast_streams(core, 1)
+    start = start._replace(prune=pruning.reset_phase(start.prune))
+    want, want_outs, eager_secs = _eager_fleet(engine.types.tree_map(torch.clone, start), xs, ys,
+                                               pcfg, "train_phase", device)
+    res["paper"] = {"ticks": len(ox), "eager_ms": 1e3 * eager_secs}
+    # As the trial harness runs it (``engine.CHUNK_TICKS`` ticks a graph),
+    # and as one graph of all 1,008 ticks (the reference's one scan).
+    for tag, chunk in (("chunked", engine.CHUNK_TICKS), ("whole", None)):
+        fleet.release_chunk_graphs()
+        graphs.reset_replay_counts()
+        before = dict(graphs.kernel_replays)
+        secs = []
+        for _ in range(2):  # the capture, then replays only
+            st0 = engine.types.tree_map(torch.clone, start)
+            _sync(device)
+            t0 = time.perf_counter()
+            st, outs = engine.run_fleet(st0, xs, ys, pcfg, mode="train_phase", chunk=chunk)
+            _sync(device)
+            secs.append(time.perf_counter() - t0)
+            differ = _bitwise_differs(want, st) + _bitwise_differs(want_outs, outs)
+            check(not differ, f"6r (b) paper trial ({tag}): {differ} differ from the eager loop")
+        count(before)
+        shapes = _chunk_shapes(len(ox), (chunk or len(ox),))
+        check(graphs.capture_counts.get("chunk_runner") == len(shapes),
+              f"6r (b) ({tag}): {graphs.capture_counts.get('chunk_runner')} captures for chunk "
+              f"shapes {sorted(shapes)}")
+        for name in PATH_KERNELS:
+            check(graphs.kernel_replays[name] - before[name] == 2 * len(ox),
+                  f"6r (b) ({tag}): {name} not replayed once a tick")
+        res["paper"][tag] = {"chunk": chunk or len(ox), "first_call_ms": 1e3 * secs[0],
+                             "capture_ms": graphs.capture_ms.get("chunk_runner"),
+                             "replay_ms": 1e3 * secs[1],
+                             "replays_a_call": graphs.replay_counts.get("chunk_runner", 0) // 2}
+    res["paper"]["queries"] = int(st.prune.queries[0])
+    fleet.release_chunk_graphs()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"chunk runner (6r (b), one paper trial: S=1, N=128, {len(ox)} ticks, auto ladder) on "
+          f"{card}: bit for bit the eager loop; {json.dumps(res['paper'])}")
+    print(f"  path kernels replayed in 6r: {json.dumps(res['replays'])}")
+    print(f"  phase 6r took {res['seconds']:.1f} s ({card})")
+    return res
 
 
 def _run_stream_once(cfg, ticks, labels, mode, device, teacher_kw=None, **kw):
@@ -3123,7 +3400,7 @@ def phase_sharding(fleet_res, fleet_runs, stream_res, zero_runs, device="cuda",
     from repro_torch.configs import har_odl
     from repro_torch.data import har
     from repro_torch.distributed import sharding
-    from repro_torch.engine import snapshot, stream
+    from repro_torch.engine import fleet, snapshot, stream
     from repro_torch.engine.types import EngineState
     from repro_torch.launch.mesh import make_fleet_mesh
     from repro_torch.runtime.checkpoint import CheckpointManager
@@ -3285,6 +3562,7 @@ def phase_sharding(fleet_res, fleet_runs, stream_res, zero_runs, device="cuda",
                           "blocks_after": len(sh.states), "cut": cut, "bit_for_bit": True,
                           "save_ms": save_ms, "restore_ms": restore_ms}
         del sh, train, xs, ys
+    fleet.release_chunk_graphs()  # the blocks' graphs and buffers
     for name in PATH_KERNELS:
         check(device != "cuda" or acc["launches"][name] + acc["replays"][name] > 0,
               f"sharding: {name} ran neither eagerly nor by a replay on the sharded paths")
@@ -5882,8 +6160,10 @@ def time_port(root: Path, device="cuda") -> dict:
     out["rpc_stream_ticks_per_s"] = None
     if importlib.util.find_spec("repro_torch.engine.rpc") is not None:
         out["rpc_stream_ticks_per_s"] = _rpc_unwrapped_rate(device)
-    # One drift trial of the paper's tables (1,008 one-stream eager ticks at
+    # One drift trial of the paper's tables (1,008 one-stream ticks at
     # N=128, theta=1) behind a warm-up trial; null without the harness.
+    # Where run_fleet has a chunk runner the timed trial captures its own
+    # graph (its seed makes its cfg its own), and that capture is timed in.
     out["paper_trial_s"] = None
     if importlib.util.find_spec("repro_torch.benchmarks.common") is not None:
         from repro_torch.benchmarks import common
@@ -5946,6 +6226,7 @@ def main(argv=None) -> int:
     fleet, runs = phase_fleet()
     phase_cross_check()
     eager = phase_profile()
+    chunked = phase_chunk_runner()
     streamed, policy_runs, (ticks, labels), zero_runs = phase_stream(runs)
     fleet_runs = {mode: (_host_tree(st), _host_tree(outs)) for mode, (st, outs) in runs.items()}
     del runs
@@ -6012,7 +6293,12 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": info["source"],
             "replaces": info["replaces"],
+            # Phase 6's two run_fleet calls: eager launches (each graph's
+            # one-tick warm-up) + graph replays, and the replays alone.
             "launches": fleet["launches"][name],
+            "fleet_replays": fleet["replays"][name],
+            # The chunk runner (phase 6r): replays of its chunk graphs.
+            "chunk_replays": chunked["replays"][name],
             # The stream path (phase 6c): eager launches (the warm-up before
             # each graph's capture) and launches by graph replays.
             "stream_launches": streamed["launches"][name],
@@ -6087,6 +6373,7 @@ def main(argv=None) -> int:
             "hybrid_worker_replays": recurrent["worker"]["worker_replays"].get(name, 0),
             # The paper's tables (phase 5b): eager launches, both widths.
             "paper_launches": paper["launches"].get(name, 0),
+            "paper_replays": paper["replays"].get(name, 0),
             "paper_max_abs_err": paper["errs"].get(name),
             "max_abs_err": info["max_abs_err"],
             "ms": t["ms"],

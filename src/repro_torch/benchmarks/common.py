@@ -48,7 +48,8 @@ def drift_trial(run_seed: int, theta, n_hidden: int = 128, variant: str = "hash"
     """One full §3 protocol run; returns dict of accuracies + comm volume.
 
     The retraining phase is a one-stream ``engine.run_fleet`` (the same
-    state machine the fleet and stream paths run at S=thousands).
+    state machine the fleet and stream paths run at S=thousands), in the
+    engine's one-shot chunks (``engine.CHUNK_TICKS``).
     """
     device = resolve_device(device)
     splits = har.generate(seed=dataset_seed)
@@ -69,7 +70,7 @@ def drift_trial(run_seed: int, theta, n_hidden: int = 128, variant: str = "hash"
     fleet, _ = engine.run_fleet(
         fleet, torch.as_tensor(ox, device=device)[:, None],
         torch.as_tensor(oy.astype(np.int32), device=device)[:, None],
-        cfg, mode="train_phase",
+        cfg, mode="train_phase", chunk=engine.CHUNK_TICKS,
     )
     after = acc(fleet, tx, ty)
     prune_one = engine.stream_slice(fleet, 0).prune

@@ -41,7 +41,11 @@ the package import so ``python -m`` runs them cleanly.
 One tick is ``plan`` (projection kernel, then one per-stream pass for the
 readout, confidence, drift, query decision and comm meter) then ``learn``
 (fused RLS kernel + auto-theta ladder);
-``fleet_step`` composes them and ``run_fleet`` loops it over T ticks.
+``fleet_step`` composes them and ``run_fleet`` walks T ticks in chunks
+through the chunk runner (one CUDA graph replay a chunk on the card, the
+same ticks eagerly on the CPU; the state donated on the card by default;
+one-shot callers pass ``chunk=CHUNK_TICKS``; ``release_chunk_graphs``
+frees the card's graphs).
 ``gate``/``apply_labels`` are the serving split.  The S=1 view (``step``,
 ``run_training_phase``, ``run_stream``, ``accuracy``) lives in ``scalar.py``;
 ``stream.run`` drives the engine from a tick iterator with a teacher whose
@@ -51,6 +55,7 @@ into cohorts that advance with one stacked dispatch per tick.
 """
 
 from repro_torch.engine.fleet import (  # noqa: F401
+    CHUNK_TICKS,
     DEFAULT_STREAM_BLOCK,
     FleetShards,
     GateOutput,
@@ -65,6 +70,7 @@ from repro_torch.engine.fleet import (  # noqa: F401
     merge_fleet,
     pad_streams,
     plan,
+    release_chunk_graphs,
     remove_streams,
     run_fleet,
     run_fleet_sharded,

@@ -20,6 +20,7 @@ Design rules, as in the JAX engine:
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple, Optional, Union
 
@@ -28,6 +29,7 @@ import torch
 from repro_torch.core import labels as labels_mod
 from repro_torch.core import oselm, pruning
 from repro_torch.distributed import sharding
+from repro_torch.engine import graphs
 from repro_torch.engine.types import (
     EngineConfig,
     EngineState,
@@ -45,6 +47,19 @@ MODES = ("algo1", "train_phase", "serve")
 # handful of (cfg, mode, donate) combinations, and an unbounded cache would
 # keep one per combination forever.
 RUNNER_CACHE_SIZE = 32
+
+# Ticks a chunk for callers that run a stretch of ticks once (the S=1 view,
+# a paper trial, the examples): ``run_fleet``'s own default stays one chunk
+# of T, as in the JAX package, but on the card one graph of all T ticks
+# costs a capture linear in T, which a one-shot run never earns back (1,008
+# ticks at S=1 took 1.6-3.4 s to capture on an H100, against a 1.36 s eager
+# run; 16 ticks take ~60 ms, then 63 replays).
+CHUNK_TICKS = 16
+
+# How many chunk graphs the card keeps, over all chunk runners: each holds
+# its own two copies of the state (2.15 GB of P at S=16,384, N=128) and its
+# memory pool.  Enough for a run's chunk and its ragged tail in two modes.
+CHUNK_GRAPHS = 4
 
 
 def init_fleet(
@@ -90,6 +105,15 @@ def remove_streams(state: EngineState, lo: int, hi: int) -> EngineState:
     return tree_map(lambda a: torch.cat([a[:lo], a[hi:]], dim=0), state)
 
 
+def store_into(dst: EngineState, new: EngineState) -> None:
+    """Write ``new``'s leaves into ``dst``'s buffers, skipping those already
+    there (P and beta, which the RLS kernel writes into ``dst`` or which a
+    plan passes through; the prune, drift and meter leaves, which the plan
+    writes into ``dst``)."""
+    pairs = [(d, n) for d, n in zip(tree_leaves(dst), tree_leaves(new)) if d is not n]
+    graphs.copy_into([d for d, _ in pairs], [n for _, n in pairs])
+
+
 @functools.lru_cache(maxsize=RUNNER_CACHE_SIZE)
 def _patch_learn_runner(cfg: EngineConfig, lo: int, hi: int, donate: bool):
     """Tick function that learns one member's ``[lo:hi]`` row window of a
@@ -108,6 +132,7 @@ def _patch_learn_runner(cfg: EngineConfig, lo: int, hi: int, donate: bool):
     JAX package."""
     del donate
 
+    # odlint(torch): captured
     def run_patch(cur, spare, h, labels, pred, conf, mask, controller_on, theta):
         sub = slice_streams(cur, lo, hi)
         out = slice_streams(spare.elm, lo, hi)
@@ -256,21 +281,152 @@ def fleet_accuracy(
     return (preds == ys.to(preds.device)[None, :]).to(torch.float32).mean(dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# Chunked time scan
+# ---------------------------------------------------------------------------
+
+
+def _tick_into(src: EngineState, dst: EngineState, x, labels, avail, cfg: EngineConfig,
+               mode: str) -> FleetStepOutput:
+    """One ``fleet_step`` that reads ``src`` and writes the new state into
+    ``dst``'s buffers (``plan`` and ``learn`` with ``out=``)."""
+    mid, p = plan(src, x, cfg, mode=mode, teacher_available=avail, out=dst)
+    new = learn(mid, p.h, labels, p.pred, p.confidence, p.queried, p.controller_on, cfg,
+                theta=p.theta, out=(dst.elm.P, dst.elm.beta))
+    store_into(dst, new)
+    return FleetStepOutput(pred=p.pred, outputs=p.outputs, queried=p.queried,
+                           trained=p.queried, theta=p.theta, confidence=p.confidence,
+                           mode_training=p.mode_training)
+
+
+def _unflatten(template, leaves):
+    """A tree shaped like ``template`` holding ``leaves`` (``tree_leaves`` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+# The card's chunk graphs: (cfg, mode, shape key) -> (TickGraph, the other
+# buffer set), least recently used first, at most ``CHUNK_GRAPHS``.  The
+# donate variants of a runner share them: on the card donation decides only
+# where ``run_fleet`` puts the final state, not what a graph holds.
+_chunk_graphs: collections.OrderedDict = collections.OrderedDict()
+
+
+def release_chunk_graphs() -> None:
+    """Drop every chunk graph the card holds, with its buffers and memory
+    pool (the next call at a shape captures again).  A state that
+    ``run_fleet`` returned is the caller's own and stays."""
+    _chunk_graphs.clear()
+
+
+@functools.lru_cache(maxsize=RUNNER_CACHE_SIZE)
+def _chunk_runner(cfg: EngineConfig, mode: str, donate: bool):  # odlint(torch): donates(0)
+    """Runner of ``fleet_step`` over a (chunk, S) block of ticks:
+    ``runner(state, xs, labels, avail) -> (state, outputs stacked over (c, S))``.
+
+    Cached per (cfg, mode, donate), a bounded LRU as in the JAX package.
+    The ticks alternate between two buffer sets: tick t reads the chunk's
+    input set when t is even and writes the other set, and back; so the
+    new state ends in the input set after an even chunk and in the other
+    set after an odd one.
+
+    On CUDA tensors the runner replays one CUDA graph per chunk shape (c, S,
+    n_in), on its device, captured on first use (``graphs.TickGraph``) and
+    replayed after that; a failed capture raises.  The input set is the
+    graph's static input: every call copies the state into it before the
+    replay, so the ticks that write it during the warm-up leave nothing a
+    replay depends on (two sets of P, not three: the equivalent of a third,
+    read-only set).  The returned state lives in the graph's buffers, and a
+    later call at that shape overwrites it; a state a call returned is
+    passed back in without a copy when it sits in the input set (an even
+    chunk), which is how ``run_fleet`` hands the state on between chunks.
+    ``run_fleet`` then copies the final state into the caller's buffers
+    (``donate``) or into new ones.  The graphs live in ``_chunk_graphs``,
+    shared by the donate variants of a (cfg, mode) and bounded over all
+    runners (``CHUNK_GRAPHS``; ``release_chunk_graphs`` drops them).
+
+    On CPU tensors the ticks run eagerly over the same two sets, the
+    input set being the caller's own buffers with ``donate`` (the result
+    lands in them, as the JAX package's CPU donation aliases) and a copy
+    without it.  ``runner._cache_size()`` counts the chunk shapes the runner
+    has run, on CPU as on the card, as the JAX runner counts executables."""
+    shapes: set = set()
+    skeleton = None  # the EngineState tree without its tensors
+
+    def run_chunk(*leaves):
+        n = (len(leaves) - 3) // 2
+        xs, labels, avail = leaves[2 * n:]
+        other = _unflatten(skeleton, leaves[:n])
+        cur = _unflatten(skeleton, leaves[n:2 * n])
+        sets = (cur, other)
+        outs = [_tick_into(sets[t % 2], sets[(t + 1) % 2], xs[t], labels[t], avail[t], cfg, mode)
+                for t in range(xs.shape[0])]
+        return tree_map(lambda *a: torch.stack(a, dim=0), *outs)
+
+    def warm_up(*leaves):
+        n = (len(leaves) - 3) // 2
+        return run_chunk(*leaves[:2 * n], *(a[:1] for a in leaves[2 * n:]))
+
+    def runner(state: EngineState, xs, labels, avail):
+        nonlocal skeleton
+        c, s = xs.shape[0], xs.shape[1]
+        if (tuple(labels.shape) != (c, s) or tuple(avail.shape) != (c, s)
+                or state.elm.P.shape[0] != s):
+            raise ValueError(
+                f"chunk runner: xs {tuple(xs.shape)}, labels {tuple(labels.shape)}, avail "
+                f"{tuple(avail.shape)} and a state of {state.elm.P.shape[0]} streams disagree")
+        skeleton = tree_map(lambda _: None, state)
+        dev = xs.device
+        shape_key = (str(dev), tuple(xs.shape), xs.dtype, labels.dtype)
+        shapes.add(shape_key)
+        leaves = tree_leaves(state)
+        if dev.type == "cpu":
+            cur = leaves if donate else [a.clone() for a in leaves]
+            other = [torch.empty(a.shape, dtype=a.dtype) for a in cur]
+            out = run_chunk(*other, *cur, xs, labels, avail)
+            if c % 2:
+                graphs.copy_into(cur, other)
+            return _unflatten(state, cur), out
+        if dev.type != "cuda":
+            raise ValueError(f"the chunk runner runs on CUDA or CPU tensors, got {dev}")
+        key = (cfg, mode, shape_key)
+        entry = _chunk_graphs.get(key)
+        if entry is None:
+            while len(_chunk_graphs) >= CHUNK_GRAPHS:
+                _chunk_graphs.popitem(last=False)
+            # Contiguous, whatever the caller's strides: the RLS kernel's
+            # ``out=`` buffers must be.
+            other = [torch.empty(a.shape, dtype=a.dtype, device=a.device) for a in leaves]
+            graph = graphs.TickGraph("chunk_runner", run_chunk, tuple(other),
+                                     [*leaves, xs, labels, avail], warmup=warm_up)
+            entry = _chunk_graphs[key] = (graph, other)
+        else:
+            _chunk_graphs.move_to_end(key)
+        graph, other = entry
+        out = graph(*leaves, xs, labels, avail)
+        final = graph.inputs[:len(leaves)] if c % 2 == 0 else other
+        return _unflatten(state, final), out
+
+    runner._cache_size = lambda: len(shapes)
+    return runner
+
+
 def runner_cache_info() -> dict:
     """Hit/miss/size counters of this module's runner caches, for serving
     stats (``engine.stream.cache_stats`` merges these with its own), under
-    the JAX package's keys.  ``run_fleet`` is an eager per-tick loop and
-    caches no chunk runner, so ``chunk_runner`` is a zero entry; the
-    patch-learn runners are cached."""
-    info = _patch_learn_runner.cache_info()
-    return {
-        "chunk_runner": {"hits": 0, "misses": 0, "size": 0, "maxsize": 0},
-        "patch_learn_runner": {"hits": info.hits, "misses": info.misses,
-                               "size": info.currsize, "maxsize": info.maxsize},
-    }
+    the JAX package's keys."""
+    out = {}
+    for name, fn in (
+        ("chunk_runner", _chunk_runner),
+        ("patch_learn_runner", _patch_learn_runner),
+    ):
+        info = fn.cache_info()
+        out[name] = {"hits": info.hits, "misses": info.misses, "size": info.currsize,
+                     "maxsize": info.maxsize}
+    return out
 
 
-def run_fleet(
+def run_fleet(  # odlint(torch): donates(0)
     state: EngineState,
     xs,  # (T, S, n_in) tensor or array
     labels,  # (T, S) int
@@ -280,31 +436,34 @@ def run_fleet(
     chunk: Optional[int] = None,
     donate: Optional[bool] = None,
 ) -> tuple[EngineState, FleetStepOutput]:
-    """Run T ticks of S streams through the engine on ``state``'s device.
+    """Run T ticks of S streams through the engine on ``state``'s device,
+    ``chunk`` ticks per runner call (``_chunk_runner``: one CUDA graph
+    replay per chunk on the card, the same ticks eagerly on the CPU).
     Returns (final state, outputs stacked over (T, S)).
 
-    The ticks run in a Python loop, one ``fleet_step`` each.  ``chunk`` and
-    ``donate`` are accepted so calls written for the JAX engine carry over;
-    the result does not depend on them.  The counterpart of donation is
-    that the loop keeps only the newest state: each tick's RLS kernel
-    writes fresh P and beta buffers and the previous ones are released, so
-    peak memory holds two copies of P, not T.
+    ``chunk=None`` or ``chunk > T`` means T; when T is a multiple of
+    ``chunk`` every call replays one graph, and a ragged final chunk costs
+    exactly one more capture.  A caller that runs its ticks once passes
+    ``chunk=CHUNK_TICKS``: on the card a graph's capture grows with its
+    ticks.  ``teacher_available=None`` means every teacher answers.
+
+    ``donate`` defaults to True when the state is on CUDA and to False on
+    the CPU (the JAX package's ``jax.default_backend() != "cpu"``, decided
+    here by the state's device).  ``donate=False`` leaves the caller's
+    state bit for bit unchanged and returns new buffers.  ``donate=True``
+    writes the final state into the caller's own buffers: the returned
+    leaves share storage with the ones passed in, on the CPU too (the JAX
+    package's CPU donation aliases in place), so a later read of the passed
+    state silently sees the new one (odlint's ODL002 reports such a read
+    unless the call passes ``donate=False``).  Resident callers that own
+    their state (``run_fleet_sharded``, ``run_fleet_shards``) pass
+    ``donate=True``.
     """
-    del chunk, donate
     dev = state.elm.P.device
     xs = torch.as_tensor(xs, device=dev)
     labels = torch.as_tensor(labels, device=dev)
     t_total, s = xs.shape[0], xs.shape[1]
-    if teacher_available is not None:
-        teacher_available = torch.as_tensor(teacher_available, device=dev)
-    outs = []
-    for t in range(t_total):
-        state, out = fleet_step(
-            state, xs[t], labels[t], cfg, mode=mode,
-            teacher_available=None if teacher_available is None else teacher_available[t],
-        )
-        outs.append(out)
-    if not outs:
+    if t_total == 0:
         m = cfg.elm.n_out
         return state, FleetStepOutput(
             pred=torch.zeros((0, s), dtype=torch.int32, device=dev),
@@ -315,7 +474,34 @@ def run_fleet(
             confidence=torch.zeros((0, s), dtype=torch.float32, device=dev),
             mode_training=torch.zeros((0, s), dtype=torch.bool, device=dev),
         )
-    return state, tree_map(lambda *a: torch.stack(a, dim=0), *outs)
+    if chunk is None or chunk > t_total:
+        chunk = t_total
+    if donate is None:
+        donate = dev.type != "cpu"
+    if teacher_available is None:
+        teacher_available = torch.ones((t_total, s), dtype=torch.bool, device=dev)
+    else:
+        teacher_available = torch.as_tensor(teacher_available, device=dev).to(torch.bool)
+
+    runner = _chunk_runner(cfg, mode, donate)
+    caller = state
+    outs = []
+    t = 0
+    while t < t_total:
+        c = min(chunk, t_total - t)
+        state, out = runner(state, xs[t:t + c], labels[t:t + c], teacher_available[t:t + c])
+        outs.append(out)
+        t += c
+    if dev.type == "cuda":
+        # The final state sits in the runner's buffers: hand it out.
+        if donate:
+            store_into(caller, state)
+            state = caller
+        else:
+            state = tree_map(torch.clone, state)
+    if len(outs) == 1:
+        return state, outs[0]
+    return state, tree_map(lambda *a: torch.cat(a, dim=0), *outs)
 
 
 # ---------------------------------------------------------------------------

@@ -67,24 +67,28 @@ def _fresh_copy(out):
 class TickGraph:
     """One captured call of a tick function on the card.
 
-    Capture: ``inputs`` are copied into static input buffers, ``fn`` runs
-    once on a side stream (the warm-up builds the kernels and sets their
-    shared-memory opt-ins, so no such call happens inside the capture), then
-    ``torch.cuda.CUDAGraph`` captures it.  Each call copies its inputs into
+    Capture: ``inputs`` are copied into static input buffers, ``fn`` (or
+    ``warmup``, a shorter call of the same kernels) runs once on a side
+    stream (the warm-up builds the kernels and sets their shared-memory
+    opt-ins, so no such call happens inside the capture), then
+    ``torch.cuda.CUDAGraph`` captures ``fn``.  Each call copies its inputs into
     the static buffers, replays, and returns a fresh copy of the outputs:
     nothing a caller keeps lives in a buffer the next replay overwrites.
     """
 
-    def __init__(self, name: str, fn: Callable, fixed: tuple, inputs: Sequence[torch.Tensor]):
+    def __init__(self, name: str, fn: Callable, fixed: tuple, inputs: Sequence[torch.Tensor],
+                 warmup: Callable | None = None):
         t0 = time.perf_counter()
         self.name = name
         self._fixed = fixed  # the graph reads and writes these addresses
-        self._inputs = [t.clone() for t in inputs]
+        # Contiguous, whatever the caller's strides: a kernel's ``out=``
+        # buffer must be (a column-major P from ``torch.linalg`` is not).
+        self._inputs = [t.clone(memory_format=torch.contiguous_format) for t in inputs]
         compute = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(compute)
         with torch.cuda.stream(side):
-            fn(*fixed, *self._inputs)
+            (warmup or fn)(*fixed, *self._inputs)
         compute.wait_stream(side)
         before = dict(ops.captured_counts)
         self.graph = torch.cuda.CUDAGraph()
@@ -100,7 +104,8 @@ class TickGraph:
                 raise ValueError(
                     f"{self.name}: input {src.dtype} {tuple(src.shape)} on {src.device} does not "
                     f"match the captured {dst.dtype} {tuple(dst.shape)} on {dst.device}")
-        copy_into(self._inputs, inputs)
+        pairs = [(dst, src) for dst, src in zip(self._inputs, inputs) if dst is not src]
+        copy_into([d for d, _ in pairs], [s for _, s in pairs])
         self.graph.replay()
         replay_counts[self.name] = replay_counts.get(self.name, 0) + 1
         mine = runner_kernel_replays.setdefault(self.name, {})
@@ -108,6 +113,12 @@ class TickGraph:
             kernel_replays[k] += n
             mine[k] = mine.get(k, 0) + n
         return None if self._out is None else _fresh_copy(self._out)
+
+    @property
+    def inputs(self) -> list:
+        """The static input buffers.  A static buffer passed back as its own
+        input is not copied: the replay reads what is there."""
+        return self._inputs
 
 
 def run(cache: dict, key, name: str, fn: Callable, fixed: tuple,

@@ -40,6 +40,13 @@ def _expand(tree):
     return tree_map(lambda a: a[None], tree)
 
 
+def _own_fleet(state):
+    """A fleet of one stream in buffers of its own, as the JAX package's
+    ``_expand`` makes new arrays: ``run_fleet`` donates it on the card, so
+    the caller's state stays as it was."""
+    return tree_map(lambda a: a[None].clone(), state)
+
+
 def _squeeze(tree):
     return tree_map(lambda a: a[0], tree)
 
@@ -118,8 +125,8 @@ def run_training_phase(
     if teacher_available is not None:
         avail = torch.as_tensor(teacher_available, device=dev)[:, None]
     fstate, fouts = fleet.run_fleet(
-        _expand(state), xs[:, None], labels[:, None], cfg,
-        mode="train_phase", teacher_available=avail,
+        _own_fleet(state), xs[:, None], labels[:, None], cfg,
+        mode="train_phase", teacher_available=avail, chunk=fleet.CHUNK_TICKS,
     )
     return _squeeze(fstate), tree_map(lambda a: a[:, 0], fouts)
 
@@ -135,7 +142,8 @@ def run_stream(
     xs = torch.as_tensor(xs, device=dev)
     labels = torch.as_tensor(teacher_labels, device=dev)
     fstate, fouts = fleet.run_fleet(
-        _expand(state), xs[:, None], labels[:, None], cfg, mode="algo1"
+        _own_fleet(state), xs[:, None], labels[:, None], cfg, mode="algo1",
+        chunk=fleet.CHUNK_TICKS,
     )
     return _squeeze(fstate), tree_map(lambda a: a[:, 0], fouts)
 

@@ -440,15 +440,6 @@ class StreamStats:
 # written for it carry over; a session always works in buffers of its own.
 
 
-def _store(dst: EngineState, new: EngineState) -> None:
-    """Write ``new``'s leaves into ``dst``'s buffers, skipping those already
-    there (P and beta, which the RLS kernel writes into ``dst``, or which a
-    plan passes through; the prune, drift and meter leaves, which the plan
-    writes into ``dst``)."""
-    pairs = [(d, n) for d, n in zip(tree_leaves(dst), tree_leaves(new)) if d is not n]
-    graphs.copy_into([d for d, _ in pairs], [n for _, n in pairs])
-
-
 def _learn_into(src: EngineState, dst: EngineState, cfg: EngineConfig, h, labels, pred, conf,
                 mask, controller_on, theta) -> EngineState:
     return fleet.learn(src, h, labels, pred, conf, mask, controller_on, cfg, theta=theta,
@@ -459,9 +450,10 @@ def _learn_into(src: EngineState, dst: EngineState, cfg: EngineConfig, h, labels
 def _plan_runner(cfg: EngineConfig, mode: str, donate: bool):
     del donate
 
+    # odlint(torch): captured
     def run_plan(src, dst, x):
         new, p = fleet.plan(src, x, cfg, mode=mode, out=dst)
-        _store(dst, new)
+        fleet.store_into(dst, new)
         return p
 
     return run_plan
@@ -471,8 +463,10 @@ def _plan_runner(cfg: EngineConfig, mode: str, donate: bool):
 def _learn_runner(cfg: EngineConfig, donate: bool):
     del donate
 
+    # odlint(torch): captured
     def run_learn(src, dst, h, labels, pred, conf, mask, controller_on, theta):
-        _store(dst, _learn_into(src, dst, cfg, h, labels, pred, conf, mask, controller_on, theta))
+        new = _learn_into(src, dst, cfg, h, labels, pred, conf, mask, controller_on, theta)
+        fleet.store_into(dst, new)
 
     return run_learn
 
@@ -483,10 +477,11 @@ def _learn_plan_runner(cfg: EngineConfig, mode: str, donate: bool):
     tick, in one replay."""
     del donate
 
+    # odlint(torch): captured
     def run_learn_plan(src, dst, h, labels, pred, conf, mask, controller_on, theta, x_next):
         mid = _learn_into(src, dst, cfg, h, labels, pred, conf, mask, controller_on, theta)
         new, p = fleet.plan(mid, x_next, cfg, mode=mode, out=dst)
-        _store(dst, new)
+        fleet.store_into(dst, new)
         return p
 
     return run_learn_plan
@@ -499,9 +494,10 @@ def _plan_avail_runner(cfg: EngineConfig, mode: str, donate: bool):
     query or learn."""
     del donate
 
+    # odlint(torch): captured
     def run_plan(src, dst, avail, x):
         new, p = fleet.plan(src, x, cfg, mode=mode, teacher_available=avail, out=dst)
-        _store(dst, new)
+        fleet.store_into(dst, new)
         return p
 
     return run_plan
@@ -513,12 +509,13 @@ def _learn_plan_avail_runner(cfg: EngineConfig, mode: str, donate: bool):
     planned next tick."""
     del donate
 
+    # odlint(torch): captured
     def run_learn_plan(src, dst, avail, h, labels, pred, conf, mask, controller_on, theta,
                        x_next):
         mid = _learn_into(src, dst, cfg, h, labels, pred, conf, mask, controller_on, theta)
         new, p = fleet.plan(mid, x_next, cfg, mode=mode, teacher_available=avail,
                             out=dst)
-        _store(dst, new)
+        fleet.store_into(dst, new)
         return p
 
     return run_learn_plan
@@ -526,8 +523,8 @@ def _learn_plan_avail_runner(cfg: EngineConfig, mode: str, donate: bool):
 
 def cache_stats() -> dict:
     """Hit/miss counters of every runner cache in the engine, under the JAX
-    package's keys (``chunk_runner`` is always empty: ``run_fleet`` is
-    eager and caches no chunk runner)."""
+    package's keys (``fleet.runner_cache_info``'s chunk and patch-learn
+    runners, then the stream runners)."""
     out = dict(fleet.runner_cache_info())
     for name, fn in (
         ("plan_runner", _plan_runner),

@@ -48,6 +48,7 @@ def main(argv=None):
     fleet = fleet._replace(prune=pruning.reset_phase(fleet.prune))
     fleet, outs = engine.run_fleet(
         fleet, on(ox)[:, None], on(oy.astype("int32"))[:, None], cfg, mode="train_phase",
+        chunk=engine.CHUNK_TICKS,
     )
     head = engine.stream_slice(fleet, 0)
     comm = float(pruning.comm_volume_fraction(head.prune))

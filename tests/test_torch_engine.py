@@ -289,19 +289,22 @@ def test_pruning_and_drift_transitions():
     assert bool(dt.active.any())
 
 
-def test_run_fleet_ignores_chunk_and_keeps_masked_streams(trained):
+def test_run_fleet_chunked_equals_unchunked_and_keeps_masked_streams(trained):
     _, tcfg, _ = trained
     xs, ys = _ticks(12, seed=10)
     avail = np.zeros((12, S), bool)
     avail[:, ::2] = True
     st0 = t_engine.init_fleet(tcfg, S, device="cpu")
     a, oa = t_engine.run_fleet(st0, xs, ys, tcfg, mode="train_phase", teacher_available=avail)
-    b, ob = t_engine.run_fleet(st0, xs, ys, tcfg, mode="train_phase", teacher_available=avail,
-                               chunk=5, donate=True)
+    b, ob = t_engine.run_fleet(t_engine.init_fleet(tcfg, S, device="cpu"), xs, ys, tcfg,
+                               mode="train_phase", teacher_available=avail, chunk=5,
+                               donate=True)
     for x, y in zip(convert.engine_state_to_numpy(a).values(),
                     convert.engine_state_to_numpy(b).values()):
         np.testing.assert_array_equal(x, y)
-    np.testing.assert_array_equal(oa.queried.numpy(), ob.queried.numpy())
+    for name in oa._fields:
+        np.testing.assert_array_equal(getattr(oa, name).numpy(), getattr(ob, name).numpy(),
+                                      err_msg=name)
     dead = np.arange(S)[1::2]
     np.testing.assert_array_equal(a.elm.beta[dead].numpy(), st0.elm.beta[dead].numpy())
     assert not bool(oa.queried[:, dead].any()) and bool(oa.queried[:, ::2].any())

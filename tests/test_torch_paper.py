@@ -313,8 +313,13 @@ def test_boot_core_on_the_named_device(splits):
 def test_cache_stats_keys_match_reference():
     assert set(t_stream.cache_stats()) == set(j_stream.cache_stats())
     assert set(t_engine.runner_cache_info()) == set(j_fleet.runner_cache_info())
+    # The chunk runner's entry is its LRU's own counters, and its bound is
+    # the reference's.
+    info = t_engine.fleet._chunk_runner.cache_info()
     assert t_engine.runner_cache_info()["chunk_runner"] == {
-        "hits": 0, "misses": 0, "size": 0, "maxsize": 0}
+        "hits": info.hits, "misses": info.misses, "size": info.currsize,
+        "maxsize": info.maxsize}
+    assert info.maxsize == j_fleet.runner_cache_info()["chunk_runner"]["maxsize"] == 32
     assert set(t_stream.StreamStats().summary()["caches"]) == set(
         j_stream.StreamStats().summary()["caches"])
 

@@ -165,7 +165,8 @@ need = {{"repro_torch.models.layers", "repro_torch.models.attention",
         "repro_torch.optim.adam", "repro_torch.launch.train", "repro_torch.examples.train_lm_odl",
         "repro_torch.distributed.sharding", "repro_torch.distributed.pipeline",
         "repro_torch.launch.mesh", "repro_torch.runtime.checkpoint",
-        "repro_torch.launch.census", "repro_torch.launch.dryrun"}}
+        "repro_torch.launch.census", "repro_torch.launch.dryrun",
+        "repro_torch.analysis.rules", "repro_torch.analysis.cli"}}
 assert need <= set(names), sorted(need - set(names))
 for name in names:
     importlib.import_module(name)

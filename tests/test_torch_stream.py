@@ -449,8 +449,7 @@ def test_coalesce_does_not_credit_a_ticket_it_evicts():
 
 
 def test_runner_caches_are_bounded_with_counters():
-    """Mirrors ``tests/test_stream.py``'s cache test; the port caches no
-    chunk runner (``run_fleet`` is an eager loop)."""
+    """Mirrors ``tests/test_stream.py``'s cache test."""
     info = stream.cache_stats()
     for name in ("plan_runner", "learn_runner", "learn_plan_runner", "plan_avail_runner",
                  "learn_plan_avail_runner"):
