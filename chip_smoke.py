@@ -10,10 +10,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card   — name and power limit (as ``nvidia-smi`` gives them), versions;
 2. build  — nvcc builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernel 1 (ODLHash projection, tensor cores) against its plain version on
-   the card, including the generated alpha itself;
+   the card, including the generated alpha itself, on the route its plan
+   takes (one pass, or K split over blocks at few rows); then the first 8
+   rows of one x at B = 16,384 down to 1 must come out bit for bit by the
+   plan's route, the one pass and a split of K;
 4. the RLS update against its plain version on the card, through both
    routes: the single pass (kernels 2 and 3: the fleet entry and the
-   one-head entry) and the two-stage route; masked streams exact; then the
+   one-head entry, the latter's plan and layout checked and a fully masked
+   head exact) and the two-stage route; masked streams exact; then the
    plan's per-stream pass (``csrc/plan_rows.cu``) against
    ``ref.plan_rows_ref`` fed the kernel's own readout and feature mean, bit
    for bit in every output and leaf, in ``algo1``, ``serve`` and
@@ -310,7 +314,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    streams of n_in 2,048 and 5,120) and 6n's (n_in 1,536 and 4,096); the
    plan's pass in ``algo1`` (reads x) and ``train_phase`` (reads no x), in
    ``serve`` at n_in 8,192 (x read from device memory), and its reduced
-   instances alone.
+   instances alone; the paper trials' one stream (the projection at n_in
+   561 to N = 128 and 256, the fleet entry's RLS update at k = 1). Each
+   projection row names its plan's grid and workspace bytes, and its bound
+   counts the integer work of hashing alpha beside the TF32 products.
 
 The line before the last is the ``kernels`` JSON summary; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest
 of the repository, it exits non-zero and prints no result.
@@ -371,7 +378,7 @@ K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 1
              (256, 2048, 128), (512, 2048, 128), (256, 5120, 128), (256, 64, 128),
              (256, 1536, 128), (512, 1536, 128), (256, 4096, 128), (512, 4096, 128),
              (32, 768, 128), (32, 1536, 128), (32, 4096, 128), (32, 2048, 128),
-             (8, 5120, 128), (FLEET_STREAMS, 561, 256)]
+             (8, 5120, 128), (1, 561, 128), (1, 561, 256), (FLEET_STREAMS, 561, 256)]
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
              (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (8192, 128, 1, 6),
              (12288, 128, 1, 6), (1024, 128, 1, 6), (2048, 128, 1, 6), (3072, 128, 1, 6),
@@ -416,14 +423,25 @@ PAPER_TRIALS = 1
 PAPER_CROSS = (("hash", 256), ("base", 128))
 PAPER_WIDTHS = (128, 256)
 PAPER_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet", "plan_rows")
-# Shapes the single pass does not take go to the two-stage route.
-K2_EXTRA_SHAPES = [(64, 384, 1, 6), (4, 64, 64, 3)]
+# Shapes the single pass does not take go to the two-stage route; and
+# streams spread over clusters of four (k >= 32) walked by fewer clusters
+# than streams, at N = 128 and 256.
+K2_EXTRA_SHAPES = [(64, 384, 1, 6), (4, 64, 64, 3), (64, 128, 32, 6), (3, 128, 64, 6),
+                   (2, 256, 32, 6)]
 # The one-head entry (kernel 3), (1, N, k, m): the first is the one phase 7
 # times; phase 6l's training path (k = B rows a step: 32 at full width, 8 at
 # smoke width) launches at the others, and 6l fails on a shape not here.
 K3_SHAPES = [(1, 128, 16, 6), (1, 128, 32, 6), (1, 128, 8, 6)]
 K3_TRAIN = (1, 128, 32, 6)
 TWO_STAGE_SHAPE = (64, 384, 1, 6)
+# The paper's S = 1 trials (5b): the projection of one stream at N = 128
+# and 256 and the fleet entry's RLS update of one stream, timed by phase 7.
+PAPER_K1 = {"paper_trial": (1, 561, 128), "paper_trial_n256": (1, 561, 256)}
+PAPER_K2 = {"paper_trial": (1, 128, 1, 6), "paper_trial_n256": (1, 256, 1, 6)}
+# Phase 3's check that a row's H does not depend on B or on the route: the
+# first 8 rows of one x at each of these B, at each width.
+ROW_BATCHES = (FLEET_STREAMS, 4096, 512, 256, 32, 8, 1)
+ROW_WIDTHS = (561, 2560, 5120)
 # The kernels the fleet path launches every tick (``ops.launch_counts`` keys),
 # in every mode: the projection, the RLS update and the plan's per-stream pass.
 PATH_KERNELS = ("xorshift_projection", "oselm_rls_update_fleet", "plan_rows")
@@ -626,8 +644,15 @@ COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels
 ACTIVATIONS = ("sigmoid", "relu", "tanh", "identity")
 
 # NVIDIA H100 SXM data sheet, dense, at 700 W: f32 outside the tensor cores,
-# TF32 on them, and HBM3 bandwidth.
+# TF32 on them, and HBM3 bandwidth.  The int32 rate is not on the sheet: the
+# f32 rate counts an FMA as two on 128 lanes an SM, and a Hopper SM has 64
+# int32 lanes, so 67e12 / 4.
 PEAK_F32_FLOPS = 67e12
+PEAK_INT32_OPS = 67e12 / 4
+# Integer operations of the projection's hash a value of alpha: the two-wide
+# mix16x2 does three rounds of three shift-and-xors and a masked multiply,
+# ten operations a round, for two values at once.
+HASH_OPS_PER_ALPHA = 15
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
@@ -680,7 +705,7 @@ def phase_kernel1(device="cuda"):
     import torch
 
     from repro_torch.core import xorshift
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, xorshift_proj
 
     g = _gen(device, SEED)
     main_err = None
@@ -712,6 +737,28 @@ def phase_kernel1(device="cuda"):
     print(f"kernel 1 xorshift_projection: {len(K1_SHAPES) * 2 * len(ACTIVATIONS)} cases + "
           f"alpha pass; main-shape max |err| {main_err:.3e}, worst f32 case {worst[0]:.3e} "
           f"({worst[1]})")
+    # A row's H is the same bit for bit whatever B is and whichever route
+    # its shape takes: the first 8 rows of one x at every ROW_BATCHES entry,
+    # by the plan's route, by the one pass and by a split of K.
+    routes = {}
+    for n_in in ROW_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(max(ROW_BATCHES), n_in, generator=g, device=device).to(dtype)
+            want = None
+            for b in ROW_BATCHES:
+                plans = {xorshift_proj.projection_plan(b, n_in, 128, split_max_blocks=smb)
+                         for smb in (xorshift_proj.SPLIT_MAX_BLOCKS, 0, 10 ** 6)}
+                for plan in plans:
+                    got = xorshift_proj.xorshift_projection(x[:b].contiguous(), 0x2D2A, 128,
+                                                            plan=plan)[:8]
+                    want = got if want is None else want
+                    check(torch.equal(got, want[:b]),
+                          f"projection rows at B={b}, n_in={n_in}, {dtype}, grid {plan.grid}: "
+                          f"not bit for bit the rows at B={ROW_BATCHES[0]}")
+                    routes.setdefault(n_in, set()).add("split" if plan.split else "one pass")
+            del x
+    print(f"kernel 1 rows: the first 8 rows of one x bit for bit at B = {ROW_BATCHES} "
+          f"(f32 and bf16), by route: {{n_in: routes}} {routes}")
     return main_err
 
 
@@ -771,6 +818,14 @@ def phase_kernel2(device="cuda"):
     for _, n, k, m in K3_SHAPES:
         P, beta, H, Y = (a[0] for a in _rls_inputs(1, n, k, m, device, SEED + 3 + k))
         check(ops.rls_route(n, k, m) == "single", f"one head N={n} k={k}: not a single pass")
+        plan = oselm_update.single_pass_plan(n, k, m)
+        check(oselm_update.kernel_smem_bytes(n, k, m, *plan)
+              == oselm_update.single_pass_smem_bytes(n, k, m, *plan),
+              f"one head N={n} k={k}: the dispatch and the kernel disagree on shared memory")
+        zero_h, zero_y = torch.zeros_like(H), torch.zeros_like(Y)
+        p_same, b_same = ops.oselm_rls_update(P, beta, zero_h, zero_y)
+        check(torch.equal(p_same, P) and torch.equal(b_same, beta),
+              f"one head N={n} k={k}: a masked update changed the head")
         before = ops.launch_counts["oselm_rls_update"]
         p_got, b_got = ops.oselm_rls_update(P, beta, H, Y)
         check(ops.launch_counts["oselm_rls_update"] == before + 1,
@@ -779,8 +834,8 @@ def phase_kernel2(device="cuda"):
         ep = (p_got - p_want).abs().max().item()
         eb = (b_got - b_want).abs().max().item()
         check(ep <= 2e-5 and eb <= 2e-4, f"rls one head N={n} k={k}: P err {ep}, beta err {eb}")
-        print(f"kernel 3 oselm_rls_update N={n} k={k} m={m}: P |err| {ep:.3e}, "
-              f"beta |err| {eb:.3e}")
+        print(f"kernel 3 oselm_rls_update N={n} k={k} m={m} plan={plan}: P |err| {ep:.3e}, "
+              f"beta |err| {eb:.3e}, masked head exact")
         errs["oselm_rls_update"] = max(errs["oselm_rls_update"], ep, eb)
     return errs
 
@@ -5758,11 +5813,64 @@ def _rls_bound(s, n, k, m):
 def _projection_bound(b, n_in, n):
     """The projection (``ops.kernel_cost``: x in, H out, 2 b n_in N
     operations) as the kernel does it: three TF32 products on the tensor
-    cores, the work at the precision the kernel must deliver."""
+    cores, the work at the precision the kernel must deliver, and the
+    integer work of hashing alpha once (HASH_OPS_PER_ALPHA a value, over
+    all SMs at the int32 rate), which bounds it at few rows.  The two run
+    on separate units: the larger of the two and the bytes' time."""
     from repro_torch.kernels import ops
 
     flops, nbytes = ops.kernel_cost("xorshift_projection", (b, n_in, n))
-    return _bound(flops=3 * flops, nbytes=nbytes, peak_flops=PEAK_TF32_FLOPS)
+    t_ops = max(3 * flops / PEAK_TF32_FLOPS, HASH_OPS_PER_ALPHA * n_in * n / PEAK_INT32_OPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def _projection_times(shape, device="cuda"):
+    """Phase 7's projection at (b, n_in, N): the kernel by its plan, its
+    plain version, cuBLAS f32 with alpha materialized (the yardstick; the
+    port never calls it), the bound, the plan's grid and its workspace."""
+    import torch
+
+    from repro_torch.core import xorshift
+    from repro_torch.kernels import ref, xorshift_proj
+
+    b, n_in, n = shape
+    x = _cycling_x(device, b, n_in)
+    alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
+    c = float(1.0 / n_in ** 0.5)
+    plan = xorshift_proj.projection_plan(b, n_in, n)
+    return dict(
+        shape=list(shape),
+        ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
+        plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
+        library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
+        grid=list(plan.grid), workspace_bytes=plan.workspace_bytes,
+        **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
+    )
+
+
+def _rls_times(shape, device="cuda", seed=SEED):
+    """Phase 7's RLS update of S streams through the dispatch at (S, N, k,
+    m): the kernel, its plain version, the torch composite, the bound."""
+    from repro_torch.kernels import ops, oselm_update, ref
+
+    s, n, k, m = shape
+    P, beta, H, Y = _rls_inputs(s, n, k, m, device, seed)
+    out = dict(shape=list(shape), plan=list(oselm_update.single_pass_plan(n, k, m)),
+               **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))))
+    kernel = lambda: ops.oselm_rls_update_fleet(P, beta, H, Y)  # noqa: E731
+    if n < 256:
+        return dict(out, ms=_device_ms(kernel),
+                    plain_ms=_device_ms(lambda: ref.rls_update_ref(P, beta, H, Y),
+                                        reps=PLAIN_REPS),
+                    library_ms=_device_ms(lambda: _rls_composite(P, beta, H, Y),
+                                          reps=PLAIN_REPS))
+    # At N=256 the plain and library versions' batched lu_solve makes the
+    # host wait: all three by single calls, as the N=256 fleet row.
+    return dict(out, ms=_call_ms(kernel), batched_ms=_device_ms(kernel),
+                plain_ms=_call_ms(lambda: ref.rls_update_ref(P, beta, H, Y)),
+                library_ms=_call_ms(lambda: _rls_composite(P, beta, H, Y)),
+                timed="all three by CUDA events around single calls; batched_ms by _device_ms")
 
 
 def _rls_composite(P, beta, H, Y):
@@ -5793,37 +5901,13 @@ def phase_times(device="cuda"):
     route at theirs), with bounds."""
     import torch
 
-    from repro_torch.core import xorshift
-    from repro_torch.kernels import ops, oselm_update, plan_rows, ref, xorshift_proj
+    from repro_torch.kernels import ops, oselm_update, plan_rows, ref
 
     rows = []
-    b, n_in, n = K1_SHAPES[0]
-    x = _cycling_x(device, b, n_in)
-    alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
-    c = float(1.0 / n_in ** 0.5)
-    bound_ms, bound_by = _projection_bound(b, n_in, n)
-    rows.append(dict(
-        name="xorshift_projection",
-        ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
-        plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
-        library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-        library="sigmoid(matmul(x, alpha) * c), cuBLAS f32",
-        bound_ms=bound_ms,
-        bound_by=bound_by,
-    ))
-    del x, alpha
+    rows.append(dict(name="xorshift_projection", **_projection_times(K1_SHAPES[0], device),
+                     library="sigmoid(matmul(x, alpha) * c), cuBLAS f32"))
     # The same at N=256 (Tables 2-3's width), on the same fleet of x.
-    b, n_in, n = K1_N256
-    x = _cycling_x(device, b, n_in)
-    alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
-    rows[-1]["n256"] = dict(
-        shape=list(K1_N256),
-        ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
-        plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
-        library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-        **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
-    )
-    del x, alpha
+    rows[-1]["n256"] = _projection_times(K1_N256, device)
 
     s, n, k, m = K2_SHAPES[0]
     P, beta, H, Y = _rls_inputs(s, n, k, m, device, SEED)
@@ -5950,18 +6034,7 @@ def phase_times(device="cuda"):
     # 6k: 256 streams of qwen3-4b's d_model), and the plan's pass at the
     # widest dense d_model, whose x rows are read from device memory.
     by_name = {r["name"]: r for r in rows}
-    b, n_in, n = K1_BACKBONE
-    x = _cycling_x(device, b, n_in)
-    alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
-    c = float(1.0 / n_in ** 0.5)
-    by_name["xorshift_projection"]["backbone"] = dict(
-        shape=list(K1_BACKBONE),
-        ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
-        plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
-        library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-        **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
-    )
-    del x, alpha
+    by_name["xorshift_projection"]["backbone"] = _projection_times(K1_BACKBONE, device)
     s, n, k, m = K2_BACKBONE
     P, beta, H, Y = _rls_inputs(s, n, k, m, device, SEED + 10)
     by_name["oselm_rls_update_fleet"]["backbone"] = dict(
@@ -5975,22 +6048,11 @@ def phase_times(device="cuda"):
     # The two kernels of the training path (phase 6l) at its full-width
     # shape: the projection of B = 32 pooled rows of d_model 2,560, and the
     # one-head RLS update of those 32 rows.
-    b, n_in, n = K1_TRAIN
-    x = _cycling_x(device, b, n_in)
-    alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
-    c = float(1.0 / n_in ** 0.5)
-    by_name["xorshift_projection"]["train"] = dict(
-        shape=list(K1_TRAIN),
-        ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
-        plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n), reps=PLAIN_REPS),
-        library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-        **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
-    )
-    del x, alpha
+    by_name["xorshift_projection"]["train"] = _projection_times(K1_TRAIN, device)
     s, n, k, m = K3_TRAIN
     P, beta, H, Y = (a[0] for a in _rls_inputs(s, n, k, m, device, SEED + 13))
     by_name["oselm_rls_update"]["train"] = dict(
-        shape=list(K3_TRAIN),
+        shape=list(K3_TRAIN), plan=list(oselm_update.single_pass_plan(n, k, m)),
         ms=_device_ms(lambda: ops.oselm_rls_update(P, beta, H, Y)),
         plain_ms=_device_ms(lambda: ref.rls_update_ref(P[None], beta[None], H[None], Y[None]),
                             reps=PLAIN_REPS),
@@ -6002,24 +6064,13 @@ def phase_times(device="cuda"):
     # The projection at the other training paths' shapes (6o (c), 6l (e)-(f)):
     # 32 pooled rows of whisper-small's, mamba2-780m's and recurrentgemma-9b's
     # d_model.
-    for key, (b, n_in, n) in K1_FAMILY_TRAIN.items():
-        x = _cycling_x(device, b, n_in)
-        alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
-        c = float(1.0 / n_in ** 0.5)
-        by_name["xorshift_projection"][key] = dict(
-            shape=[b, n_in, n],
-            ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
-            plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n),
-                                reps=PLAIN_REPS),
-            library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-            **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
-        )
-        del x, alpha
+    for key, shape in K1_FAMILY_TRAIN.items():
+        by_name["xorshift_projection"][key] = _projection_times(shape, device)
     # The one-head RLS update at 6p's training shapes (k = 32 and 8 rows).
     for key, (s, n, k, m) in K3_FAMILY_TRAIN.items():
         P, beta, H, Y = (a[0] for a in _rls_inputs(s, n, k, m, device, SEED + 18 + k))
         by_name["oselm_rls_update"][key] = dict(
-            shape=[s, n, k, m],
+            shape=[s, n, k, m], plan=list(oselm_update.single_pass_plan(n, k, m)),
             ms=_device_ms(lambda: ops.oselm_rls_update(P, beta, H, Y)),
             plain_ms=_device_ms(lambda: ref.rls_update_ref(P[None], beta[None], H[None],
                                                            Y[None]), reps=PLAIN_REPS),
@@ -6030,28 +6081,23 @@ def phase_times(device="cuda"):
         del P, beta, H, Y
     # The MoE archs' serving shapes (phase 6m): 256 streams of
     # deepseek-moe-16b's d_model 2,048 and of deepseek-v2-236b's 5,120.
-    for key, (b, n_in, n), plan, seed in (("moe", K1_MOE, PLAN_MOE, SEED + 14),
-                                          ("mla", K1_MLA, PLAN_MLA, SEED + 15),
-                                          ("ssm", K1_SSM, PLAN_SSM, SEED + 16),
-                                          ("hybrid", K1_HYBRID, PLAN_HYBRID, SEED + 17)):
-        x = _cycling_x(device, b, n_in)
-        alpha = xorshift.alpha_hash(0x2D2A, n_in, n, device=device)
-        c = float(1.0 / n_in ** 0.5)
-        by_name["xorshift_projection"][key] = dict(
-            shape=[b, n_in, n],
-            ms=_device_ms(lambda: xorshift_proj.xorshift_projection(x(), 0x2D2A, n)),
-            plain_ms=_device_ms(lambda: ref.xorshift_projection_ref(x(), 0x2D2A, n),
-                                reps=PLAIN_REPS),
-            library_ms=_device_ms(lambda: torch.sigmoid(torch.matmul(x(), alpha) * c)),
-            **dict(zip(("bound_ms", "bound_by"), _projection_bound(b, n_in, n))),
-        )
-        del x, alpha
+    for key, shape, plan, seed in (("moe", K1_MOE, PLAN_MOE, SEED + 14),
+                                   ("mla", K1_MLA, PLAN_MLA, SEED + 15),
+                                   ("ssm", K1_SSM, PLAN_SSM, SEED + 16),
+                                   ("hybrid", K1_HYBRID, PLAN_HYBRID, SEED + 17)):
+        by_name["xorshift_projection"][key] = _projection_times(shape, device)
         served, _, _ = pass_times(plan, ("serve",), seed)
         by_name["plan_rows"][key] = dict(served["serve"], library_ms=None)
     served, _, _ = pass_times(PLAN_BACKBONE, ("serve",), SEED + 11)
     wide, _, _ = pass_times(PLAN_WIDE, ("serve",), SEED + 12)
     by_name["plan_rows"]["backbone"] = dict(served["serve"], library_ms=None)
     by_name["plan_rows"]["wide"] = dict(wide["serve"], library_ms=None)
+    # The paper's S = 1 trials (5b): one stream's projection and RLS update
+    # (the fleet entry, k = 1) at N = 128 and 256.
+    for key, shape in PAPER_K1.items():
+        by_name["xorshift_projection"][key] = _projection_times(shape, device)
+    for key, shape in PAPER_K2.items():
+        by_name["oselm_rls_update_fleet"][key] = _rls_times(shape, device, SEED + 19)
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -6066,7 +6112,7 @@ def phase_times(device="cuda"):
     for name in ("xorshift_projection", "oselm_rls_update_fleet", "oselm_rls_update",
                  "plan_rows"):
         for key in ("backbone", "wide", "train", "moe", "mla", "ssm", "hybrid",
-                    *K1_FAMILY_TRAIN):
+                    *K1_FAMILY_TRAIN, *PAPER_K1):
             w = by_name[name].get(key)
             if w is None:
                 continue
@@ -6078,11 +6124,14 @@ def phase_times(device="cuda"):
                      "ssm_train": "mamba2-780m training",
                      "hybrid_train": "recurrentgemma-9b training",
                      "moe_train": "deepseek-moe-16b training",
-                     "mla_train": "deepseek-v2-236b training"}[key]
+                     "mla_train": "deepseek-v2-236b training",
+                     "paper_trial": "paper trial", "paper_trial_n256": "paper trial N=256"}[key]
+            plan = (f", grid {w['grid']}, workspace {w['workspace_bytes']} B" if "grid" in w
+                    else f", plan {w['plan']}" if "plan" in w else "")
             print(f"time {name} at the backbone's {where} "
                   f"shape {w['shape']}: kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
-                  f"{100 * w['bound_ms'] / w['ms']:.1f} % of it reached)")
+                  f"{100 * w['bound_ms'] / w['ms']:.1f} % of it reached){plan}")
     for r in rows[:2]:
         w = r["n256"]
         events = f" (batched {w['batched_ms']:.4f} ms)" if "batched_ms" in w else ""
@@ -6402,6 +6451,9 @@ def main(argv=None) -> int:
             # shapes (n_in 768, 1,536, 4,096, 2,048 and 5,120; the RLS update
             # at k = 32 and 8), where timed.
             **{key: t.get(key) for key in K1_FAMILY_TRAIN},
+            # Phase 7 at the paper trials' S = 1 shapes (N = 128 and 256),
+            # where timed.
+            **{key: t.get(key) for key in PAPER_K1},
             "ok": True,
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -4,8 +4,9 @@
 For each rank k at N = 128, m = 6 (the training path's head; k is the
 step's batch) it reports:
 
-* the launch: blocks, threads and shared memory of the single pass, and
-  the SMs it leaves idle (one stream takes one cluster);
+* the launch: blocks, threads and shared memory of the single pass (its
+  plan: one block at k = 1, a cluster of four from k = 2 on), and the SMs
+  it leaves idle (one stream takes one cluster);
 * device times (CUDA events around back-to-back calls queued behind a
   sleep, so the host's launch cost is hidden), and the host's time to
   enqueue one call: the kernel, its plain
@@ -47,8 +48,8 @@ PHASES = (  # (name, first mark, last mark) of the marks in csrc/oselm_update.cu
     ("1. PHt = P H^T", 2, 3),
     ("2. S share, E = Y - H beta", 3, 4),
     ("2. W = H^T E", 4, 5),
-    ("3. S, right-hand side PHt^T", 5, 6),
-    ("4. Gauss-Jordan G = S^-1 PHt^T", 6, 7),
+    ("3. S, right-hand side (own columns of PHt^T)", 5, 6),
+    ("4. Gauss-Jordan (own columns of G), G gathered", 6, 7),
     ("5. P' = P - PHt G, beta' = beta + P' W", 7, 8),
 )
 RANK1_PHASE = ("the rank-1 path (rank1_stream)", 2, 8)  # k = 1 sets marks 0-2 and 8 only
@@ -191,6 +192,7 @@ def measure(k: int, lib, seed: int) -> dict:
     )
     out = dict(
         shape=[1, N, k, M],
+        plan=list(plan),
         launch=dict(clusters=clusters, cluster_blocks=c, stages=ns, blocks=blocks,
                     threads=256, smem_bytes=oselm_update.single_pass_smem_bytes(N, k, M, c, ns),
                     sms=sms, idle_sms=sms - blocks),
@@ -222,7 +224,8 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     for r in rows:
         ln = r["launch"]
-        print(f"rls (1, {N}, {r['shape'][2]}, {M}): {ln['blocks']} block(s) of {ln['threads']} "
+        print(f"rls (1, {N}, {r['shape'][2]}, {M}) plan {tuple(r['plan'])}: "
+              f"{ln['blocks']} block(s) of {ln['threads']} "
               f"threads, {ln['smem_bytes']} B smem, {ln['idle_sms']} of {ln['sms']} SMs idle; "
               f"kernel {r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.4f}, two-stage "
               f"{r['two_stage_ms']:.4f} (its pass {r['two_stage_pass_ms']:.4f}), launch floor "

@@ -17,9 +17,10 @@ Variants (paper §2.3):
     through the projection kernel (``kernels/ops.xorshift_projection``).
 
 Every RLS update runs the fused kernel's numerics (``kernels/ops``): no
-symmetrisation of P', beta' from P' @ W.  ``cfg.use_kernel`` is kept so
-configs carry across from the JAX package, but the device of the tensors,
-not the flag, chooses between kernel (CUDA) and plain version (CPU).
+symmetrisation of P', beta' from P' @ W.  ``cfg.use_kernel`` and the
+update functions' ``use_kernel`` keyword are kept so configs and callers
+carry across from the JAX package, but the device of the tensors, not the
+flag, chooses between kernel (CUDA) and plain version (CPU).
 
 A fleet of heads is a leading stream axis S on every ``OSELMState`` leaf.
 """
@@ -170,11 +171,16 @@ def sequential_update(
     cfg: OSELMConfig,
     alpha: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,
+    use_kernel: Optional[bool] = None,
 ) -> OSELMState:
     """Rank-k RLS update (Fig. 2(d)).  x: (k, n_in) or (n_in,); y one-hot.
 
     ``mask`` (k,) in {0,1} soft-deletes rows: a masked row contributes
     exactly nothing (H_row := 0, its innovation zeroed).
+
+    ``use_kernel`` is accepted where the JAX package takes it and ignored:
+    the device of the tensors picks the path (the kernel on CUDA, its plain
+    version on the CPU), and both follow the kernel's numerics.
     """
     if x.dim() == 1:
         x, y = x[None], y[None]
@@ -229,10 +235,12 @@ def fleet_update(
     y: torch.Tensor,  # (S, m) one-hot
     cfg: OSELMConfig,
     mask: Optional[torch.Tensor] = None,  # (S,) in {0, 1}
+    use_kernel: Optional[bool] = None,  # ignored, as in sequential_update
 ) -> OSELMState:
     """Rank-1 ``sequential_update`` for S heads, one sample each (the JAX
     package's vmap baseline): :func:`fleet_rank1_update`, whose RLS the
-    device routes (the kernel on CUDA, its plain version on the CPU)."""
+    device routes (the kernel on CUDA, its plain version on the CPU).
+    ``use_kernel`` is accepted and ignored (see ``sequential_update``)."""
     return fleet_rank1_update(state, x, y, cfg, mask=mask)
 
 
@@ -242,6 +250,7 @@ def fleet_rank1_update_h(
     y: torch.Tensor,  # (S, m) one-hot targets
     cfg: OSELMConfig,
     mask: Optional[torch.Tensor] = None,  # (S,) in {0, 1}
+    use_kernel: Optional[bool] = None,  # ignored, as in sequential_update
     out: Optional[tuple[torch.Tensor, torch.Tensor]] = None,  # (P', beta') buffers
 ) -> OSELMState:
     """Masked rank-1 RLS for S independent heads through the fused kernel.
@@ -249,7 +258,8 @@ def fleet_rank1_update_h(
     Takes precomputed hidden activations so a tick never projects twice.
     A masked stream is an exact identity on (P, beta, count).  With ``out``
     the new P and beta are written into those buffers (the stream runtime's
-    ping-pong pair) instead of new ones.
+    ping-pong pair) instead of new ones.  ``use_kernel`` is accepted and
+    ignored (see ``sequential_update``).
     """
     if mask is None:
         mask = torch.ones(h.shape[0], dtype=torch.float32, device=h.device)
@@ -268,6 +278,7 @@ def fleet_rank1_update(
     y: torch.Tensor,  # (S, m)
     cfg: OSELMConfig,
     mask: Optional[torch.Tensor] = None,
+    use_kernel: Optional[bool] = None,  # ignored, as in sequential_update
 ) -> OSELMState:
     """As :func:`fleet_rank1_update_h` but projecting ``x`` itself."""
     return fleet_rank1_update_h(state, hidden(x, cfg), y, cfg, mask=mask)

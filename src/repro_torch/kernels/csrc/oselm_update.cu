@@ -33,13 +33,24 @@
 //     for its lanes' columns itself, the row sums run as butterfly
 //     reductions, and a stream costs two barriers;
 //   * any other k <= 64, or N = 256 on a cluster: the block's rows of PHt
-//     and its share of S from shared memory, E and W; the shares of S and
-//     the rows of PHt of the other blocks cross through distributed shared
-//     memory between two cluster barriers; every block solves S G = PHt^T
-//     for the whole k x N right-hand side (Gauss-Jordan without pivoting, S
-//     is SPD); then one pass forms P' and beta'.
+//     (rows padded to an odd stride, k + 1 floats for an even k, so that the
+//     lanes of a warp reading a column of PHt fall on distinct banks: at
+//     k = 32 the unpadded rows made that a 32-way conflict) and its share
+//     of S from shared memory, E and W; the shares of S cross through
+//     distributed shared memory after a cluster barrier; every block
+//     eliminates S in full (Gauss-Jordan without pivoting, S is SPD) and
+//     solves S G = PHt^T: for k a multiple of 4 (the wide forms, kWide) for
+//     its own columns of G only (those of its rows of PHt), then gathers the
+//     other blocks' columns between two more barriers; else for all
+//     columns, from the other blocks' rows of PHt, after a second barrier;
+//     then one pass forms P' and beta';
+//   * one head with k >= 2 (the training path: k is the step's rows): one
+//     stream leaves 131 of 132 SMs idle on one block, so the plan spreads it
+//     over a cluster of blocks of 32 rows each, which split PHt, the shares
+//     of S, the columns of G and the downdate.
 //   kernels/oselm_update.py::single_pass_plan chooses C and NS: N = 128
-//   takes C = 1 and three stages, N = 256 a cluster of four.
+//   takes C = 1 and three stages at k = 1 (C = 4 from k = 2 on), N = 256 a
+//   cluster of four.
 //
 // rls_fleet_kernel — the second stage of the two-stage route, for the shapes
 //   the single pass does not take (N > 256, k > 64, N not a multiple of 4,
@@ -74,7 +85,8 @@ constexpr int BULK_CHUNK = 32 * 1024;  // bytes per cp.async.bulk instruction
 
 // Shared-memory layout of one block, in floats after the mbarriers:
 // NS stages of [P rows (R x N) | H, then PHt^T, then G (k x N) | beta (N x m)],
-// then W^T (m x N) | PHt rows (R x k) | S share (k x k) | S (k x k) | E (k x m).
+// then W^T (m x N) | PHt rows (R x (k | 1): rows padded to an odd stride) |
+// S share (k x k) | S (k x k) | E (k x m).
 // With N a multiple of 4 every stage part and W^T start 16-byte aligned, as
 // the bulk copies and the float4 reads need.
 struct Layout {
@@ -86,7 +98,7 @@ struct Layout {
     stage = bs + N * m;
     w = NS * stage;
     pht = w + m * N;
-    s_part = pht + R * k;
+    s_part = pht + R * (k | 1);
     s_full = s_part + k * k;
     e = s_full + k * k;
     floats = e + k * m;
@@ -263,6 +275,43 @@ __device__ __forceinline__ void rank1_stream(const float* p_s, const float* h_s,
   }
 }
 
+// This thread's share of its block's rows of PHt = P H^T, U columns of PHt
+// at a time (k a multiple of U): `tpr` lanes share a row, each taking every
+// tpr-th float4 chunk from `first` on, and their sums meet by shuffles.
+// Each column's sum takes the same steps whatever U is.
+template <int U>
+__device__ __forceinline__ void pht_rows(const float* p_s, const float* hg, float* pht, int k,
+                                         int kp, int n4, int row, int part, int tpr, int nch,
+                                         int first, bool has_row) {
+  const float4* p4 = reinterpret_cast<const float4*>(p_s);
+  const float4* h4 = reinterpret_cast<const float4*>(hg);
+  for (int q0 = 0; q0 < k; q0 += U) {
+    float acc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = 0.0f;
+    if (has_row) {
+      for (int it = 0, ci = first; it < nch; ++it, ci = ci + 1 == nch ? 0 : ci + 1) {
+        const int c = ci * tpr + part;
+        if (c >= n4) continue;
+        const float4 a = p4[row * n4 + c];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float4 b = h4[(q0 + u) * n4 + c];
+          acc[u] = fmaf(a.x, b.x, acc[u]);
+          acc[u] = fmaf(a.y, b.y, acc[u]);
+          acc[u] = fmaf(a.z, b.z, acc[u]);
+          acc[u] = fmaf(a.w, b.w, acc[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      for (int o = tpr / 2; o > 0; o >>= 1) acc[u] += __shfl_xor_sync(0xFFFFFFFFu, acc[u], o);
+      if (has_row && part == 0) pht[row * kp + q0 + u] = acc[u];
+    }
+  }
+}
+
 #ifdef RLS_PHASE_CLOCKS
 constexpr int N_MARKS = 9;
 __device__ unsigned long long rls_marks[2 * N_MARKS];  // (clock64, globaltimer) per mark
@@ -280,6 +329,12 @@ __device__ __forceinline__ void phase_mark(int at, int stream_i) {
 #define RLS_MARK(at, stream_i) ((void)0)
 #endif
 
+// kWide: k is a multiple of 4, and the general path takes its wide forms:
+// PHt four columns at a time, the S share spread over all threads, and on a
+// cluster each block solving for its own columns of G. The other
+// instantiation (the fleet's k = 1 among others) carries none of their code:
+// on an H100 the N = 256, k = 1 update ran 4 % slower with it.
+template <bool kWide>
 __global__ void __launch_bounds__(S_THREADS, 1)
     rls_single_kernel(const float* __restrict__ P, const float* __restrict__ beta,
                       const float* __restrict__ H, const float* __restrict__ Y,
@@ -306,6 +361,7 @@ __global__ void __launch_bounds__(S_THREADS, 1)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n4 = N / 4;
+  const int kp = k | 1;  // PHt's row stride, odd: a column's R values fall on distinct banks
   const uint32_t p_bytes = static_cast<uint32_t>(R) * N * 4;
   const uint32_t h_bytes = static_cast<uint32_t>(k) * N * 4;
   const uint32_t b_bytes = static_cast<uint32_t>(N) * m * 4;
@@ -356,6 +412,17 @@ __global__ void __launch_bounds__(S_THREADS, 1)
   // Y of the next stream is loaded one stream ahead, into a register.
   const int km = k * m;
   const bool rank1 = k == 1 && C == 1 && N <= 128 && m <= 8;
+
+  // The wide form's shapes of work, the same for every stream: lanes per
+  // (q, q2) of the S share (a power of two, 2^lsh); the columns [c0, c0 +
+  // nc) of G this block solves for (its own); the solve's thread mapping.
+  int lsh = 5;
+  while (lsh > 0 && (k * k << lsh) > S_THREADS) --lsh;
+  const int lpp = 1 << lsh;
+  const int c0 = r0, nc = R;
+  const int wsh = k <= 33 ? 5 : 6, w = 1 << wsh;  // 32 or 64 columns of S a row of threads
+  const int rhs_n = c0 + tid % nc, rhs_step = S_THREADS / nc;
+  const int rhs_rw = tid < rhs_step * nc ? tid / nc : k;
   float y_next = (count > 0 && tid < km) ? Y[static_cast<size_t>(cid) * km + tid] : 0.0f;
 
   for (int i = 0; i < count; ++i) {
@@ -373,25 +440,9 @@ __global__ void __launch_bounds__(S_THREADS, 1)
     if (rank1) {
       rank1_stream(p_s, hg, b_s, pht, e_s, y_cur, p_out, beta_out, s, N, m, warp, lane);
     } else {  // any k <= 64, clusters of 1, 2 or 4 blocks
-      // 1. This block's rows of PHt = P H^T.
-      float4* p4 = reinterpret_cast<float4*>(p_s);
-      const float4* h4 = reinterpret_cast<const float4*>(hg);
-      for (int q = 0; q < k; ++q) {
-        float acc = 0.0f;
-        if (has_row) {
-          for (int it = 0, ci = first; it < nch; ++it, ci = ci + 1 == nch ? 0 : ci + 1) {
-            const int c = ci * tpr + part;
-            if (c >= n4) continue;
-            const float4 a = p4[row * n4 + c], b = h4[q * n4 + c];
-            acc = fmaf(a.x, b.x, acc);
-            acc = fmaf(a.y, b.y, acc);
-            acc = fmaf(a.z, b.z, acc);
-            acc = fmaf(a.w, b.w, acc);
-          }
-        }
-        for (int o = tpr / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xFFFFFFFFu, acc, o);
-        if (has_row && part == 0) pht[row * k + q] = acc;
-      }
+      // 1. This block's rows of PHt = P H^T (four columns at a time where k
+      //    allows, each chunk of P read once for the four).
+      pht_rows<kWide ? 4 : 1>(p_s, hg, pht, k, kp, n4, row, part, tpr, nch, first, has_row);
       if (tid < km) e_s[tid] = y_cur;
       for (int j = tid + S_THREADS; j < km; j += S_THREADS) e_s[j] = Y[s * km + j];
       __syncthreads();
@@ -399,12 +450,29 @@ __global__ void __launch_bounds__(S_THREADS, 1)
 
       // 2. This block's share of S = I + H PHt (a sum over its rows), and
       //    E = Y - H beta, then W^T = (H^T E)^T.
-      for (int pair = warp; pair < k * k; pair += S_WARPS) {
-        const int q = pair / k, q2 = pair % k;
-        float acc = 0.0f;
-        for (int r = lane; r < R; r += 32) acc = fmaf(hg[q * N + r0 + r], pht[r * k + q2], acc);
-        acc = warp_sum(acc);
-        if (lane == 0) s_part[pair] = acc;
+      //    kWide: each (q, q2) of the share takes lpp lanes (fewer as k
+      //    grows, one from k = 16 on), so that every thread has work and few
+      //    shuffles; else a warp each.
+      if constexpr (kWide) {
+        for (int base = 0; base < k * k; base += S_THREADS >> lsh) {
+          if (base + ((warp * 32) >> lsh) >= k * k) break;  // this warp has no pair left
+          const int pair = base + (tid >> lsh), sub = tid & (lpp - 1);
+          float acc = 0.0f;
+          if (pair < k * k) {
+            const int q = pair / k, q2 = pair % k;
+            for (int r = sub; r < R; r += lpp) acc = fmaf(hg[q * N + r0 + r], pht[r * kp + q2], acc);
+          }
+          for (int o = lpp / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xFFFFFFFFu, acc, o);
+          if (pair < k * k && sub == 0) s_part[pair] = acc;
+        }
+      } else {
+        for (int pair = warp; pair < k * k; pair += S_WARPS) {
+          const int q = pair / k, q2 = pair % k;
+          float acc = 0.0f;
+          for (int r = lane; r < R; r += 32) acc = fmaf(hg[q * N + r0 + r], pht[r * kp + q2], acc);
+          acc = warp_sum(acc);
+          if (lane == 0) s_part[pair] = acc;
+        }
       }
       for (int pair = warp; pair < km; pair += S_WARPS) {
         const int q = pair / m, j = pair % m;
@@ -423,9 +491,14 @@ __global__ void __launch_bounds__(S_THREADS, 1)
       }
 
       // 3. Across the cluster: S = I + the sum of the shares, and the
-      //    right-hand side PHt^T (k x N) over H, which no one reads any more.
-      //    The second barrier also keeps the other blocks from overwriting
-      //    their PHt and S share (next stream) before this block has read them.
+      //    right-hand side PHt^T over H, which no one reads any more.
+      //    kWide on a cluster: each block solves for its own columns of G
+      //    only (those of its rows of PHt, in its own shared memory) and the
+      //    columns cross after the solve (steps 4w); else every block takes
+      //    all columns from the other blocks' rows of PHt, after which the
+      //    second barrier also keeps the other blocks from overwriting their
+      //    PHt and S share (next stream) before this block has read them
+      //    (with own columns the barriers around the exchange of G do that).
       sync_cluster();
       RLS_MARK(5, i);
       for (int j = tid; j < k * k; j += S_THREADS) {
@@ -433,32 +506,79 @@ __global__ void __launch_bounds__(S_THREADS, 1)
         for (int c = 0; c < C; ++c) acc += peer(s_part, c)[j];
         s_full[j] = (j / k == j % k ? 1.0f : 0.0f) + acc;
       }
-      for (int j = tid; j < k * N; j += S_THREADS) {
-        const int q = j / N, n = j % N, owner = n / R;
-        hg[j] = peer(pht, owner)[(n - owner * R) * k + q];
+      if constexpr (kWide) {
+        for (int j = tid; j < k * nc; j += S_THREADS) {
+          const int q = j / nc, n = c0 + j % nc;
+          hg[q * N + n] = pht[(n - r0) * kp + q];
+        }
+        __syncthreads();
+      } else {
+        for (int j = tid; j < k * N; j += S_THREADS) {
+          const int q = j / N, n = j % N, owner = n / R;
+          hg[j] = peer(pht, owner)[(n - owner * R) * kp + q];
+        }
+        sync_cluster();
       }
-      sync_cluster();
       RLS_MARK(6, i);
 
-      // 4. G = S^-1 PHt^T in place: Gauss-Jordan without pivoting (S is SPD).
-      //    Columns of S left of the pivot are never read again, so each step
-      //    updates only the columns right of it.
-      for (int pv = 0; pv < k; ++pv) {
-        const float d = s_full[pv * k + pv];  // never written below: the scaling starts right of it
-        for (int j = pv + 1 + tid; j < k; j += S_THREADS) s_full[pv * k + j] /= d;
-        for (int n = tid; n < N; n += S_THREADS) hg[pv * N + n] /= d;
-        __syncthreads();
-        for (int j = tid; j < (k - 1) * (k - pv); j += S_THREADS) {
-          const int rw = j / (k - pv), col = pv + j % (k - pv);
-          const int rr = rw < pv ? rw : rw + 1;  // every row but the pivot's
-          if (col > pv) s_full[rr * k + col] -= s_full[rr * k + pv] * s_full[pv * k + col];
+      // 4. G = S^-1 PHt^T in place: Gauss-Jordan without pivoting (S is SPD),
+      //    S in full in every block. Columns of S left of the pivot are
+      //    never read again, so each step updates only the columns right of
+      //    it. Each element takes the same steps on either form.
+      if constexpr (kWide) {
+        // 4w. Columns [c0, c0 + nc), with no index divided in the steps: a
+        //     thread takes S's column pv + 1 + tid % w of rows tid / w,
+        //     + 256 / w, ..., and the right-hand side's column
+        //     c0 + tid % nc of rows tid / nc, + 256 / nc, ... (threads past
+        //     the last whole row of columns idle).
+        for (int pv = 0; pv < k; ++pv) {
+          const float d = s_full[pv * k + pv];  // never written below: the scaling starts right of it
+          if (tid < k - pv - 1) s_full[pv * k + pv + 1 + tid] /= d;
+          for (int n = c0 + tid; n < c0 + nc; n += S_THREADS) hg[pv * N + n] /= d;
+          __syncthreads();
+          const int col = pv + 1 + (tid & (w - 1));
+          if (col < k) {
+            for (int rw = tid >> wsh; rw < k - 1; rw += S_THREADS >> wsh) {
+              const int rr = rw < pv ? rw : rw + 1;  // every row but the pivot's
+              s_full[rr * k + col] -= s_full[rr * k + pv] * s_full[pv * k + col];
+            }
+          }
+          for (int rw = rhs_rw; rw < k - 1; rw += rhs_step) {
+            const int rr = rw < pv ? rw : rw + 1;
+            hg[rr * N + rhs_n] -= s_full[rr * k + pv] * hg[pv * N + rhs_n];
+          }
+          __syncthreads();
         }
-        for (int j = tid; j < (k - 1) * N; j += S_THREADS) {
-          const int rw = j / N, n = j % N;
-          const int rr = rw < pv ? rw : rw + 1;
-          hg[rr * N + n] -= s_full[rr * k + pv] * hg[pv * N + n];
+        //     Every block's columns of G from their owners: after the first
+        //     barrier all are solved; the second keeps each block's columns
+        //     in place (its next stream's copies land on this stage) until
+        //     every other block has read them.
+        if (C > 1) {
+          cluster.sync();
+          for (int j = tid; j < k * N; j += S_THREADS) {
+            const int owner = (j % N) / R;
+            if (owner != rank) hg[j] = peer(hg, owner)[j];
+          }
+          cluster.sync();
         }
-        __syncthreads();
+      } else {
+        for (int pv = 0; pv < k; ++pv) {
+          const float d = s_full[pv * k + pv];
+          for (int j = pv + 1 + tid; j < k; j += S_THREADS) s_full[pv * k + j] /= d;
+          for (int n = tid; n < N; n += S_THREADS) hg[pv * N + n] /= d;
+          __syncthreads();
+          for (int j = tid; j < (k - 1) * (k - pv); j += S_THREADS) {
+            const int rw = j / (k - pv), col = pv + j % (k - pv);
+            const int rr = rw < pv ? rw : rw + 1;
+            if (col > pv) s_full[rr * k + col] -= s_full[rr * k + pv] * s_full[pv * k + col];
+          }
+          for (int j = tid; j < (k - 1) * N; j += S_THREADS) {
+            const int rw = j / N, n = j % N;
+            const int rr = rw < pv ? rw : rw + 1;
+            hg[rr * N + n] -= s_full[rr * k + pv] * hg[pv * N + n];
+          }
+          __syncthreads();
+        }
       }
       RLS_MARK(7, i);
 
@@ -466,6 +586,7 @@ __global__ void __launch_bounds__(S_THREADS, 1)
       //    registers to device memory (16-byte streaming stores), and its
       //    products with W^T accumulate beta' = beta + P' W, MMAX outputs per
       //    pass (P' is kept in shared memory only when m needs more passes).
+      float4* p4 = reinterpret_cast<float4*>(p_s);
       const float4* g4 = reinterpret_cast<const float4*>(hg);
       const float4* w4 = reinterpret_cast<const float4*>(w_s);
       float4* out4 = reinterpret_cast<float4*>(p_out + (s * N + r0) * N);
@@ -482,7 +603,7 @@ __global__ void __launch_bounds__(S_THREADS, 1)
             if (j0 == 0) {
               float4 dn = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
               for (int q = 0; q < k; ++q) {
-                const float f = pht[row * k + q];
+                const float f = pht[row * kp + q];
                 const float4 g = g4[q * n4 + c];
                 dn.x = fmaf(f, g.x, dn.x);
                 dn.y = fmaf(f, g.y, dn.y);
@@ -630,13 +751,16 @@ extern "C" int oselm_rls_single_launch(const void* P, const void* beta, const vo
                                        const void* Y, void* p_out, void* beta_out, int S, int N,
                                        int k, int m, int C, int NS, void* stream) {
   const int smem = Layout(N, k, m, C, NS).bytes();
-  static int smem_set = 0;  // the largest opt-in so far
+  const bool wide = k % 4 == 0;  // the kernel's wide forms (see rls_single_kernel)
+  static int smem_set[2] = {0, 0};  // the largest opt-in so far, per instantiation
   cudaError_t err;
-  if (smem > smem_set) {
-    err = cudaFuncSetAttribute(rls_single_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+  if (smem > smem_set[wide]) {
+    err = wide ? cudaFuncSetAttribute(rls_single_kernel<true>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+               : cudaFuncSetAttribute(rls_single_kernel<false>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = smem;
+    smem_set[wide] = smem;
   }
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);
@@ -658,7 +782,8 @@ extern "C" int oselm_rls_single_launch(const void* P, const void* beta, const vo
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, rls_single_kernel, static_cast<const float*>(P),
+  err = cudaLaunchKernelEx(&cfg, wide ? rls_single_kernel<true> : rls_single_kernel<false>,
+                           static_cast<const float*>(P),
                            static_cast<const float*>(beta), static_cast<const float*>(H),
                            static_cast<const float*>(Y), static_cast<float*>(p_out),
                            static_cast<float*>(beta_out), S, N, k, m, NS);

@@ -41,6 +41,27 @@
 //   * two stages: while the wgmmas of tile t run asynchronously, the
 //     threads hash and split tile t + 1 into the other stage, two items
 //     after each k8 step's wgmmas; a wgmma wait and one barrier close the tile.
+//
+// Few rows (redesigned for the backbones' 8-512 rows): there the grid above
+// is one or a few blocks on 132 SMs, each walking every K tile in series
+// and hashing all of alpha itself. So the K range is split over blocks:
+// the plan (kernels/xorshift_proj.py::projection_plan, which the launch
+// takes as it is) gives each block a row tile and a contiguous run of K
+// groups; the block hashes only the alpha slice of its run, and writes one
+// f32 partial sum of its tile per group into a workspace (groups x B x N,
+// from the wrapper); a second small pass (proj_kernel_reduce) adds the
+// partials of each element in group order, by index, and runs the epilogue
+// once. No float atomics: the order of every sum is fixed.
+//
+// The order of summation over K is a function of n_in alone, the same on
+// both routes, so a row's H is bit-identical whatever B is and whichever
+// route its shape takes: each K tile is summed on the tensor cores alone;
+// the tiles of a group of `group` tiles are added in order into a group sum
+// (0 + first tile + ...); the group sums are added in order into the total
+// (0 + first group + ...). At group = 1 that is the single chain of tile
+// sums the kernel always took. The one-pass route keeps the group sum in
+// registers beside the total (only where group > 1); the split route
+// stores each group sum as its partial.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,6 +95,11 @@ constexpr int smem_bytes(bool raw_ring) {
 constexpr uint32_t SBO_BYTES = 8 * 128;
 
 constexpr uint32_t M16 = 0xFFFFu;
+
+// How a block sums and stores (the launch picks by the plan's arguments):
+// the tile sums chained straight into the total (group = 1), through a
+// group sum (group > 1), or each group sum stored as a partial (split K).
+enum Mode : int { kDirect = 0, kGrouped = 1, kPartial = 2 };
 
 // The counter hash mix16 ((7, 9, 8) Xorshift16 step, then an odd-constant
 // multiply; three rounds) on two u16 values at once, one in each half of x: the shifts are
@@ -175,7 +201,8 @@ struct XTiles {
   int row0, B, K, tid;
   float xr[PER];
 
-  __device__ __forceinline__ void fetch(int tile, int nk) {
+  // Tiles at or past `end` (the block's last K tile + 1) are not fetched.
+  __device__ __forceinline__ void fetch(int tile, int end) {
     const int gk = tile * BK + tid % 32;
     const int r = row0 + tid / 32;
     if constexpr (sizeof(T) == 4) {
@@ -183,7 +210,7 @@ struct XTiles {
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const int gr = r + i * WARPS;
-        const bool in = tile < nk && gr < B && gk < K;
+        const bool in = tile < end && gr < B && gk < K;
         const T* src = in ? x + static_cast<size_t>(gr) * K + gk : x;
         asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
                          static_cast<uint32_t>(__cvta_generic_to_shared(slot + tid + i * THREADS))),
@@ -195,7 +222,7 @@ struct XTiles {
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const int gr = r + i * WARPS;
-        xr[i] = (tile < nk && gr < B && gk < K)
+        xr[i] = (tile < end && gr < B && gk < K)
                     ? __bfloat162float(x[static_cast<size_t>(gr) * K + gk])
                     : 0.0f;
       }
@@ -244,10 +271,44 @@ __device__ __forceinline__ void fill_pair(float* st, const XTiles<T>& xt, int ti
   }
 }
 
-template <typename T>
+// The accumulator fragment of m64nNk8: v[4j + 2h + b] is row 16*warp +
+// lane/4 + 8h, column 8j + 2*(lane%4) + b of the warpgroup's 64 x 64 tile,
+// which is row r_base + 8h, column c_base + 8j + b of H. Calls f(v0, v1,
+// row, column of v0) for each pair in a row below B.
+template <typename F>
+__device__ __forceinline__ void for_each_pair(const float (&v)[32], int r_base, int c_base,
+                                              int B, F&& f) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gr = r_base + 8 * hh, gc = c_base + 8 * j;
+      if (gr < B) f(v[4 * j + 2 * hh], v[4 * j + 2 * hh + 1], gr, gc);
+    }
+  }
+}
+
+// Two values of row gr at columns gc, gc + 1 into dst (row-major, N wide).
+__device__ __forceinline__ void store_pair(float* dst, float z0, float z1, int gr, int gc,
+                                           int N) {
+  float* p = dst + static_cast<size_t>(gr) * N + gc;
+  if (gc + 1 < N && N % 2 == 0) {
+    *reinterpret_cast<float2*>(p) = make_float2(z0, z1);  // gr * N + gc is even
+  } else {
+    if (gc < N) p[0] = z0;
+    if (gc + 1 < N) p[1] = z1;
+  }
+}
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z): rows blockIdx.x * BM.., columns
+// blockIdx.y * BN.., K groups [blockIdx.z * gpb, + gpb) of `group` tiles each
+// (groups in all). kDirect and kGrouped (one block along z) write H; kPartial
+// writes each group's sum of its tile into ws (groups x B x N).
+template <typename T, int kMode>
 __global__ void __launch_bounds__(THREADS, 1)
-    proj_kernel(const T* __restrict__ x, float* __restrict__ h, int B, int K, int N,
-                uint32_t seed, float scale, float inv_sqrt_n, int act) {
+    proj_kernel(const T* __restrict__ x, float* __restrict__ h, float* __restrict__ ws, int B,
+                int K, int N, uint32_t seed, float scale, float inv_sqrt_n, int act, int group,
+                int groups, int gpb) {
   constexpr bool kSplitX = sizeof(T) == 4;  // bf16 x: no x_lo tile and no third product
   extern __shared__ unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(
@@ -259,32 +320,42 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int row0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
   const int nk = (K + BK - 1) / BK;
+  // This block's K tiles [t0, t1): all of K but on the split route.
+  const int g0 = kMode == kPartial ? blockIdx.z * gpb : 0;
+  const int t0 = g0 * group;
+  const int t1 = kMode == kPartial ? min(min(g0 + gpb, groups) * group, nk) : nk;
 
   // The tensor cores' f32 accumulation loses more than round-to-nearest
-  // adds, and its error grows with the running sum: d sums one K tile only,
-  // and tot sums the tiles with ordinary f32 adds.
-  float d[32], tot[32];
+  // adds, and its error grows with the running sum: d sums one K tile only;
+  // gs sums the tiles of a group and tot the groups, with ordinary f32 adds
+  // (at group = 1, tot takes the tile sums directly).
+  float d[32], gs[32], tot[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = tot[i] = 0.0f;
+  for (int i = 0; i < 32; ++i) d[i] = gs[i] = tot[i] = 0.0f;
+
+  // Accumulator fragment positions (see for_each_pair).
+  const int lane = tid % 32;
+  const int r_base = row0 + wr * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  const int c_base = col0 + wc * 64 + 2 * (lane % 4);
 
   XTiles<T> xt{x, smem + 2 * STAGE, row0, B, K, tid, {}};
-  xt.fetch(0, nk);
+  xt.fetch(t0, t1);
   if constexpr (kSplitX) {
-    xt.fetch(1, nk);
+    xt.fetch(t0 + 1, t1);
     asm volatile("cp.async.wait_group 1;" ::: "memory");
   }
 #pragma unroll
-  for (int p = 0; p < PER / 2; ++p) fill_pair(smem, xt, 0, p, seed, col0, N, tid);
+  for (int p = 0; p < PER / 2; ++p) fill_pair(smem, xt, t0, p, seed, col0, N, tid);
   if constexpr (kSplitX) {
-    xt.fetch(2, nk);
+    xt.fetch(t0 + 2, t1);
   } else {
-    xt.fetch(1, nk);
+    xt.fetch(t0 + 1, t1);
   }
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
 
-  for (int t = 0; t < nk; ++t) {
-    const float* st = smem + (t & 1) * STAGE;
+  for (int t = t0; t < t1; ++t) {
+    const float* st = smem + ((t - t0) & 1) * STAGE;
     // A: this warpgroup's 64 rows of x; B: its 64 rows of alpha^T.
     const float* xh = st + wr * (TILE / 2);
     const float* xl = xh + TILE;
@@ -293,8 +364,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // The next tile is hashed and split into the other stage (its readers
     // finished before the last barrier) between the wgmmas of this one, so
     // that the tensor cores and the fill run side by side.
-    const bool more = t + 1 < nk;
-    float* next = smem + ((t + 1) & 1) * STAGE;
+    const bool more = t + 1 < t1;
+    float* next = smem + ((t - t0 + 1) & 1) * STAGE;
     if (kSplitX && more) asm volatile("cp.async.wait_group 1;" ::: "memory");
     const uint64_t dxh = smem_desc(xh), dxl = smem_desc(xl);
     const uint64_t dah = smem_desc(ah), dal = smem_desc(al);
@@ -311,69 +382,118 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     fence_operands(d);
     if (more) {
-      xt.fetch(kSplitX ? t + 3 : t + 2, nk);
+      xt.fetch(kSplitX ? t + 3 : t + 2, t1);
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_operands(d);
+    if constexpr (kMode == kDirect) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) tot[i] += d[i];
+      for (int i = 0; i < 32; ++i) tot[i] += d[i];
+    } else {
+      const bool opens = t % group == 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) gs[i] = (opens ? 0.0f : gs[i]) + d[i];
+      if (t + 1 == t1 || (t + 1) % group == 0) {  // the group closes
+        if constexpr (kMode == kGrouped) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) tot[i] += gs[i];
+        } else {
+          float* part = ws + static_cast<size_t>(t / group) * B * N;
+          for_each_pair(gs, r_base, c_base, B, [&](float v0, float v1, int gr, int gc) {
+            store_pair(part, v0, v1, gr, gc, N);
+          });
+        }
+      }
+    }
     __syncthreads();
   }
   if constexpr (kSplitX) asm volatile("cp.async.wait_all;" ::: "memory");
+  if constexpr (kMode == kPartial) return;
 
-  // Accumulator fragment of m64nNk8: d[4j + 2h + b] is row 16*warp + lane/4 + 8h,
-  // column 8j + 2*(lane%4) + b of this warpgroup's 64 x 64 tile.
-  const int lane = tid % 32;
-  const int r_base = row0 + wr * 64 + ((tid % 128) / 32) * 16 + lane / 4;
-  const int c_base = col0 + wc * 64 + 2 * (lane % 4);
   const float c = scale * inv_sqrt_n;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int gr = r_base + 8 * hh, gc = c_base + 8 * j;
-      if (gr >= B) continue;
-      const float z0 = activate(tot[4 * j + 2 * hh] * c, act);
-      const float z1 = activate(tot[4 * j + 2 * hh + 1] * c, act);
-      float* dst = h + static_cast<size_t>(gr) * N + gc;
-      if (gc + 1 < N && N % 2 == 0) {
-        *reinterpret_cast<float2*>(dst) = make_float2(z0, z1);  // gr * N + gc is even
-      } else {
-        if (gc < N) dst[0] = z0;
-        if (gc + 1 < N) dst[1] = z1;
-      }
-    }
+  for_each_pair(tot, r_base, c_base, B, [&](float v0, float v1, int gr, int gc) {
+    store_pair(h, activate(v0 * c, act), activate(v1 * c, act), gr, gc, N);
+  });
+}
+
+// The split route's second pass: each element of H is 0 + the partials of
+// its K groups in group order (the association kGrouped and kDirect take),
+// then the same epilogue.
+__global__ void __launch_bounds__(256)
+    proj_kernel_reduce(const float* __restrict__ ws, float* __restrict__ h, int elems, int groups,
+                       float scale, float inv_sqrt_n, int act) {
+  const float c = scale * inv_sqrt_n;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < elems; e += gridDim.x * blockDim.x) {
+    float tot = 0.0f;
+#pragma unroll 8
+    for (int g = 0; g < groups; ++g) tot += ws[static_cast<size_t>(g) * elems + e];
+    h[e] = activate(tot * c, act);
   }
+}
+
+template <typename T, int kMode>
+cudaError_t launch_mode(const void* x, void* h, void* ws, dim3 grid, int B, int K, int N,
+                        unsigned int seed, float scale, float inv_sqrt_n, int act, int group,
+                        int groups, int gpb, cudaStream_t s) {
+  // The opt-in above 48 KiB, once per instantiation.
+  static bool smem_set = false;
+  const int smem = smem_bytes(sizeof(T) == 4);
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        proj_kernel<T, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  proj_kernel<T, kMode><<<grid, THREADS, smem, s>>>(
+      static_cast<const T*>(x), static_cast<float*>(h), static_cast<float*>(ws), B, K, N, seed,
+      scale, inv_sqrt_n, act, group, groups, gpb);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dtype(const void* x, void* h, void* ws, dim3 grid, int B, int K, int N,
+                         unsigned int seed, float scale, float inv_sqrt_n, int act, int group,
+                         int groups, int gpb, cudaStream_t s) {
+  if (ws != nullptr) {
+    return launch_mode<T, kPartial>(x, h, ws, grid, B, K, N, seed, scale, inv_sqrt_n, act, group,
+                                    groups, gpb, s);
+  }
+  if (group == 1) {
+    return launch_mode<T, kDirect>(x, h, ws, grid, B, K, N, seed, scale, inv_sqrt_n, act, group,
+                                   groups, gpb, s);
+  }
+  return launch_mode<T, kGrouped>(x, h, ws, grid, B, K, N, seed, scale, inv_sqrt_n, act, group,
+                                  groups, gpb, s);
 }
 
 }  // namespace
 
+// The launch takes the plan of kernels/xorshift_proj.py::projection_plan as
+// it is: the grid (row tiles, column tiles, K splits), the group of K tiles,
+// the number of groups and the groups per block. With a workspace (ws, of
+// groups * B * N floats) the blocks write partials and proj_kernel_reduce
+// adds them; with none, one block along z writes H.
 extern "C" int xorshift_proj_launch(const void* x, int x_is_bf16, void* h, int B, int K, int N,
                                     unsigned int seed, float scale, float inv_sqrt_n, int act,
-                                    void* stream) {
-  const dim3 grid((B + BM - 1) / BM, (N + BN - 1) / BN);
+                                    int grid_x, int grid_y, int grid_z, int group, int groups,
+                                    int gpb, void* ws, void* stream) {
+  const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool smem_set[2] = {false, false};  // the opt-in above 48 KiB, once per instantiation
-  const int smem = smem_bytes(!x_is_bf16);
-  if (!smem_set[x_is_bf16 ? 1 : 0]) {
-    const cudaError_t err =
-        x_is_bf16 ? cudaFuncSetAttribute(proj_kernel<__nv_bfloat16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-                  : cudaFuncSetAttribute(proj_kernel<float>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[x_is_bf16 ? 1 : 0] = true;
+  if ((ws == nullptr) != (grid_z == 1) || group < 1 || gpb < 1 ||
+      static_cast<long long>(grid_z) * gpb < groups) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (x_is_bf16) {
-    proj_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(h), B, K, N, seed, scale,
-        inv_sqrt_n, act);
-  } else {
-    proj_kernel<float><<<grid, THREADS, smem, s>>>(static_cast<const float*>(x),
-                                                   static_cast<float*>(h), B, K, N, seed, scale,
-                                                   inv_sqrt_n, act);
-  }
+  const cudaError_t err =
+      x_is_bf16 ? launch_dtype<__nv_bfloat16>(x, h, ws, grid, B, K, N, seed, scale, inv_sqrt_n,
+                                              act, group, groups, gpb, s)
+                : launch_dtype<float>(x, h, ws, grid, B, K, N, seed, scale, inv_sqrt_n, act,
+                                      group, groups, gpb, s);
+  if (err != cudaSuccess || ws == nullptr) return static_cast<int>(err);
+  const int elems = B * N;
+  const int blocks = min((elems + 255) / 256, 1024);
+  proj_kernel_reduce<<<blocks, 256, 0, s>>>(static_cast<const float*>(ws), static_cast<float*>(h),
+                                            elems, groups, scale, inv_sqrt_n, act);
   return static_cast<int>(cudaGetLastError());
 }
 

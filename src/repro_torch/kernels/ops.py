@@ -99,8 +99,9 @@ def kernel_cost(name: str, shape: tuple, mode: str = "serve",
     """(FLOPs, bytes) of one whole call of entry point ``name`` at
     ``shape``, keyed as ``launch_shapes`` keys it: each input read once,
     each output written once, every product counted once (2 per
-    multiply-add; the projection's TF32 split into three products is the
-    kernel's own choice, not the work).
+    multiply-add; the projection's TF32 split into three products and its
+    split route's workspace of partial sums are the kernel's own choices,
+    not the work).
 
     * ``xorshift_projection`` (S, n_in, N): x f32 in, H out;
     * ``oselm_rls_update_fleet``, ``oselm_rls_update``, ``rls_two_stage``

@@ -11,7 +11,8 @@ small-operand stage) and, as its S = 1 case, ``oselm_rls_update``
   computes PHt = P Hᵀ, S = I + H PHt, G = S⁻¹ PHtᵀ, E = Y − H β, W = Hᵀ E,
   P' = P − PHt G and β' = β + P' W, each P byte read once and written
   once.  Persistent clusters (``single_pass_plan``: blocks per stream and
-  stages of the ring) walk the streams;
+  stages of the ring) walk the streams; from k = 2 rows a stream spreads
+  over a cluster of four blocks at N = 128;
 * the two-stage route for every other shape: the small operands in plain
   torch (``small_operands``, as the JAX wrapper computes them outside its
   ``pallas_call``), then the fused pass (``rls_fleet``).
@@ -38,6 +39,8 @@ SINGLE_MAX_N = 256
 SINGLE_MAX_K = 64
 SINGLE_MAX_ROWS = 128  # rows of P per block; more go to a cluster of blocks
 CLUSTER_SIZES = (1, 2, 4)
+SPREAD_MIN_K = 2  # from this rank on a stream is spread over a cluster ...
+SPREAD_MIN_ROWS = 32  # ... of as many blocks as keep this many rows of P each
 MAX_STAGES = 3
 MAX_SMEM_BYTES = 227 * 1024  # dynamic shared memory a block may opt into on Hopper
 _BAR_BYTES = 32
@@ -46,11 +49,12 @@ _BAR_BYTES = 32
 def single_pass_smem_bytes(n: int, k: int, m: int, c: int, ns: int) -> int:
     """Shared memory of one block of the single pass: the mbarriers, then in
     floats ``ns`` stages of [its rows of P (R x N, R = N / c) | H / G (k x N)
-    | β (N x m)], Wᵀ (m x N), its rows of PHt (R x k), two k x k buffers and
-    E (k x m).  The same layout as ``Layout`` in ``csrc/oselm_update.cu``."""
+    | β (N x m)], Wᵀ (m x N), its rows of PHt (R x (k | 1): rows padded to
+    an odd stride), two k x k buffers and E (k x m).  The same layout as
+    ``Layout`` in ``csrc/oselm_update.cu``."""
     r = n // c
     stage = r * n + k * n + n * m
-    return _BAR_BYTES + 4 * (ns * stage + m * n + r * k + 2 * k * k + k * m)
+    return _BAR_BYTES + 4 * (ns * stage + m * n + r * (k | 1) + 2 * k * k + k * m)
 
 
 def single_pass_plan(n: int, k: int, m: int) -> tuple[int, int] | None:
@@ -59,11 +63,21 @@ def single_pass_plan(n: int, k: int, m: int) -> tuple[int, int] | None:
     of 4 (rows of P must be 16-byte aligned for the bulk copies), or no
     cluster of 1, 2 or 4 blocks of at most 128 rows each whose layout fits.
     The smallest cluster with two stages or more wins, else the smallest
-    with one."""
+    with one; from rank SPREAD_MIN_K on, the largest whose blocks keep
+    SPREAD_MIN_ROWS rows or more comes first (a one-head update of k rows
+    then spreads over several SMs instead of one: at N = 128 four blocks of
+    32 rows were faster than one block at every k from 2 to 64 on an H100,
+    and slower at k = 1, whose one-block path is the fleet's).  A function of (N, k, m)
+    alone: a stream's P' must not depend on how many streams share the
+    call."""
     if not (1 <= n <= SINGLE_MAX_N and 1 <= k <= SINGLE_MAX_K and m >= 1 and n % 4 == 0):
         return None
+    order = CLUSTER_SIZES
+    if k >= SPREAD_MIN_K:
+        order = ([c for c in reversed(CLUSTER_SIZES) if n // c >= SPREAD_MIN_ROWS]
+                 + [c for c in CLUSTER_SIZES if n // c < SPREAD_MIN_ROWS])
     fits = []
-    for c in CLUSTER_SIZES:
+    for c in order:
         if n % c or n // c > SINGLE_MAX_ROWS:
             continue
         ns = max((s for s in range(1, MAX_STAGES + 1)
@@ -146,22 +160,30 @@ def rls_single(
     H: torch.Tensor,  # (S, k, N)
     Y: torch.Tensor,  # (S, k, m)
     out: tuple[torch.Tensor, torch.Tensor] | None = None,
+    plan: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The whole update in one launch on the card; returns (P', β'), written
     into ``out`` when it is given (see ``_outputs``), else into new buffers.
 
     Every operand must be a contiguous f32 CUDA tensor on one device with the
     shapes above, P, β and H 16-byte aligned, and the shape one the single
-    pass takes (``single_pass_plan``).  Raises on anything else, and if
-    the launch fails.
+    pass takes (``single_pass_plan``, whose plan it launches unless another
+    (blocks per stream, stages) that fits is given: the card's timings
+    compare plans so).  Raises on anything else, and if the launch fails.
     """
     s, n = P.shape[0], P.shape[1]
     k, m = H.shape[1], beta.shape[2]
     _check({"P": P, "beta": beta, "H": H, "Y": Y},
            {"P": (s, n, n), "beta": (s, n, m), "H": (s, k, n), "Y": (s, k, m)}, "rls_single")
-    plan = single_pass_plan(n, k, m)
-    if plan is None:
+    if single_pass_plan(n, k, m) is None:
         raise ValueError(f"the single pass does not take N={n}, k={k}, m={m}")
+    if plan is None:
+        plan = single_pass_plan(n, k, m)
+    c, ns = plan
+    if (c not in CLUSTER_SIZES or n % c or n // c > SINGLE_MAX_ROWS
+            or not 1 <= ns <= MAX_STAGES
+            or single_pass_smem_bytes(n, k, m, c, ns) > MAX_SMEM_BYTES):
+        raise ValueError(f"plan {plan} does not fit N={n}, k={k}, m={m}")
     for name, t in (("P", P), ("beta", beta), ("H", H)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the bulk copies")

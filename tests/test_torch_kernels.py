@@ -15,7 +15,9 @@ package skip there):
 """
 
 import importlib.util
+import sys
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -171,6 +173,97 @@ def test_three_term_tf32_product_within_tolerance(b, n_in, n_hidden, activation)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
+def _chip_smoke():
+    """The card script's module (its shape lists), imported from the root."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_projection_plan_fits_every_card_shape():
+    """``projection_plan`` at every shape ``chip_smoke.py`` holds the kernel
+    at: the grid covers H, every block has at least one K group and the
+    groups cover K, the split route stays within one wave and sizes its
+    workspace as groups x B x N floats, and the order over K is n_in's."""
+    for b, n_in, n in _chip_smoke().K1_SHAPES:
+        plan = xorshift_proj.projection_plan(b, n_in, n)
+        rows, cols, splits = plan.grid
+        assert (rows, cols) == (-(-b // 128), -(-n // 128))
+        assert (plan.group, plan.groups) == xorshift_proj.k_groups(n_in)
+        assert plan.group * plan.groups >= -(-n_in // 32) > plan.group * (plan.groups - 1)
+        assert splits * plan.groups_per_block >= plan.groups
+        assert (splits - 1) * plan.groups_per_block < plan.groups
+        if plan.split:
+            assert rows * cols <= xorshift_proj.SPLIT_MAX_BLOCKS
+            assert rows * cols * splits <= xorshift_proj.SMS
+            assert plan.workspace_bytes == 4 * plan.groups * b * n
+        else:
+            assert splits == 1 and plan.groups_per_block == plan.groups
+            assert plan.workspace_bytes == 0
+
+
+@pytest.mark.parametrize("b,n_in,n_hidden", [(256, 2560, 128), (32, 2560, 128), (8, 5120, 128)])
+def test_projection_plan_spreads_few_rows(b, n_in, n_hidden):
+    """At the backbones' few rows the K range is split over 64 blocks or
+    more, where the one-pass grid had one or two."""
+    plan = xorshift_proj.projection_plan(b, n_in, n_hidden)
+    assert plan.split and plan.grid[0] * plan.grid[1] * plan.grid[2] >= 64
+
+
+def test_projection_plan_keeps_the_fleet_grid():
+    """The fleet shape keeps its one wave of 128 blocks, each over all of K
+    as one chain of tile sums, and needs no workspace."""
+    assert xorshift_proj.projection_plan(16384, 561, 128) == xorshift_proj.ProjectionPlan(
+        (128, 1, 1), 1, 18, 18, 0)
+    # Forcing the split route at the fleet's shape is no split: one wave.
+    assert not xorshift_proj.projection_plan(16384, 561, 128, split_max_blocks=10 ** 6).split
+
+
+@pytest.mark.parametrize("b,n_in,n_hidden", [(256, 2560, 128), (8, 5120, 128), (1, 561, 128)])
+@pytest.mark.usefixtures("jax_ref")
+def test_fixed_k_association_within_tolerance(b, n_in, n_hidden):
+    """The kernel's arithmetic on either route, emulated in plain torch:
+    each 32-deep K tile summed on its own (the three TF32 products), the
+    tiles of a group added in order into a group sum from 0, the group sums
+    in order into the total from 0 (``k_groups``); within 1e-5 of the JAX
+    oracle."""
+    x = torch.as_tensor(_x(b, n_in, 19))
+    alpha = t_xorshift.alpha_hash(0x2D2A, n_in, n_hidden, device="cpu")
+    x_hi = _tf32_mask(x)
+    x_lo = _tf32_mask(x - x_hi)
+    a_hi = _tf32_mask(alpha)
+    a_lo = alpha - a_hi
+    group, groups = xorshift_proj.k_groups(n_in)
+    tiles = [slice(t, min(t + 32, n_in)) for t in range(0, n_in, 32)]
+    total = torch.zeros(b, n_hidden)
+    for g in range(groups):
+        gsum = torch.zeros(b, n_hidden)
+        for k in tiles[g * group:(g + 1) * group]:
+            gsum = gsum + sum(u[:, k] @ v[k] for u, v in ((x_hi, a_hi), (x_hi, a_lo),
+                                                          (x_lo, a_hi)))
+        total = total + gsum
+    got = ref.activate(total * float(np.float32(1.0 / np.sqrt(n_in))), "sigmoid")
+    want = np.asarray(j_ref.xorshift_projection_ref(jnp.asarray(x.numpy()), 0x2D2A, n_hidden))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_kernel_routes_times_both_sides_of_each_choice():
+    """The crossover script times rows on both sides of the projection's
+    SPLIT_MAX_BLOCKS (at n_in 561) and ranks on both sides of the single
+    pass's SPREAD_MIN_K; it needs a card."""
+    from repro_torch.benchmarks import kernel_routes
+
+    blocks = [-(-b // 128) for b, n_in in kernel_routes.ROUTE_SHAPES if n_in == 561]
+    assert min(blocks) <= xorshift_proj.SPLIT_MAX_BLOCKS < max(blocks)
+    ranks = kernel_routes.SPREAD_RANKS
+    assert min(ranks) < oselm_update.SPREAD_MIN_K <= max(ranks)
+    if not torch.cuda.is_available():
+        assert kernel_routes.main([]) == 1
+
+
 def _rls_case(s, n, k, m, seed):
     """SPD P (inverse Gram of random features + ridge), beta, H, Y — numpy."""
     rng = np.random.default_rng(seed)
@@ -233,11 +326,31 @@ def test_rls_route_by_shape(n, k):
 
 def test_rls_route_plans_of_the_repo_shapes():
     """The fleet shape streams three stages through one block; N = 256 splits
-    its rows over a cluster of four; N not a multiple of 4 is two-stage."""
+    its rows over a cluster of four; N not a multiple of 4 is two-stage.
+    From k = 2 on, N = 128 spreads a stream over four blocks of 32 rows,
+    three stages deep (one block and two stages before that was measured
+    the slower plan at every k from 2 to 64)."""
     assert oselm_update.single_pass_plan(128, 1, 6) == (1, 3)
     assert oselm_update.single_pass_plan(256, 1, 6) == (4, 3)
-    assert oselm_update.single_pass_plan(128, 16, 6) == (1, 2)
+    assert oselm_update.single_pass_plan(128, 16, 6) == (4, 3)
     assert ops.rls_route(130, 1, 6) == "two_stage"
+    # Blocks keep 32 rows or more where they can, else the smallest cluster.
+    assert oselm_update.single_pass_plan(64, 64, 3)[0] == 2
+    assert oselm_update.single_pass_plan(20, 2, 4)[0] == 1
+
+
+@pytest.mark.parametrize("k", [2, 8, 32, 64])
+def test_one_head_at_the_training_shape_spreads_over_a_cluster(k):
+    """From k = 2 (the training path's 32 and 8 rows a step among them) one
+    head spreads over a cluster of four blocks of 32 rows, three stages
+    deep, whose layout (PHt's rows padded to an odd stride) fits a block;
+    the plan is a function of (N, k, m) alone."""
+    plan = oselm_update.single_pass_plan(128, k, 6)
+    assert plan == (4, 3)
+    c, ns = plan
+    want = 32 + 4 * (ns * (32 * 128 + k * 128 + 128 * 6) + 6 * 128 + 32 * (k | 1)
+                     + 2 * k * k + k * 6)
+    assert oselm_update.single_pass_smem_bytes(128, k, 6, c, ns) == want <= 227 * 1024
 
 
 def test_cpu_path_launches_no_kernel():
@@ -304,10 +417,47 @@ def test_cuda_projection_matches_plain(cuda_device, b, n_in, n_hidden, activatio
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=tol)
 
 
+# The backbones' serving and training shapes (256 streams or 32 / 8 pooled
+# rows of d_model) and the paper's one stream at N = 128 and 256.
+PROJ_PATH_SHAPES = [(256, 2560, 128), (32, 2560, 128), (256, 5120, 128), (8, 5120, 128),
+                    (256, 4096, 128), (32, 4096, 128), (256, 2048, 128), (256, 1536, 128),
+                    (32, 768, 128), (1, 561, 128), (1, 561, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n_in,n_hidden", PROJ_PATH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_projection_at_path_shapes_matches_plain(cuda_device, b, n_in, n_hidden, dtype):
+    x = torch.as_tensor(_x(b, n_in, 13), device=cuda_device).to(getattr(torch, dtype))
+    tol = 2e-3 if dtype == "bfloat16" else 1e-5
+    for activation in ["sigmoid", "relu", "tanh", "identity"]:
+        got = xorshift_proj.xorshift_projection(x, 0x2D2A, n_hidden, activation=activation)
+        want = ref.xorshift_projection_ref(x, 0x2D2A, n_hidden, activation=activation)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in", [561, 2560, 5120])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_projection_rows_independent_of_b_and_route(cuda_device, n_in, dtype):
+    """The first 8 rows of one x come out bit for bit at B = 1 to 16,384,
+    by the plan's route, by the one pass and by a split of K."""
+    x = torch.as_tensor(_x(16384, n_in, 23), device=cuda_device).to(getattr(torch, dtype))
+    want = xorshift_proj.xorshift_projection(x, 0x2D2A, 128)[:8]
+    for b in (16384, 4096, 512, 256, 32, 8, 1):
+        for smb in (xorshift_proj.SPLIT_MAX_BLOCKS, 0, 10 ** 6):
+            plan = xorshift_proj.projection_plan(b, n_in, 128, split_max_blocks=smb)
+            got = xorshift_proj.xorshift_projection(x[:b].contiguous(), 0x2D2A, 128, plan=plan)
+            assert torch.equal(got[:8], want[:b]), (b, plan)
+
+
 # The single pass's shapes, then one of each two-stage trigger: N > 256,
-# k > 64, N not a multiple of 4.
+# k > 64, N not a multiple of 4; then heads spread over clusters of four
+# (k >= 32), more streams than clusters among them.
 RLS_CARD_SHAPES = [(64, 128, 1, 6), (8, 256, 1, 6), (1, 128, 16, 6), (4, 64, 64, 3),
-                   (8, 72, 1, 6), (4, 384, 1, 6), (2, 128, 65, 6), (4, 130, 1, 6)]
+                   (8, 72, 1, 6), (4, 384, 1, 6), (2, 128, 65, 6), (4, 130, 1, 6),
+                   (1, 128, 32, 6), (64, 128, 32, 6), (3, 128, 64, 6), (2, 256, 32, 6)]
 
 
 @pytest.mark.cuda
@@ -341,7 +491,26 @@ def test_cuda_two_stage_pass_matches_plain(cuda_device, s, n, k, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,n,k,m", [(5, 128, 1, 6), (3, 256, 1, 6), (2, 64, 64, 3)])
+@pytest.mark.parametrize("n,k,m", [(128, 16, 6), (128, 32, 6), (128, 8, 6)])
+def test_cuda_one_head_rls_matches_plain(cuda_device, n, k, m):
+    """Kernel 3 (the one-head entry) at the training path's shapes, under
+    the dispatch's plan, against its plain version; a head whose rows are
+    all masked comes out exactly as it went in."""
+    P, beta, H, Y = (torch.as_tensor(a[0], device=cuda_device) for a in _rls_case(1, n, k, m, 7))
+    before = ops.launch_counts["oselm_rls_update"]
+    p_got, b_got = ops.oselm_rls_update(P, beta, H, Y)
+    p_want, b_want = (a[0] for a in ref.rls_update_ref(P[None], beta[None], H[None], Y[None]))
+    p_same, b_same = ops.oselm_rls_update(P, beta, torch.zeros_like(H), torch.zeros_like(Y))
+    torch.cuda.synchronize()
+    assert ops.launch_counts["oselm_rls_update"] == before + 2
+    np.testing.assert_allclose(p_got.cpu().numpy(), p_want.cpu().numpy(), atol=2e-5)
+    np.testing.assert_allclose(b_got.cpu().numpy(), b_want.cpu().numpy(), atol=2e-4)
+    assert torch.equal(p_same, P) and torch.equal(b_same, beta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,k,m", [(5, 128, 1, 6), (3, 256, 1, 6), (2, 64, 64, 3),
+                                     (3, 128, 32, 6)])
 def test_cuda_rls_masked_stream_is_exact_identity(cuda_device, s, n, k, m):
     P, beta, H, Y = _rls_case(s, n, k, m, seed=9)
     H[1] = 0.0
@@ -371,7 +540,7 @@ def test_cuda_rls_writes_into_out_buffers(cuda_device, s, n, k, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,m", [(128, 1, 6), (256, 1, 6), (256, 64, 6), (200, 1, 10),
-                                   (20, 2, 4)])
+                                   (20, 2, 4), (128, 32, 6), (128, 33, 6), (128, 64, 6)])
 def test_cuda_single_pass_layout_agrees(cuda_device, n, k, m):
     """The dispatch's count of the single pass's shared memory is the
     kernel library's own."""
