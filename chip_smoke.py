@@ -382,10 +382,13 @@ K1_SHAPES = [(FLEET_STREAMS, 561, 128), (8, 128, 128), (8, 256, 384), (3, 561, 1
 K2_SHAPES = [(FLEET_STREAMS, 128, 1, 6), (512, 256, 1, 6), (1, 128, 16, 6),
              (4096, 128, 1, 6), (64, 64, 1, 6), (256, 64, 1, 6), (8192, 128, 1, 6),
              (12288, 128, 1, 6), (1024, 128, 1, 6), (2048, 128, 1, 6), (3072, 128, 1, 6),
-             (512, 128, 1, 6), (256, 128, 1, 6), (FLEET_STREAMS, 256, 1, 6)]
+             (512, 128, 1, 6), (256, 128, 1, 6), (1, 256, 1, 6), (FLEET_STREAMS, 256, 1, 6)]
 # Phase 7 also times the projection and the RLS update at N=256 (the
 # paper's Tables 2-3 width), at the fleet's S: the last shape of each list.
 K1_N256, K2_N256 = K1_SHAPES[-1], K2_SHAPES[-1]
+# Phase 4's check that a stream's P' and beta' at N=256 (the rank-1 cluster
+# body) do not depend on S: the first streams of one fleet of 512 at each S.
+ROW_STREAMS_N256 = (1, 33, 512)
 # Phase 6k's serving shape (256 streams of qwen3-4b's d_model = 2,560; two
 # fused tenants are 512 rows) and a smoke-width one (the card tests'), held
 # by phases 2-4 and timed by phase 7; the plan's pass also at the widest
@@ -812,6 +815,18 @@ def phase_kernel2(device="cuda"):
               f"P |err| {ep:.3e}, beta |err| {eb:.3e}, masked stream exact")
         errs[counter] = max(errs.get(counter, 0.0), ep, eb)
         del P, beta, H, Y, p_got, b_got, p_want, b_want
+    # A stream's rows at N=256 are bit for bit the same at any S (cohort ==
+    # solo and sharded == single device rest on it).
+    P, beta, H, Y = _rls_inputs(max(ROW_STREAMS_N256), 256, 1, 6, device, SEED + 31)
+    p_all, b_all = ops.oselm_rls_update_fleet(P, beta, H, Y)
+    for s in ROW_STREAMS_N256:
+        p_s, b_s = ops.oselm_rls_update_fleet(*(t[:s].contiguous() for t in (P, beta, H, Y)))
+        check(torch.equal(p_s, p_all[:s]) and torch.equal(b_s, b_all[:s]),
+              f"rls N=256: the first {s} streams differ from the same streams of "
+              f"{max(ROW_STREAMS_N256)}")
+    print(f"kernel 2 RLS update N=256 k=1 m=6 plan={oselm_update.single_pass_plan(256, 1, 6)}: "
+          f"a stream's rows bit for bit at S = {', '.join(map(str, ROW_STREAMS_N256))}")
+    del P, beta, H, Y, p_all, b_all
     # Kernel 3: the one-head entry (S = 1, k up to 64), at each K3_SHAPES
     # entry (phase 6l's training steps among them).
     errs["oselm_rls_update"] = 0.0
@@ -5857,6 +5872,7 @@ def _rls_times(shape, device="cuda", seed=SEED):
     s, n, k, m = shape
     P, beta, H, Y = _rls_inputs(s, n, k, m, device, seed)
     out = dict(shape=list(shape), plan=list(oselm_update.single_pass_plan(n, k, m)),
+               clusters=oselm_update.launch_clusters(s, n, k, m),
                **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))))
     kernel = lambda: ops.oselm_rls_update_fleet(P, beta, H, Y)  # noqa: E731
     if n < 256:
@@ -5870,7 +5886,9 @@ def _rls_times(shape, device="cuda", seed=SEED):
     return dict(out, ms=_call_ms(kernel), batched_ms=_device_ms(kernel),
                 plain_ms=_call_ms(lambda: ref.rls_update_ref(P, beta, H, Y)),
                 library_ms=_call_ms(lambda: _rls_composite(P, beta, H, Y)),
-                timed="all three by CUDA events around single calls; batched_ms by _device_ms")
+                timed="all three by CUDA events around single calls (_call_ms: a call's "
+                      "host time in the wrapper included); batched_ms is the kernel by "
+                      "_device_ms")
 
 
 def _rls_composite(P, beta, H, Y):
@@ -5913,6 +5931,8 @@ def phase_times(device="cuda"):
     P, beta, H, Y = _rls_inputs(s, n, k, m, device, SEED)
     rows.append(dict(
         name="oselm_rls_update_fleet",
+        plan=list(oselm_update.single_pass_plan(n, k, m)),
+        clusters=oselm_update.launch_clusters(s, n, k, m),
         ms=_device_ms(lambda: oselm_update.rls_single(P, beta, H, Y)),
         plain_ms=_device_ms(lambda: ref.rls_update_ref(P, beta, H, Y), reps=PLAIN_REPS),
         library_ms=_device_ms(lambda: _rls_composite(P, beta, H, Y), reps=PLAIN_REPS),
@@ -5930,13 +5950,14 @@ def phase_times(device="cuda"):
     rows[-1]["n256"] = dict(
         shape=list(K2_N256),
         plan=list(oselm_update.single_pass_plan(n, k, m)),
+        clusters=oselm_update.launch_clusters(s, n, k, m),
         ms=_call_ms(lambda: oselm_update.rls_single(P, beta, H, Y)),
         plain_ms=_call_ms(lambda: ref.rls_update_ref(P, beta, H, Y)),
         library_ms=_call_ms(lambda: _rls_composite(P, beta, H, Y)),
         batched_ms=_device_ms(lambda: oselm_update.rls_single(P, beta, H, Y)),
-        timed="all three by CUDA events around single calls (the plain and library "
-              "versions' batched lu_solve makes the host wait at N=256); batched_ms is "
-              "the kernel by _device_ms",
+        timed="all three by CUDA events around single calls (_call_ms; the plain and "
+              "library versions' batched lu_solve makes the host wait at N=256); "
+              "batched_ms is the kernel by _device_ms",
         **dict(zip(("bound_ms", "bound_by"), _rls_bound(s, n, k, m))),
     )
     del P, beta, H, Y
@@ -5945,6 +5966,8 @@ def phase_times(device="cuda"):
     P, beta, H, Y = (a[0] for a in _rls_inputs(1, n, k, m, device, SEED + 3))
     rows.append(dict(
         name="oselm_rls_update",
+        plan=list(oselm_update.single_pass_plan(n, k, m)),
+        clusters=oselm_update.launch_clusters(1, n, k, m),
         ms=_device_ms(lambda: ops.oselm_rls_update(P, beta, H, Y)),
         plain_ms=_device_ms(lambda: ref.rls_update_ref(P[None], beta[None], H[None], Y[None]),
                             reps=PLAIN_REPS),
@@ -6128,6 +6151,10 @@ def phase_times(device="cuda"):
                      "paper_trial": "paper trial", "paper_trial_n256": "paper trial N=256"}[key]
             plan = (f", grid {w['grid']}, workspace {w['workspace_bytes']} B" if "grid" in w
                     else f", plan {w['plan']}" if "plan" in w else "")
+            if "clusters" in w:
+                plan += f", {w['clusters']} cluster(s)"
+            if "batched_ms" in w:
+                plan += f", batched (_device_ms) {w['batched_ms']:.4f} ms"
             print(f"time {name} at the backbone's {where} "
                   f"shape {w['shape']}: kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
@@ -6135,6 +6162,8 @@ def phase_times(device="cuda"):
     for r in rows[:2]:
         w = r["n256"]
         events = f" (batched {w['batched_ms']:.4f} ms)" if "batched_ms" in w else ""
+        if "clusters" in w:
+            events += f", plan {w['plan']} on {w['clusters']} clusters"
         print(f"time {r['name']} at N=256 {w['shape']}: kernel {w['ms']:.4f} ms{events}, plain "
               f"{w['plain_ms']:.4f} ms, library {w['library_ms']:.4f} ms ({r['library']}), "
               f"bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
@@ -6431,6 +6460,10 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "library": t["library"],
+            # The single pass's plan and the persistent clusters its launch
+            # ran at the timed shape (as many as the card holds at once).
+            "plan": t.get("plan"),
+            "clusters": t.get("clusters"),
             # Phase 7 at N=256 (the paper's Tables 2-3 width), where timed.
             "n256": t.get("n256"),
             # The plan's pass in train_phase (no x read), where timed.

@@ -13,7 +13,10 @@ one checkout's kernels against another's.
 * The kernels at the paths' shapes, each by its checkout's own plan: the
   fleet's projection at N = 128 and 256, the serve and training
   projections, the fleet's RLS update at N = 128 and 256 (the latter also
-  by single calls) and the training path's one-head update.
+  by single calls), the paper trial's at N = 256 and the training path's
+  one-head update.  ``--rls`` times the RLS rows of this list alone.  Each
+  RLS row also has a digest of its outputs (P', β') on inputs drawn from
+  fixed seeds, so that two checkouts' rows can be held bit for bit.
 
 ``--root PATH`` imports the port of the checkout at PATH instead of this
 one (its ``src`` first on the path), so that two checkouts are timed by one
@@ -21,7 +24,7 @@ piece of code; the crossover rows need this tree's plan keywords and are
 left out for a checkout without them.  Run on a machine with a card, by
 path, not as a module (so that PATH's package is the one imported):
 
-    python3 src/repro_torch/benchmarks/kernel_routes.py [--root PATH] [--out FILE]
+    python3 src/repro_torch/benchmarks/kernel_routes.py [--root PATH] [--rls] [--out FILE]
 
 It prints one JSON line, also written to ``--out``.
 """
@@ -29,6 +32,7 @@ It prints one JSON line, also written to ``--out``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import subprocess
@@ -41,7 +45,7 @@ ROUTE_SHAPES = [(b, 561) for b in (256, 1024, 2048, 3072, 4096, 8192, 16384)] + 
     (256, 2560), (32, 2560), (256, 5120), (8, 5120), (1, 561)]
 PATH_PROJ = [(16384, 561, 128), (16384, 561, 256), (256, 2560, 128), (32, 2560, 128),
              (8, 5120, 128), (1, 561, 128)]
-PATH_RLS = [(16384, 128, 1, 6), (1, 128, 32, 6), (1, 128, 8, 6)]
+PATH_RLS = [(16384, 128, 1, 6), (1, 128, 32, 6), (1, 128, 8, 6), (1, 256, 1, 6)]
 SPREAD_RANKS = (1, 2, 4, 8, 16, 32, 64)
 
 
@@ -109,7 +113,15 @@ def _rls_inputs(s, n, k, m, seed):
     return P, beta, H, Y
 
 
-def measure() -> dict:
+def _digest(out) -> str:
+    """The first 16 hex digits of the SHA-256 of (P', β')'s bytes."""
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def measure(rls_only: bool = False) -> dict:
     import torch
 
     from repro_torch.core import xorshift
@@ -117,8 +129,8 @@ def measure() -> dict:
 
     build.build_all()
     g = torch.Generator(device="cuda").manual_seed(0)
-    out: dict = {"path": {}, "routes": [], "spread": []}
-    for b, n_in, n in PATH_PROJ:
+    out: dict = {"path": {}, "digests": {}, "routes": [], "spread": []}
+    for b, n_in, n in [] if rls_only else PATH_PROJ:
         # Three x in turn: at the fleet's rows one is 36.8 MB, and x comes
         # from device memory, not the 50 MB L2, as in a fleet tick.
         xs = [torch.randn(b, n_in, generator=g, device="cuda") for _ in range(3)]
@@ -129,13 +141,17 @@ def measure() -> dict:
     for shape in PATH_RLS:
         P, beta, H, Y = _rls_inputs(*shape, seed=5)
         out["path"][f"rls {shape}"] = _device_ms(lambda: oselm_update.rls_single(P, beta, H, Y))
+        out["digests"][f"rls {shape}"] = _digest(oselm_update.rls_single(P, beta, H, Y))
         del P, beta, H, Y
     P, beta, H, Y = _rls_inputs(16384, 256, 1, 6, seed=9)
     out["path"]["rls (16384, 256, 1, 6)"] = _device_ms(
         lambda: oselm_update.rls_single(P, beta, H, Y), reps=8)
     out["path"]["rls (16384, 256, 1, 6) single calls"] = _call_ms(
         lambda: oselm_update.rls_single(P, beta, H, Y))
+    out["digests"]["rls (16384, 256, 1, 6)"] = _digest(oselm_update.rls_single(P, beta, H, Y))
     del P, beta, H, Y
+    if rls_only:
+        return out
 
     if hasattr(xorshift_proj, "projection_plan"):
         for b, n_in in ROUTE_SHAPES:
@@ -171,6 +187,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[3],
                     help="the checkout whose port is timed (default: this one)")
+    ap.add_argument("--rls", action="store_true",
+                    help="time the RLS update at the paths' shapes only")
     ap.add_argument("--out", default=None, help="write the JSON line here too")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve() / "src"))
@@ -184,7 +202,7 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     line = json.dumps(dict(root=str(args.root.resolve()), package=repro_torch.__file__,
-                           card=card.strip(), **measure()))
+                           card=card.strip(), **measure(args.rls)))
     print(line)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,7 +1,9 @@
 // Rank-k RLS (OS-ELM) update for S independent heads, for Hopper (sm_90a).
-// Two kernels, chosen by shape in kernels/ops.py (rls_route):
+// Two routes, chosen by shape in kernels/ops.py (rls_route):
 //
-// rls_single_kernel — the whole update in one pass over P:
+// the single pass — the whole update in one pass over P, in one of two
+// kernels (rls_rank1_cluster_kernel for k = 1 on a cluster, else
+// rls_single_kernel):
 //
 //     PHt = P H^T,  S = I + H PHt,  G = S^-1 PHt^T,  E = Y - H beta,  W = H^T E
 //     P'  = P - PHt G,               beta' = beta + P' W
@@ -18,12 +20,19 @@
 //   rate. The Pallas split reads P twice (PHt = P H^T in XLA, then the fused
 //   pass); here each P byte is read once and written once:
 //   * a cluster of C blocks owns one stream at a time, each block N/C rows
-//     of its P; the clusters are persistent (one block per SM) and walk the
-//     streams with a ring of NS stages in shared memory. A stage holds the
-//     block's rows of P[s], H[s] and beta[s], brought in by bulk
-//     asynchronous copies (cp.async.bulk) that complete on the stage's
-//     mbarrier, so while the block computes one stream the copies of the
-//     next NS - 1 are in flight;
+//     of its P; the clusters are persistent and walk the streams with a
+//     ring of NS stages in shared memory. A stage holds the block's rows of
+//     P[s], H[s] and beta[s], brought in by bulk asynchronous copies
+//     (cp.async.bulk) that complete on the stage's mbarrier, so while the
+//     block computes one stream the copies of the next NS - 1 are in flight;
+//   * the grid holds as many clusters as the card runs at once: one block
+//     an SM for a cluster of one, else cudaOccupancyMaxActiveClusters (a
+//     cluster's blocks share a GPC, and a GPC's SMs need not be a multiple
+//     of C: sized by SMs / C, the clusters past those that fit started only
+//     when another had walked all its streams), asked once per kernel,
+//     cluster and shared memory, never more clusters than streams. A
+//     stream's arithmetic does not depend on the cluster that runs it, so
+//     its P' and beta' are the same bits at any S and any grid;
 //   * P' leaves in 16-byte streaming stores from the registers that formed
 //     it, so a stage is free for the next copy as soon as its stream is
 //     done (a bulk store would hold the stage until the copy engine had
@@ -32,27 +41,38 @@
 //     own column chunks and warps own rows, every warp derives S, G and W
 //     for its lanes' columns itself, the row sums run as butterfly
 //     reductions, and a stream costs two barriers;
-//   * any other k <= 64, or N = 256 on a cluster: the block's rows of PHt
-//     (rows padded to an odd stride, k + 1 floats for an even k, so that the
-//     lanes of a warp reading a column of PHt fall on distinct banks: at
-//     k = 32 the unpadded rows made that a 32-way conflict) and its share
-//     of S from shared memory, E and W; the shares of S cross through
-//     distributed shared memory after a cluster barrier; every block
-//     eliminates S in full (Gauss-Jordan without pivoting, S is SPD) and
-//     solves S G = PHt^T: for k a multiple of 4 (the wide forms, kWide) for
-//     its own columns of G only (those of its rows of PHt), then gathers the
-//     other blocks' columns between two more barriers; else for all
-//     columns, from the other blocks' rows of PHt, after a second barrier;
-//     then one pass forms P' and beta';
+//   * k = 1 on a cluster (N = 256: four blocks of 64 rows), a kernel of its
+//     own (rls_rank1_cluster_kernel): a stage holds only the block's rows
+//     of beta; each warp forms PHt for its rows with P held in registers,
+//     and the block writes its rows of PHt and its share of H beta (70
+//     floats at N = 256, m = 6) into a slot in every block of the cluster, the
+//     slots alternating with the stream's parity, so one cluster barrier a
+//     stream replaces the general body's two and its reads of the other
+//     blocks' PHt; after it the stage is refilled at once, and every block
+//     derives S = 1 + h PHt over all N and E = Y - the shares summed in
+//     rank order (the same bits in every block), then P' and beta' =
+//     beta + (P' h) E;
+//   * any other k <= 64, or a cluster the rank-1 body does not take: the
+//     block's rows of PHt (rows padded to an odd stride, k + 1 floats for
+//     an even k, so that the lanes of a warp reading a column of PHt fall
+//     on distinct banks: at k = 32 the unpadded rows made that a 32-way
+//     conflict) and its share of S from shared memory, E and W; the shares
+//     of S cross through distributed shared memory after a cluster barrier;
+//     every block eliminates S in full (Gauss-Jordan without pivoting, S is
+//     SPD) and solves S G = PHt^T: for k a multiple of 4 (the wide forms,
+//     kWide) for its own columns of G only (those of its rows of PHt), then
+//     gathers the other blocks' columns between two more barriers; else for
+//     all columns, from the other blocks' rows of PHt, after a second
+//     barrier; then one pass forms P' and beta';
 //   * one head with k >= 2 (the training path: k is the step's rows): one
 //     stream leaves 131 of 132 SMs idle on one block, so the plan spreads it
 //     over a cluster of blocks of 32 rows each, which split PHt, the shares
 //     of S, the columns of G and the downdate.
 //   kernels/oselm_update.py::single_pass_plan chooses C and NS: N = 128
 //   takes C = 1 and three stages at k = 1 (C = 4 from k = 2 on), N = 256 a
-//   cluster of four.
+//   cluster of four (three stages; at k = 1 the rank-1 cluster body).
 //
-// rls_fleet_kernel — the second stage of the two-stage route, for the shapes
+// the two-stage route, rls_fleet_kernel — its second stage, for the shapes
 //   the single pass does not take (N > 256, k > 64, N not a multiple of 4,
 //   or a layout that does not fit in shared memory): the caller computes
 //   PHt, G and W in torch, as the JAX wrapper does, and this pass computes
@@ -63,12 +83,15 @@
 //
 // Built with -DRLS_PHASE_CLOCKS (benchmarks/rls_breakdown.py does, into a
 // library of its own), the single pass notes the SM clock and the global
-// timer at each of its phase boundaries, for block 0's first stream; the
-// kernels' own build leaves every mark out.
+// timer at each of its phase boundaries, in every block of cluster 0, for
+// the stream of its walk that oselm_rls_phase_select names; the kernels'
+// own build leaves every mark out.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -314,14 +337,22 @@ __device__ __forceinline__ void pht_rows(const float* p_s, const float* hg, floa
 
 #ifdef RLS_PHASE_CLOCKS
 constexpr int N_MARKS = 9;
-__device__ unsigned long long rls_marks[2 * N_MARKS];  // (clock64, globaltimer) per mark
+constexpr int MARK_RANKS = 4;  // the blocks of a cluster, each marked on its own SM's clock
+// (clock64, globaltimer) per (block rank of cluster 0, mark), for the stream
+// of cluster 0 whose index within the cluster's walk is rls_mark_stream
+// (mark 0, the kernel's start, only when that index is 0).
+__device__ unsigned long long rls_marks[MARK_RANKS * 2 * N_MARKS];
+__device__ int rls_mark_stream;
 
 __device__ __forceinline__ void phase_mark(int at, int stream_i) {
-  if (blockIdx.x == 0 && threadIdx.x == 0 && stream_i == 0) {
+  uint32_t cid, rank;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(cid));
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  if (cid == 0 && rank < MARK_RANKS && threadIdx.x == 0 && stream_i == rls_mark_stream) {
     unsigned long long ns;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-    rls_marks[2 * at] = static_cast<unsigned long long>(clock64());
-    rls_marks[2 * at + 1] = ns;
+    rls_marks[2 * (rank * N_MARKS + at)] = static_cast<unsigned long long>(clock64());
+    rls_marks[2 * (rank * N_MARKS + at) + 1] = ns;
   }
 }
 #define RLS_MARK(at, stream_i) phase_mark(at, stream_i)
@@ -652,6 +683,243 @@ __global__ void __launch_bounds__(S_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// The fleet's k = 1 on a cluster: rls_rank1_cluster_kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int RC_MAX_ROWS = 64;               // rows of P a block holds at most
+constexpr int RC_RPW = RC_MAX_ROWS / S_WARPS;  // rows a warp holds at most
+constexpr int RC_MMAX = 8;                    // outputs m at most
+constexpr int RC_E = 8;  // floats of a slot after its rows of PHt: the block's share of H beta
+
+// Whether a cluster of C blocks runs (N, k, m) with the rank-1 cluster body;
+// kernels/oselm_update.py::rank1_cluster says the same.  A lane owns float4
+// chunks l and l + 32 of a row (N <= 256), a warp rows w, w + 8, ... (R <=
+// 64), and a slot's PHt and a stage's beta rows stay 16-byte aligned (R a
+// multiple of 4).
+__host__ __device__ inline bool rank1_cluster(int N, int k, int m, int C) {
+  const int R = N / C;
+  return k == 1 && C > 1 && m <= RC_MMAX && N <= 256 && R <= RC_MAX_ROWS && R % 4 == 0;
+}
+
+// Shared-memory layout of one block of the rank-1 cluster body, in floats
+// after the mbarriers: NS stages of [its R rows of P (R x N) | h (N) | its R
+// rows of beta (R x m)], then two exchange areas (by the parity of the
+// stream's index) of C slots, one per block rank: that block's R values of
+// PHt, then its share of H beta (RC_E floats).
+struct Rank1Layout {
+  int R, h, bs, stage, slots, slot, floats;
+  __host__ __device__ Rank1Layout(int N, int m, int C, int NS) {
+    R = N / C;
+    h = R * N;  // offsets within a stage
+    bs = h + N;
+    stage = bs + R * m;
+    slots = NS * stage;
+    slot = R + RC_E;
+    floats = slots + 2 * C * slot;
+  }
+  __host__ __device__ int bytes() const { return BAR_BYTES + 4 * floats; }
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The update at k = 1 with a stream's rows of P split over a cluster of C
+// blocks (N = 256: four of 64 rows), one cluster barrier a stream:
+//   1. each warp forms PHt for its rows (P and h from the stage, P kept in
+//      registers), warp 0 the block's share e_b = h[r0:r0+R] beta[r0:r0+R];
+//      the lanes write both into this block's slot in every block of the
+//      cluster (distributed shared memory; slots alternate by the stream's
+//      parity, so the barrier of stream i + 1 keeps stream i + 2's writes
+//      off a slot until every block has read it);
+//   2. after the barrier every block holds all of PHt: thread 0 refills the
+//      stage (every thread read it before the barrier), and every lane
+//      derives S = 1 + h PHt over all N (the same steps in every warp and
+//      every block, so the same bits), E = Y - (e_0 + ... + e_{C-1}) in
+//      rank order, and its columns of G = PHt^T / S;
+//   3. P' = P - PHt G (two roundings, as the plain version) leaves in
+//      16-byte streaming stores, and beta' = beta + P' W with W = h^T E
+//      taken as (P' h) E: one butterfly-reduced product per row, then one
+//      fma per output.
+__global__ void __launch_bounds__(S_THREADS, 1)
+    rls_rank1_cluster_kernel(const float* __restrict__ P, const float* __restrict__ beta,
+                             const float* __restrict__ H, const float* __restrict__ Y,
+                             float* __restrict__ p_out, float* __restrict__ beta_out, int S,
+                             int N, int m, int NS) {
+  extern __shared__ __align__(128) unsigned char raw[];
+  RLS_MARK(0, 0);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const Rank1Layout L(N, m, C, NS);
+  const int R = L.R, r0 = rank * R, n4 = N / 4;
+  const int n_clusters = gridDim.x / C, cid = blockIdx.x / C;
+  const int count = cid < S ? (S - cid + n_clusters - 1) / n_clusters : 0;
+
+  uint64_t* bars = reinterpret_cast<uint64_t*>(raw);
+  float* sm = reinterpret_cast<float*>(raw + BAR_BYTES);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t p_bytes = static_cast<uint32_t>(R) * N * 4;
+  const uint32_t h_bytes = static_cast<uint32_t>(N) * 4;
+  const uint32_t b_bytes = static_cast<uint32_t>(R) * m * 4;
+
+  // The i-th stream of this cluster into stage i % NS (thread 0 only).
+  auto fetch = [&](int i) {
+    const int st = i % NS;
+    const size_t s = static_cast<size_t>(cid) + static_cast<size_t>(i) * n_clusters;
+    float* stage = sm + st * L.stage;
+    const uint32_t bar = smem_addr(bars + st);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                 "r"(p_bytes + h_bytes + b_bytes)
+                 : "memory");
+    bulk_load(stage, P + (s * N + r0) * N, p_bytes, bar);
+    bulk_load(stage + L.h, H + s * N, h_bytes, bar);
+    bulk_load(stage + L.bs, beta + (s * N + r0) * m, b_bytes, bar);
+  };
+
+  // This lane's float4 chunks of a row, the row whose sums it holds after a
+  // butterfly over its warp's rows (in four lanes: the lane's `peer` names
+  // the block whose slot it writes), and its two outputs of beta'.
+  const int c0 = lane, c1 = lane + 32;
+  const bool has0 = c0 < n4, has1 = c1 < n4;
+  const int rq = warp + S_WARPS * (lane >> 2);
+  const int peer = lane & 3;
+  const int j0 = lane & 3, j1 = j0 + 4;
+  float* peer_area = cluster.map_shared_rank(sm + L.slots, peer < C ? peer : rank);
+  const int area_floats = C * L.slot;
+
+  if (tid == 0) {
+    for (int st = 0; st < NS; ++st)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bars + st)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < min(NS, count); ++i) fetch(i);
+  }
+  // Every block of the cluster has started (and this block's barriers are
+  // set) before any block writes into another's shared memory.
+  cluster_arrive();
+  cluster_wait();
+
+  // Y of the next stream is loaded one stream ahead, into registers.
+  float y_next0 = 0.0f, y_next1 = 0.0f;
+  if (count > 0) {
+    if (j0 < m) y_next0 = Y[static_cast<size_t>(cid) * m + j0];
+    if (j1 < m) y_next1 = Y[static_cast<size_t>(cid) * m + j1];
+  }
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  for (int i = 0; i < count; ++i) {
+    const int st = i % NS;
+    const size_t s = static_cast<size_t>(cid) + static_cast<size_t>(i) * n_clusters;
+    const float* p_s = sm + st * L.stage;
+    const float* h_s = p_s + L.h;
+    const float* b_s = p_s + L.bs;
+    float* area = sm + L.slots + (i & 1) * area_floats;
+    float* mine = peer_area + (i & 1) * area_floats + rank * L.slot;  // this block's slot in `peer`
+    const float y0 = y_next0, y1 = y_next1;
+    RLS_MARK(1, i);
+    mbar_wait(smem_addr(bars + st), (i / NS) & 1);
+    RLS_MARK(2, i);
+
+    // 1. PHt for this warp's rows, P kept in registers; beta's rows for
+    //    this lane's outputs; the block's share of H beta (warp 0).
+    const float4* p4 = reinterpret_cast<const float4*>(p_s);
+    const float4* h4 = reinterpret_cast<const float4*>(h_s);
+    const float4 h0 = has0 ? h4[c0] : zero, h1 = has1 ? h4[c1] : zero;
+    float4 pv[RC_RPW][2];
+    float v[RC_RPW];
+#pragma unroll
+    for (int t = 0; t < RC_RPW; ++t) {
+      const int r = warp + S_WARPS * t;
+      pv[t][0] = (has0 && r < R) ? p4[r * n4 + c0] : zero;
+      pv[t][1] = (has1 && r < R) ? p4[r * n4 + c1] : zero;
+      v[t] = dot4(pv[t][1], h1, dot4(pv[t][0], h0, 0.0f));
+    }
+    const float pht_r = butterfly_sum(v, lane);  // row rq, in its four lanes alike
+    const float b_pre0 = (rq < R && j0 < m) ? b_s[rq * m + j0] : 0.0f;
+    const float b_pre1 = (rq < R && j1 < m) ? b_s[rq * m + j1] : 0.0f;
+    if (warp == 0) {
+      float ev[RC_MMAX];
+#pragma unroll
+      for (int j = 0; j < RC_MMAX; ++j) {
+        float acc = 0.0f;
+        if (j < m) {
+          if (lane < R) acc = fmaf(h_s[r0 + lane], b_s[lane * m + j], acc);
+          if (lane + 32 < R) acc = fmaf(h_s[r0 + lane + 32], b_s[(lane + 32) * m + j], acc);
+        }
+        ev[j] = acc;
+      }
+      const float e = butterfly_sum(ev, lane);  // output lane >> 2, in its four lanes alike
+      if (peer < C && (lane >> 2) < m) mine[R + (lane >> 2)] = e;
+    }
+    if (peer < C && rq < R) mine[rq] = pht_r;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the reads above, before the refill
+    RLS_MARK(3, i);
+    cluster_arrive();
+    if (i + 1 < count) {  // the next stream's Y, while the other blocks arrive
+      if (j0 < m) y_next0 = Y[(s + n_clusters) * m + j0];
+      if (j1 < m) y_next1 = Y[(s + n_clusters) * m + j1];
+    }
+    cluster_wait();
+    RLS_MARK(4, i);
+    if (tid == 0 && i + NS < count) fetch(i + NS);
+
+    // 2. S = 1 + h PHt, E = Y - sum of the blocks' shares (rank order), and
+    //    this lane's columns of G = PHt^T / S.
+    float4 ph0 = zero, ph1 = zero;
+    if (has0) ph0 = *reinterpret_cast<const float4*>(area + (4 * c0 / R) * L.slot + 4 * c0 % R);
+    if (has1) ph1 = *reinterpret_cast<const float4*>(area + (4 * c1 / R) * L.slot + 4 * c1 % R);
+    float sdot = dot4(h1, ph1, dot4(h0, ph0, 0.0f));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sdot += __shfl_xor_sync(0xFFFFFFFFu, sdot, o);
+    const float sv = 1.0f + sdot;
+    const float4 g0 = make_float4(ph0.x / sv, ph0.y / sv, ph0.z / sv, ph0.w / sv);
+    const float4 g1 = make_float4(ph1.x / sv, ph1.y / sv, ph1.z / sv, ph1.w / sv);
+    float hb0 = 0.0f, hb1 = 0.0f;
+    for (int b = 0; b < C; ++b) {
+      if (j0 < m) hb0 += area[b * L.slot + R + j0];
+      if (j1 < m) hb1 += area[b * L.slot + R + j1];
+    }
+    const float e0 = y0 - hb0, e1 = y1 - hb1;
+    RLS_MARK(5, i);
+
+    // 3. P' = P - PHt G for this warp's rows, and q = P' h by rows.
+    const float* pht = area + rank * L.slot;
+    float4* out4 = reinterpret_cast<float4*>(p_out + (s * N + r0) * N);
+    float q[RC_RPW];
+#pragma unroll
+    for (int t = 0; t < RC_RPW; ++t) {
+      const int r = warp + S_WARPS * t;
+      const float f = r < R ? pht[r] : 0.0f;
+      float4 a = pv[t][0], b = pv[t][1];
+      a.x -= __fmul_rn(f, g0.x);  // P - (PHt G), two roundings, as the plain version
+      a.y -= __fmul_rn(f, g0.y);
+      a.z -= __fmul_rn(f, g0.z);
+      a.w -= __fmul_rn(f, g0.w);
+      b.x -= __fmul_rn(f, g1.x);
+      b.y -= __fmul_rn(f, g1.y);
+      b.z -= __fmul_rn(f, g1.z);
+      b.w -= __fmul_rn(f, g1.w);
+      if (r < R) {
+        if (has0) __stcs(out4 + r * n4 + c0, a);
+        if (has1) __stcs(out4 + r * n4 + c1, b);
+      }
+      q[t] = dot4(b, h1, dot4(a, h0, 0.0f));
+    }
+    const float qr = butterfly_sum(q, lane);  // row rq
+    if (rq < R) {
+      const size_t o = (s * N + r0 + rq) * m;
+      if (j0 < m) beta_out[o + j0] = fmaf(qr, e0, b_pre0);
+      if (j1 < m) beta_out[o + j1] = fmaf(qr, e1, b_pre1);
+    }
+    RLS_MARK(8, i);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The second stage of the two-stage route.
 // ---------------------------------------------------------------------------
 
@@ -741,39 +1009,120 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// The kernels of the single pass: 0 and 1 the general body (kWide false and
+// true), 2 the rank-1 cluster body.
+int single_body(int N, int k, int m, int C) {
+  return rank1_cluster(N, k, m, C) ? 2 : k % 4 == 0 ? 1 : 0;
+}
+
+const void* single_kernel(int body) {
+  return body == 2   ? reinterpret_cast<const void*>(rls_rank1_cluster_kernel)
+         : body == 1 ? reinterpret_cast<const void*>(rls_single_kernel<true>)
+                     : reinterpret_cast<const void*>(rls_single_kernel<false>);
+}
+
+int single_smem(int N, int k, int m, int C, int NS) {
+  return rank1_cluster(N, k, m, C) ? Rank1Layout(N, m, C, NS).bytes()
+                                   : Layout(N, k, m, C, NS).bytes();
+}
+
+std::mutex single_mutex;
+
+// Opts the body's kernel into `smem` bytes of dynamic shared memory (each
+// kernel keeps the largest asked for so far).
+cudaError_t single_opt_in(int body, int smem) {
+  static int smem_set[3] = {0, 0, 0};
+  std::lock_guard<std::mutex> lock(single_mutex);
+  if (smem <= smem_set[body]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(single_kernel(body), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) smem_set[body] = smem;
+  return err;
+}
+
+// How many clusters of C blocks of the body, with `smem` bytes each, the
+// card runs at once: its SMs for a cluster of one block (one block an SM),
+// else cudaOccupancyMaxActiveClusters (a cluster's blocks share a GPC, and a
+// GPC's SMs need not be a multiple of C), asked once per (device, kernel, C,
+// shared memory) and kept.
+cudaError_t resident_clusters(int body, int C, int smem, int* out) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (C == 1) return cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, device);
+  struct Fit {
+    int device, body, C, smem, clusters;
+  };
+  static Fit fits[64];
+  static int n_fits = 0;
+  std::lock_guard<std::mutex> lock(single_mutex);
+  for (int i = 0; i < n_fits; ++i) {
+    const Fit& f = fits[i];
+    if (f.device == device && f.body == body && f.C == C && f.smem == smem) {
+      *out = f.clusters;
+      return cudaSuccess;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(C));
+  cfg.blockDim = dim3(S_THREADS);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned int>(C);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, single_kernel(body), &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  if (n_fits < 64) fits[n_fits++] = Fit{device, body, C, smem, clusters};
+  *out = clusters;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int oselm_rls_single_smem_bytes(int N, int k, int m, int C, int NS) {
-  return Layout(N, k, m, C, NS).bytes();
+  return single_smem(N, k, m, C, NS);
+}
+
+// The clusters a launch of S streams runs (persistent, each walking the
+// streams cid, cid + clusters, ...): as many as the card holds at once
+// (resident_clusters), never more than streams; `max_clusters` > 0 asks for
+// that many instead (at most S; timings and tests use it to shrink or
+// overfill the grid: a stream's arithmetic does not depend on it).
+extern "C" int oselm_rls_single_clusters(int S, int N, int k, int m, int C, int NS,
+                                         int max_clusters, int* out) {
+  const int body = single_body(N, k, m, C);
+  const int smem = single_smem(N, k, m, C, NS);
+  cudaError_t err = single_opt_in(body, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int fit = 0;
+  if (max_clusters > 0) {
+    fit = max_clusters;
+  } else {
+    err = resident_clusters(body, C, smem, &fit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  *out = max(1, min(S, fit));
+  return 0;
 }
 
 extern "C" int oselm_rls_single_launch(const void* P, const void* beta, const void* H,
                                        const void* Y, void* p_out, void* beta_out, int S, int N,
-                                       int k, int m, int C, int NS, void* stream) {
-  const int smem = Layout(N, k, m, C, NS).bytes();
-  const bool wide = k % 4 == 0;  // the kernel's wide forms (see rls_single_kernel)
-  static int smem_set[2] = {0, 0};  // the largest opt-in so far, per instantiation
-  cudaError_t err;
-  if (smem > smem_set[wide]) {
-    err = wide ? cudaFuncSetAttribute(rls_single_kernel<true>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-               : cudaFuncSetAttribute(rls_single_kernel<false>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[wide] = smem;
-  }
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Persistent clusters, one block per SM, never more clusters than streams.
-  const int clusters = max(1, min(S, sms / C));
+                                       int k, int m, int C, int NS, int max_clusters,
+                                       void* stream) {
+  int clusters = 0;
+  const int rc = oselm_rls_single_clusters(S, N, k, m, C, NS, max_clusters, &clusters);
+  if (rc != 0) return rc;
+  const int body = single_body(N, k, m, C);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned int>(clusters * C));
   cfg.blockDim = dim3(S_THREADS);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.dynamicSmemBytes = static_cast<size_t>(single_smem(N, k, m, C, NS));
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -782,24 +1131,37 @@ extern "C" int oselm_rls_single_launch(const void* P, const void* beta, const vo
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, wide ? rls_single_kernel<true> : rls_single_kernel<false>,
-                           static_cast<const float*>(P),
-                           static_cast<const float*>(beta), static_cast<const float*>(H),
-                           static_cast<const float*>(Y), static_cast<float*>(p_out),
-                           static_cast<float*>(beta_out), S, N, k, m, NS);
+  const float* p = static_cast<const float*>(P);
+  const float* b = static_cast<const float*>(beta);
+  const float* h = static_cast<const float*>(H);
+  const float* y = static_cast<const float*>(Y);
+  float* po = static_cast<float*>(p_out);
+  float* bo = static_cast<float*>(beta_out);
+  cudaError_t err;
+  if (body == 2) {
+    err = cudaLaunchKernelEx(&cfg, rls_rank1_cluster_kernel, p, b, h, y, po, bo, S, N, m, NS);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, body == 1 ? rls_single_kernel<true> : rls_single_kernel<false>,
+                             p, b, h, y, po, bo, S, N, k, m, NS);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 #ifdef RLS_PHASE_CLOCKS
-// The marks of the last launch (2 * N_MARKS values), and a reset to 0.
+// The marks of the last launch (MARK_RANKS * 2 * N_MARKS values: block rank,
+// then mark, then (cycles, ns)), a reset to 0, and the stream to mark.
 extern "C" int oselm_rls_phase_marks(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, rls_marks, sizeof(rls_marks)));
 }
 
 extern "C" int oselm_rls_phase_reset() {
-  static const unsigned long long zeros[2 * N_MARKS] = {};
+  static const unsigned long long zeros[MARK_RANKS * 2 * N_MARKS] = {};
   return static_cast<int>(cudaMemcpyToSymbol(rls_marks, zeros, sizeof(zeros)));
+}
+
+extern "C" int oselm_rls_phase_select(int stream_i) {
+  return static_cast<int>(cudaMemcpyToSymbol(rls_mark_stream, &stream_i, sizeof(int)));
 }
 #endif
 

@@ -11,8 +11,10 @@ small-operand stage) and, as its S = 1 case, ``oselm_rls_update``
   computes PHt = P Hᵀ, S = I + H PHt, G = S⁻¹ PHtᵀ, E = Y − H β, W = Hᵀ E,
   P' = P − PHt G and β' = β + P' W, each P byte read once and written
   once.  Persistent clusters (``single_pass_plan``: blocks per stream and
-  stages of the ring) walk the streams; from k = 2 rows a stream spreads
-  over a cluster of four blocks at N = 128;
+  stages of the ring; as many clusters as the card holds at once) walk the
+  streams; from k = 2 rows a stream spreads over a cluster of four blocks
+  at N = 128, and k = 1 on a cluster (N = 256) takes a body of its own
+  (``rank1_cluster``);
 * the two-stage route for every other shape: the small operands in plain
   torch (``small_operands``, as the JAX wrapper computes them outside its
   ``pallas_call``), then the fused pass (``rls_fleet``).
@@ -32,8 +34,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import small_operands  # the two-stage route's first stage
 
-__all__ = ["rls_fleet", "rls_single", "single_pass_plan", "single_pass_smem_bytes",
-           "small_operands"]
+__all__ = ["launch_clusters", "rank1_cluster", "rls_fleet", "rls_single", "single_pass_plan",
+           "single_pass_smem_bytes", "small_operands"]
 
 SINGLE_MAX_N = 256
 SINGLE_MAX_K = 64
@@ -44,15 +46,38 @@ SPREAD_MIN_ROWS = 32  # ... of as many blocks as keep this many rows of P each
 MAX_STAGES = 3
 MAX_SMEM_BYTES = 227 * 1024  # dynamic shared memory a block may opt into on Hopper
 _BAR_BYTES = 32
+RANK1_CLUSTER_MAX_ROWS = 64  # rows of P a block of the rank-1 cluster body holds at most
+RANK1_CLUSTER_MAX_M = 8
+_RANK1_E = 8  # floats of an exchange slot after its rows of PHt
+
+
+def rank1_cluster(n: int, k: int, m: int, c: int) -> bool:
+    """Whether a cluster of ``c`` blocks runs (N, k, m) with the rank-1
+    cluster body (``rls_rank1_cluster_kernel``; ``rank1_cluster`` in
+    ``csrc/oselm_update.cu`` says the same): k = 1 on a cluster, N <= 256,
+    m <= 8, and each block's R = N / c rows at most 64 and a multiple of 4.
+    The fleet's N = 256 plan (4, 3) takes it; N <= 128 at k = 1 runs on one
+    block (``rank1_stream``) and every other shape on the general body."""
+    r = n // c
+    return (k == 1 and c > 1 and m <= RANK1_CLUSTER_MAX_M and n <= SINGLE_MAX_N
+            and r <= RANK1_CLUSTER_MAX_ROWS and r % 4 == 0)
 
 
 def single_pass_smem_bytes(n: int, k: int, m: int, c: int, ns: int) -> int:
-    """Shared memory of one block of the single pass: the mbarriers, then in
-    floats ``ns`` stages of [its rows of P (R x N, R = N / c) | H / G (k x N)
-    | β (N x m)], Wᵀ (m x N), its rows of PHt (R x (k | 1): rows padded to
-    an odd stride), two k x k buffers and E (k x m).  The same layout as
-    ``Layout`` in ``csrc/oselm_update.cu``."""
+    """Shared memory of one block of the single pass, the same layouts as
+    ``Layout`` and ``Rank1Layout`` in ``csrc/oselm_update.cu``: the
+    mbarriers, then in floats
+
+    * the general body: ``ns`` stages of [its rows of P (R x N, R = N / c)
+      | H / G (k x N) | β (N x m)], Wᵀ (m x N), its rows of PHt (R x (k | 1):
+      rows padded to an odd stride), two k x k buffers and E (k x m);
+    * the rank-1 cluster body (``rank1_cluster``): ``ns`` stages of [its
+      rows of P (R x N) | h (N) | its rows of β (R x m)], then two exchange
+      areas (by the stream's parity) of ``c`` slots of R + 8 floats (a
+      block's rows of PHt and its share of H β)."""
     r = n // c
+    if rank1_cluster(n, k, m, c):
+        return _BAR_BYTES + 4 * (ns * (r * n + n + r * m) + 2 * c * (r + _RANK1_E))
     stage = r * n + k * n + n * m
     return _BAR_BYTES + 4 * (ns * stage + m * n + r * (k | 1) + 2 * k * k + k * m)
 
@@ -67,9 +92,13 @@ def single_pass_plan(n: int, k: int, m: int) -> tuple[int, int] | None:
     SPREAD_MIN_ROWS rows or more comes first (a one-head update of k rows
     then spreads over several SMs instead of one: at N = 128 four blocks of
     32 rows were faster than one block at every k from 2 to 64 on an H100,
-    and slower at k = 1, whose one-block path is the fleet's).  A function of (N, k, m)
-    alone: a stream's P' must not depend on how many streams share the
-    call."""
+    and slower at k = 1, whose one-block path is the fleet's).  The fleet's
+    N = 256 at k = 1 takes (4, 3): four blocks of 64 rows on the rank-1
+    cluster body (``rank1_cluster``: three stages of 68,096 B and the
+    exchange slots, one cluster barrier a stream).  The launch runs as many
+    clusters as the card holds at once (``launch_clusters``).  A function
+    of (N, k, m) alone: a stream's P' must not depend on how many streams
+    share the call."""
     if not (1 <= n <= SINGLE_MAX_N and 1 <= k <= SINGLE_MAX_K and m >= 1 and n % 4 == 0):
         return None
     order = CLUSTER_SIZES
@@ -92,9 +121,11 @@ def single_pass_plan(n: int, k: int, m: int) -> tuple[int, int] | None:
 @functools.cache
 def _lib():
     lib = build.library("oselm_update")
-    lib.oselm_rls_single_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    lib.oselm_rls_single_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     lib.oselm_rls_single_launch.restype = ctypes.c_int
+    lib.oselm_rls_single_clusters.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.oselm_rls_single_clusters.restype = ctypes.c_int
     lib.oselm_rls_single_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.oselm_rls_single_smem_bytes.restype = ctypes.c_int
     lib.oselm_rls_fleet_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
@@ -109,6 +140,22 @@ def kernel_smem_bytes(n: int, k: int, m: int, c: int, ns: int) -> int:
     """The kernel library's own count of ``single_pass_smem_bytes`` (the
     card's checks hold the two equal)."""
     return int(_lib().oselm_rls_single_smem_bytes(n, k, m, c, ns))
+
+
+def launch_clusters(s: int, n: int, k: int, m: int, plan: tuple[int, int] | None = None,
+                    clusters: int | None = None) -> int:
+    """The clusters a single-pass launch of ``s`` streams runs on the
+    current card (``rls_single``'s grid is this times the plan's blocks):
+    as many as the card holds at once (one block an SM for a cluster of
+    one; ``cudaOccupancyMaxActiveClusters`` else, asked once per kernel,
+    cluster and shared memory), at most ``s``; ``clusters`` asks for that
+    many instead.  Raises if the card cannot say."""
+    c, ns = single_pass_plan(n, k, m) if plan is None else plan
+    got = ctypes.c_int(0)
+    _raise_on(_lib().oselm_rls_single_clusters(s, n, k, m, c, ns, clusters or 0,
+                                               ctypes.byref(got)),
+              "oselm_update single pass grid")
+    return got.value
 
 
 def _check(ops_: dict[str, torch.Tensor], want: dict[str, tuple], who: str) -> None:
@@ -161,6 +208,7 @@ def rls_single(
     Y: torch.Tensor,  # (S, k, m)
     out: tuple[torch.Tensor, torch.Tensor] | None = None,
     plan: tuple[int, int] | None = None,
+    clusters: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The whole update in one launch on the card; returns (P', β'), written
     into ``out`` when it is given (see ``_outputs``), else into new buffers.
@@ -169,7 +217,9 @@ def rls_single(
     shapes above, P, β and H 16-byte aligned, and the shape one the single
     pass takes (``single_pass_plan``, whose plan it launches unless another
     (blocks per stream, stages) that fits is given: the card's timings
-    compare plans so).  Raises on anything else, and if the launch fails.
+    compare plans so).  ``clusters`` runs that many persistent clusters
+    instead of as many as fit (``launch_clusters``; a stream's result does
+    not depend on it).  Raises on anything else, and if the launch fails.
     """
     s, n = P.shape[0], P.shape[1]
     k, m = H.shape[1], beta.shape[2]
@@ -184,6 +234,8 @@ def rls_single(
             or not 1 <= ns <= MAX_STAGES
             or single_pass_smem_bytes(n, k, m, c, ns) > MAX_SMEM_BYTES):
         raise ValueError(f"plan {plan} does not fit N={n}, k={k}, m={m}")
+    if clusters is not None and clusters < 1:
+        raise ValueError(f"clusters must be positive, got {clusters}")
     for name, t in (("P", P), ("beta", beta), ("H", H)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the bulk copies")
@@ -193,7 +245,7 @@ def rls_single(
     with torch.cuda.device(P.device):
         rc = _lib().oselm_rls_single_launch(
             P.data_ptr(), beta.data_ptr(), H.data_ptr(), Y.data_ptr(),
-            new_p.data_ptr(), new_beta.data_ptr(), s, n, k, m, *plan,
+            new_p.data_ptr(), new_beta.data_ptr(), s, n, k, m, *plan, clusters or 0,
             torch.cuda.current_stream(P.device).cuda_stream,
         )
     _raise_on(rc, "oselm_update single pass")

@@ -825,15 +825,27 @@ def test_card_odl_update_past_the_single_pass_takes_the_two_stage_route(cuda_dev
 
 
 def test_rls_breakdown_marks_match_the_kernel_source():
-    """The breakdown script's phases name the marks the kernel source sets,
-    each once, and the script needs a card."""
+    """The breakdown script's phases name the marks each kernel of the
+    single pass sets, each once in that kernel (the general body and
+    rank1_stream share ``rls_single_kernel``; the rank-1 cluster body is a
+    kernel of its own), and the script needs a card."""
     from repro_torch.benchmarks import rls_breakdown
 
     src = (ROOT / "src/repro_torch/kernels/csrc/oselm_update.cu").read_text()
-    set_at = [int(i) for i in re.findall(r"RLS_MARK\((\d+), \w+\);", src)]
-    assert sorted(set_at) == list(range(rls_breakdown.N_MARKS))
-    used = {i for _, lo, hi in rls_breakdown.PHASES + (rls_breakdown.RANK1_PHASE,)
-            for i in (lo, hi)}
-    assert used == set(range(rls_breakdown.N_MARKS))
+    kernels = {}
+    for part in src.split("__global__ void")[1:]:
+        name = re.search(r"(\w+)\(", part.split("\n", 1)[1]).group(1)
+        kernels[name] = [int(i) for i in re.findall(r"RLS_MARK\((\d+), \w+\);", part)]
+    assert sorted(kernels["rls_single_kernel"]) == list(range(rls_breakdown.N_MARKS))
+    assert sorted(kernels["rls_rank1_cluster_kernel"]) == [0, 1, 2, 3, 4, 5, 8]
+    assert kernels["rls_fleet_kernel"] == []
+
+    def used(body):
+        return {i for _, lo, hi in (rls_breakdown.START, rls_breakdown.WAIT)
+                + rls_breakdown.PHASES[body] for i in (lo, hi)}
+
+    assert used("general") == set(range(rls_breakdown.N_MARKS))
+    assert used("rank1_stream") == {0, 1, 2, 8}
+    assert used("rank1_cluster") == set(kernels["rls_rank1_cluster_kernel"])
     if not torch.cuda.is_available():
         assert rls_breakdown.main([]) == 1
