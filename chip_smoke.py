@@ -299,10 +299,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    pipeline at 6p (f)'s under a census: all-to-all and collective-permute
    counts and bytes equal to the analytic ones; (d) ``dryrun.run_cell``
    for one arch per family at every LM shape on the 16 x 16 meta mesh
-   against the card's memory, one process a family (no card) beside
-   (a)-(c): one row per cell, status, peak, fits, flops_total and
-   bytes_total; an error fails the phase.  Every
+   against the card's memory, one process a family (no card), started
+   before 6p and run beside 6p, 6s and (a)-(c): one row per cell, status,
+   peak, fits, flops_total and bytes_total; an error fails the phase.  Every
    shape 6q launched a kernel at must be one phases 2-4 held;
+6s. the dense stacks' training step over partitioned leaves
+   (``model.place_train_state``, ``model.partitioned_train_step``), after
+   6p has freed its memory: qwen3-4b at full width and 4 of its 36 layers,
+   B=32, S=64, f32 master params, remat, on a 2 x 4 (data, model) mesh of
+   ``cuda:0`` entries: (a) two partitioned steps and two meshless ones from
+   one seeded state, in f32 compute with TF32 off (loss and grad norm within
+   1e-5 relative, every gathered param and moment within 1e-5 of its scale)
+   and again in bf16 (the reference test's bounds: loss rtol 2e-2, leaves
+   atol = rtol = 3e-2); (b) after each step every param and moment a
+   ``Sharded`` on its ``abstract_train_state`` placement, each shard its
+   slice's shape on its entry, and each position's bytes equal to the
+   census's per-device argument bytes; (c) one more step under a census, its
+   exchanges by kind, count and bytes equal to
+   ``census.partitioned_train_exchanges``; (d) the projection launched twice
+   and kernel 3 once a step, at shapes phases 2-4 held; (e) s/step of the
+   partitioned and the meshless steps and each one's allocator peak (one
+   card, eight entries: not a multi-GPU time);
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
    N=256 (S=16,384, P 4 GiB) and, with the plan's pass in ``serve``, at 6k's
@@ -634,10 +651,18 @@ RESCALE = dict(arch="deepseek-moe-16b", meshes=((4, 2), (2, 2)))
 # EP block at EP's shape and the pipeline at PIPE's, their exchanges
 # against the analytic count.  (d) ``dryrun.run_cell`` for one arch per
 # family at every LM shape on the 16 x 16 meta mesh, one process a family
-# (no card), side by side while (a)-(c) run.
+# (no card), started before 6p and run side by side with 6p, 6s and (a)-(c):
+# the sweep is host-bound (mamba2-780m's train_4k cell alone takes 82-102 s
+# on the host of an H100 machine).
 CENSUS = dict(leaf_bytes=512, peak_rtol=0.10,
               families=("qwen3-4b", "deepseek-moe-16b", "mamba2-780m", "recurrentgemma-9b",
                         "chameleon-34b", "whisper-small"))
+# Phase 6s, the dense stacks' training step over partitioned leaves: qwen3-4b
+# at full width cut to ``depth`` of its 36 layers (so that two f32 training
+# states fit the card), 6l (b)'s B x S, on a ``mesh`` of cuda:0 entries;
+# ``steps`` partitioned and meshless steps from one seeded state in f32
+# compute (TF32 off) and again in bf16, then one more under a census.
+PARTITIONED = dict(arch="qwen3-4b", depth=4, batch=32, seq=64, mesh=(2, 4), steps=2)
 # The kernels the training path launches every step.
 TRAIN_KERNELS = ("xorshift_projection", "oselm_rls_update")
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
@@ -5513,6 +5538,255 @@ def phase_moe_train(device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6s: the dense stacks' training step over partitioned leaves
+# (models/model.py partitioned_train_step) on a mesh of one card's entries
+# ---------------------------------------------------------------------------
+
+
+def _placement_checks(state, placements, metas, mesh):
+    """6s (b): every param and moment a ``Sharded`` on its placement, each
+    shard of its slice's shape on its entry; returns each position's bytes
+    (params and moments) and the census's per-device bytes of the same."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+
+    per_pos = {pos: 0 for pos in mesh.positions()}
+    want = 0
+    for tree, pls, mts in ((state.params, placements.params, metas.params),
+                           (state.opt.m, placements.opt.m, metas.opt.m),
+                           (state.opt.v, placements.opt.v, metas.opt.v)):
+        for sh, pl, meta in zip(_model_leaves(tree), _model_leaves(pls), _model_leaves(mts)):
+            check(isinstance(sh, sharding.Sharded) and sh.placement == pl,
+                  f"partitioned (b): a leaf left its placement {pl.spec}")
+            for pos, index in pl.indices_map(tuple(meta.shape)).items():
+                t = sh.shards[pos]
+                shape = tuple(len(range(*ix.indices(n))) for ix, n in zip(index, meta.shape))
+                check(tuple(t.shape) == shape and t.device == mesh.device_at(pos),
+                      f"partitioned (b): shard {pos} of {pl.spec} is {tuple(t.shape)} on "
+                      f"{t.device}, want {shape}")
+                per_pos[pos] += t.numel() * t.element_size()
+            want += dryrun.device_bytes(meta, pl)
+    return per_pos, want
+
+
+def _leaf_errs(got, want, bf16):
+    """Per tree (params, m, v) of two whole ``TrainState``s, the worst
+    leaf's error: in f32 max |diff| (params) or max |diff| over max |want|
+    (moments); in bf16 the worst of |diff| - 3e-2 |want| (the reference
+    test's atol = rtol = 3e-2: at most 3e-2)."""
+    errs = {}
+    for name in ("params", "m", "v"):
+        a_tree = got.params if name == "params" else getattr(got.opt, name)
+        b_tree = want.params if name == "params" else getattr(want.opt, name)
+        worst = 0.0
+        for a, b in zip(_model_leaves(a_tree), _model_leaves(b_tree)):
+            if bf16:
+                e = (a - b).abs() - 3e-2 * b.abs()
+                worst = max(worst, float(e.max()))
+            else:
+                scale = 1.0 if name == "params" else float(b.abs().max().clamp_min(1e-30))
+                worst = max(worst, float((a - b).abs().max()) / scale)
+        errs[name] = worst
+    return errs
+
+
+def _meshless_steps(cfg, tcfg, device, pt):
+    """``pt``'s steps of the meshless ``train_step`` from SEED: (state,
+    metrics, s/step, allocator peak above the bytes held before them)."""
+    import torch
+
+    from repro_torch.models import model as model_lib
+
+    state = model_lib.init_train_state(cfg, SEED, tcfg, device)
+    metrics, seconds = [], []
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for step in range(1, pt["steps"] + 1):
+        batch = _train_batch(cfg, step, pt["batch"], pt["seq"], device)
+        _sync(device)
+        t0 = time.perf_counter()
+        state, m = model_lib.train_step(state, batch, cfg, tcfg)
+        _sync(device)
+        seconds.append(time.perf_counter() - t0)
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    return state, metrics, seconds, torch.cuda.max_memory_allocated() - held
+
+
+def _partitioned_pair(cfg, tcfg, mesh, device, precision, card):
+    """6s (a), (b), (d), (e) in one compute dtype: ``steps`` partitioned
+    steps and as many meshless ones from one seeded state.  In f32 the
+    leaves are also held to the meshless step's own spread: the same steps
+    at two microbatches (another valid order of the gradients' sums)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+
+    pt = PARTITIONED
+    bf16 = precision == "bf16"
+    with sharding.activate(mesh):
+        metas, placements = model_lib.abstract_train_state(cfg, tcfg)
+    placed = model_lib.place_train_state(model_lib.init_train_state(cfg, SEED, tcfg, device),
+                                         mesh, cfg, tcfg)
+    torch.cuda.empty_cache()
+    out = {"launches": {}, "replays": {}, "s_per_step": []}
+    metrics = []
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for step in range(1, pt["steps"] + 1):
+        batch = _train_batch(cfg, step, pt["batch"], pt["seq"], device)
+        ops.reset_launch_counts()
+        graphs.reset_replay_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        with sharding.activate(mesh):
+            placed, m = model_lib.train_step(placed, batch, cfg, tcfg)
+        _sync(device)
+        out["s_per_step"].append(time.perf_counter() - t0)
+        got = {k: ops.launch_counts.get(k, 0) + graphs.kernel_replays.get(k, 0)
+               for k in TRAIN_KERNELS}
+        check(got == {"xorshift_projection": 2, "oselm_rls_update": 1},
+              f"partitioned (d) {precision} step {step}: head kernels {got}")
+        for src, key in ((ops.launch_counts, "launches"), (graphs.kernel_replays, "replays")):
+            for k, v in src.items():
+                out[key][k] = out[key].get(k, 0) + v
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        per_pos, want_bytes = _placement_checks(placed, placements, metas, mesh)
+        check(set(per_pos.values()) == {want_bytes},
+              f"partitioned (b) {precision} step {step}: bytes a position "
+              f"{sorted(set(per_pos.values()))}, census {want_bytes}")
+    out["held_bytes"], out["peak_bytes"] = held, torch.cuda.max_memory_allocated() - held
+    out["position_bytes"] = want_bytes
+    got_state = model_lib.gather_train_state(placed)
+    del placed
+    torch.cuda.empty_cache()
+    whole, plain, out["plain_s_per_step"], out["plain_peak_bytes"] = _meshless_steps(
+        cfg, tcfg, device, pt)
+    if bf16:
+        loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(metrics, plain))
+        check(loss_err <= 2e-2, f"partitioned (a) bf16: losses {metrics} against {plain}")
+    else:
+        loss_err = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(metrics, plain)
+                       for k in ("loss", "grad_norm"))
+        check(loss_err <= 1e-5, f"partitioned (a) f32: {metrics} against {plain}")
+    errs = _leaf_errs(got_state, whole, bf16)
+    del got_state
+    torch.cuda.empty_cache()
+    if bf16:
+        check(all(e <= 3e-2 for e in errs.values()), f"partitioned (a) bf16: leaves {errs}")
+        rule = "leaves |diff| <= 3e-2 + 3e-2 |meshless|, the worst excess shown"
+    else:
+        mb2 = dataclasses.replace(tcfg, microbatches=2)
+        other, other_m, _, _ = _meshless_steps(cfg, mb2, device, pt)
+        floor = _leaf_errs(other, whole, False)
+        del other
+        torch.cuda.empty_cache()
+        out["floor"] = floor
+        out["floor_loss_err"] = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(other_m, plain)
+                                    for k in ("loss", "grad_norm"))
+        check(all(errs[k] <= 2 * floor[k] for k in errs),
+              f"partitioned (a) f32: leaves {errs} against the meshless spread {floor}")
+        rule = (f"within twice the meshless step's own spread at 2 microbatches: "
+                f"{({k: f'{v:.2e}' for k, v in floor.items()})}, loss and grad norm "
+                f"{out['floor_loss_err']:.2e}")
+    del whole
+    torch.cuda.empty_cache()
+    out.update(metrics=metrics, plain_metrics=plain, loss_err=loss_err, leaf_errs=errs)
+    print(f"  (a) {precision} compute{'' if bf16 else ' (TF32 off)'}: {pt['steps']} "
+          f"partitioned steps {[round(x['loss'], 6) for x in metrics]} (grad norms "
+          f"{[round(x['grad_norm'], 6) for x in metrics]}) against the meshless "
+          f"{[round(x['loss'], 6) for x in plain]} ({[round(x['grad_norm'], 6) for x in plain]}): "
+          f"worst relative {loss_err:.2e} (bound {'2e-2' if bf16 else '1e-5'}); leaves (params "
+          f"max |diff|, moments max |diff| over max |meshless|) "
+          f"{({k: f'{v:.2e}' for k, v in errs.items()})} ({rule})")
+    print(f"  (b) {precision}: after each step every param and moment on its placement, each "
+          f"shard its slice's shape on its entry; {out['position_bytes']} bytes a position "
+          f"(params and moments) = the census's per-device argument bytes")
+    print(f"  (e) {precision}: s/step partitioned {[round(x, 3) for x in out['s_per_step']]}, "
+          f"meshless {[round(x, 3) for x in out['plain_s_per_step']]} (host clock, synchronised; "
+          f"step 1 includes warm-up); allocator peak above the {out['held_bytes']} bytes held "
+          f"before the steps: partitioned {out['peak_bytes']}, meshless "
+          f"{out['plain_peak_bytes']} above its own (one card, {math.prod(pt['mesh'])} mesh "
+          f"entries, exchanges device-local: not a multi-GPU time) ({card})")
+    return out
+
+
+def phase_partitioned(device="cuda"):
+    """6s: qwen3-4b's training step on partitioned leaves at full width, on
+    a (data, model) mesh of cuda:0 entries (see the module docstring)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import census
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+
+    t_phase = time.perf_counter()
+    card = _card()
+    pt = PARTITIONED
+    torch.cuda.empty_cache()
+    full = configs.get_config(pt["arch"], "full")
+    cfg = full.replace(n_layers=pt["depth"])
+    tcfg = TrainConfig()
+    d, m = pt["mesh"]
+    mesh = mesh_lib.make_dev_mesh(d, m, devices=[_entry(device)] * (d * m))
+    res = {"allocated_before": torch.cuda.memory_allocated()}
+    print(f"partitioned training (6s: {pt['arch']} at full width, {pt['depth']} of its "
+          f"{full.n_layers} layers (reduced: depth {full.n_layers} -> {pt['depth']}, two f32 "
+          f"training states on one card), B={pt['batch']}, S={pt['seq']}, f32 master params, "
+          f"remat {tcfg.remat}, on a {d} x {m} (data, model) mesh of cuda:0 entries) on {card}: "
+          f"{res['allocated_before']} bytes allocated before it")
+    with _ShapeLog() as log:
+        saved = (layers.COMPUTE_DTYPE, torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        layers.COMPUTE_DTYPE = torch.float32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            res["f32"] = _partitioned_pair(cfg, tcfg, mesh, device, "f32", card)
+        finally:
+            (layers.COMPUTE_DTYPE, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+        res["bf16"] = _partitioned_pair(cfg, tcfg, mesh, device, "bf16", card)
+
+        # (c) one more step under a census: the exchanges against the count.
+        placed = model_lib.place_train_state(
+            model_lib.init_train_state(cfg, SEED, tcfg, device), mesh, cfg, tcfg)
+        batch = _train_batch(cfg, 1, pt["batch"], pt["seq"], device)
+        with sharding.activate(mesh), census.StepCensus() as c:
+            model_lib.train_step(placed, batch, cfg, tcfg)
+        got = census.collective_census(c)
+        want = census.partitioned_train_exchanges(cfg, tcfg, mesh, pt["batch"], pt["seq"])
+        check(got == want, f"partitioned (c): exchanges {got} against {want}")
+        res["exchanges"] = got
+        del placed
+        torch.cuda.empty_cache()
+        print(f"  (c) one bf16 step under a census: {json.dumps(got)}, equal to "
+              f"census.partitioned_train_exchanges by kind, count and bytes ({card})")
+    missing = log.missing()
+    check(not missing, f"partitioned: shapes phases 2-4 did not hold: {missing}")
+    res["shapes"] = {k: sorted(v) for k, v in log.shapes.items() if v}
+    res["launches"], res["replays"] = {}, {}
+    for prec in ("f32", "bf16"):
+        for key in ("launches", "replays"):
+            for k, v in res[prec][key].items():
+                res[key][k] = res[key].get(k, 0) + v
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  (d) kernel shapes on 6s's path, each held in phases 2-4: {res['shapes']}; "
+          f"launches + replays over the {2 * pt['steps']} partitioned steps: "
+          + str({k: res['launches'].get(k, 0) + res['replays'].get(k, 0)
+                 for k in TRAIN_KERNELS}) + f" (2 and 1 a step)")
+    print(f"  phase 6s took {res['seconds']:.1f} s ({card})")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 6q: the dry-run census (launch/census.py, launch/dryrun.py) on the
 # card and on the meta device
 # ---------------------------------------------------------------------------
@@ -5541,7 +5815,7 @@ def _census_sweep_child(arch: str, device_bytes: int) -> int:
 
 def _start_census_sweep():
     """6q (d): one process a family (the host's cores run them side by side
-    while 6q (a)-(c) hold the card), none touching the card
+    while 6p, 6s and 6q (a)-(c) hold the card), none touching the card
     (``CUDA_VISIBLE_DEVICES`` empty), one thread each.  Returns the device
     memory they hold the cells against and, by arch, (process, output
     file)."""
@@ -5645,8 +5919,9 @@ def _census_exchanges(device, card):
     return res
 
 
-def phase_census(device="cuda"):
-    """6q: the dry-run census (see the module docstring and ``CENSUS``)."""
+def phase_census(sweep, device="cuda"):
+    """6q: the dry-run census (see the module docstring and ``CENSUS``);
+    ``sweep`` is ``_start_census_sweep()``'s, started before 6p."""
     import torch
 
     from repro_torch import configs
@@ -5658,7 +5933,7 @@ def phase_census(device="cuda"):
 
     t_phase = time.perf_counter()
     card = _card()
-    total, procs = _start_census_sweep()
+    total, procs = sweep
     torch.cuda.empty_cache()
     res = {"allocated_before": torch.cuda.memory_allocated()}
     print(f"census (6q: the dry-run census on meta against the card; exchanges; the sweep) on "
@@ -6323,8 +6598,10 @@ def main(argv=None) -> int:
     moe = phase_moe()
     recurrent = phase_recurrent()
     encdec_res = phase_encdec()
+    sweep = _start_census_sweep()  # 6q (d), host-bound, beside 6p, 6s and 6q (a)-(c)
     moe_train = phase_moe_train()
-    phase_census()
+    partitioned = phase_partitioned()
+    phase_census(sweep)
     times = {r["name"]: r for r in phase_times()}
 
     rls_src = "src/repro_torch/kernels/csrc/oselm_update.cu"
@@ -6432,6 +6709,10 @@ def main(argv=None) -> int:
             "moe_train_replays": moe_train["deepseek-moe-16b"]["replays"].get(name, 0),
             "mla_train_launches": moe_train["deepseek-v2-236b"]["launches"].get(name, 0),
             "mla_train_replays": moe_train["deepseek-v2-236b"]["replays"].get(name, 0),
+            # The dense training step over partitioned leaves (phase 6s):
+            # eager launches and replays over its f32 and bf16 steps.
+            "partitioned_train_launches": partitioned["launches"].get(name, 0),
+            "partitioned_train_replays": partitioned["replays"].get(name, 0),
             # The MoE archs' serving path (phase 6m, (a)-(f)): eager launches
             # and graph replays in this process, and, apart, in its two
             # workers (summed from their own scrapes).

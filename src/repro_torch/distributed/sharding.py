@@ -23,15 +23,19 @@ process has no partitioner, so here placement and exchange are explicit:
   ``.to(device)``, then ``cat`` or ``split``): a peer copy between two
   cards, a device-local copy (or none) where two entries name one device.
   ``exchange`` also tallies the move into an open ``launch.census`` when
-  the two positions differ, whatever their devices.
+  the two positions differ, whatever their devices.  ``all_gather``,
+  ``reduce_scatter``, ``all_reduce`` and ``broadcast`` over one mesh axis
+  are built on it, on dicts of per-position tensors, and ``relayout``
+  gathers slices into a coarser layout.
 
 One process calls the shards one after another, so a shard cannot wait
 inside a collective for another: there is no generic ``shard_map`` here.
 Each region the reference writes under ``shard_map`` is written as phases
 with the exchanges between them (``models.moe.moe_block_ep``,
-``distributed.pipeline.pipeline_forward``).  ``constrain`` is the identity
-on values, as ``constrain_fleet`` is: nothing here re-lays a tensor out
-behind the caller's back.
+``distributed.pipeline.pipeline_forward``), and so is the training step
+GSPMD partitions for the reference (``models.model.partitioned_train_step``).
+``constrain`` is the identity on values, as ``constrain_fleet`` is: nothing
+here re-lays a tensor out behind the caller's back.
 
 The fleet's stream axis uses the same scope: ``activate(mesh)`` makes a
 mesh current, ``deactivate()`` hides it again for shard-local regions,
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import math
 import threading
@@ -137,7 +142,7 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
-def _axes_of(entry) -> tuple:
+def axes_of(entry) -> tuple:
     return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
 
@@ -160,7 +165,7 @@ class Placement:
             index = []
             for dim, entry in zip(shape, entries):
                 k, n = 0, 1
-                for a in _axes_of(entry):
+                for a in axes_of(entry):
                     k, n = k * sizes[a] + coord[a], n * sizes[a]
                 if n == 1:
                     index.append(slice(None))
@@ -204,12 +209,12 @@ class Sharded:
 
 
 def exchange(t: torch.Tensor, src: tuple, dst: tuple, mesh: Mesh,
-             kind: str = "all-to-all") -> torch.Tensor:
+             kind: str = "all-to-all", back_kind: Optional[str] = None) -> torch.Tensor:
     """``t``, held by mesh position ``src``, moved to position ``dst``'s
     entry: ``t.to(device)``.  Under an open census a move between two
     positions counts as one exchange of ``kind`` with t's bytes, and its
-    gradient's move back as another; without one, or from a position to
-    itself, it is the plain ``.to``."""
+    gradient's move back as one of ``back_kind`` (default ``kind``);
+    without one, or from a position to itself, it is the plain ``.to``."""
     out = t.to(mesh.device_at(dst))
     c = _census.active()
     if c is None or src == dst:
@@ -218,8 +223,89 @@ def exchange(t: torch.Tensor, src: tuple, dst: tuple, mesh: Mesh,
     if out.requires_grad:
         if out is t:  # the same device: a node of its own for the gradient's hook
             out = t.view_as(t)
-        out.register_hook(lambda g: c.add_exchange(kind, g.numel() * g.element_size()))
+        back = back_kind or kind
+        out.register_hook(lambda g: c.add_exchange(back, g.numel() * g.element_size()))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Collectives over one mesh axis, on per-position tensors
+# ---------------------------------------------------------------------------
+#
+# A partitioned tensor in flight is a dict {mesh position: the tensor that
+# position holds}.  Each collective below is built from ``exchange``: every
+# receiving position takes its peers' tensors along ``axis`` (the positions
+# that differ from it on that axis alone), and concatenates or reduces them
+# in axis order, so every receiver of one result holds the same bits.
+# Autograd runs through the moves: the gradient of an all-gather goes back
+# to the shards, summed there by autograd (the reduce-scatter, tallied so),
+# and that of a reduce-scatter comes back as an all-gather.
+
+
+def peers(pos: tuple, mesh: Mesh, axis: str) -> list:
+    """The positions along ``axis`` through ``pos``, in axis order."""
+    i = mesh.axis_names.index(axis)
+    return [pos[:i] + (k,) + pos[i + 1:] for k in range(mesh.sizes[i])]
+
+
+def all_gather(parts: dict, mesh: Mesh, axis: str, dim: int) -> dict:
+    """Each position: its peers' parts along ``axis`` concatenated on
+    ``dim`` in axis order (tallied ``all-gather``; the gradient's way back
+    ``reduce-scatter``)."""
+    return {pos: torch.cat([exchange(parts[q], q, pos, mesh, "all-gather", "reduce-scatter")
+                            for q in peers(pos, mesh, axis)], dim)
+            for pos in parts}
+
+
+def reduce_scatter(parts: dict, mesh: Mesh, axis: str, dim: int) -> dict:
+    """Each position at index k of ``axis``: the sum, in axis order, of block
+    k along ``dim`` of its peers' parts (the blocks equal, ``dim`` split as
+    many ways as the axis is long; tallied ``reduce-scatter``)."""
+    n = mesh.shape[axis]
+    i = mesh.axis_names.index(axis)
+    out = {}
+    for pos in parts:
+        blocks = [exchange(parts[q].chunk(n, dim)[pos[i]], q, pos, mesh, "reduce-scatter",
+                           "all-gather") for q in peers(pos, mesh, axis)]
+        out[pos] = functools.reduce(torch.add, blocks)
+    return out
+
+
+def all_reduce(parts: dict, mesh: Mesh, axis: str, op: str = "sum") -> dict:
+    """Each position: its peers' parts along ``axis`` reduced by ``op``
+    ("sum" or "max") in axis order (tallied ``all-reduce``)."""
+    fn = {"sum": torch.add, "max": torch.maximum}[op]
+    return {pos: functools.reduce(fn, [exchange(parts[q], q, pos, mesh, "all-reduce")
+                                       for q in peers(pos, mesh, axis)])
+            for pos in parts}
+
+
+def broadcast(parts: dict, mesh: Mesh, axis: str, root: int = 0) -> dict:
+    """Each position: the part of its peer at index ``root`` of ``axis``
+    (tallied ``broadcast``; the gradients' way back ``reduce``, summed at
+    the root by autograd)."""
+    i = mesh.axis_names.index(axis)
+    return {pos: exchange(parts[pos[:i] + (root,) + pos[i + 1:]], pos[:i] + (root,) + pos[i + 1:],
+                          pos, mesh, "broadcast", "reduce")
+            for pos in parts}
+
+
+def relayout(parts: dict, spec_from: PartitionSpec, spec_to: PartitionSpec, mesh: Mesh) -> dict:
+    """Per-position slices laid out by ``spec_from`` -> the slices
+    ``spec_to`` gives each position, where ``spec_to`` keeps some of
+    ``spec_from``'s entries and drops the others to None: every dropped
+    entry's axes are all-gathered on its dim, the minor axis first."""
+    n = max(len(spec_from), len(spec_to))
+    src = list(spec_from) + [None] * (n - len(spec_from))
+    dst = list(spec_to) + [None] * (n - len(spec_to))
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        if a == b:
+            continue
+        if b is not None:
+            raise ValueError(f"relayout {spec_from} -> {spec_to}: dim {dim} is not dropped")
+        for axis in reversed(axes_of(a)):
+            parts = all_gather(parts, mesh, axis, dim)
+    return parts
 
 
 def _current() -> tuple[Optional[Mesh], dict]:
@@ -281,7 +367,7 @@ def resolve(*logical_axes: Optional[str], shape: Optional[tuple] = None) -> Part
         if target is None:
             spec.append(None)
             continue
-        parts = tuple(p for p in _axes_of(target) if p in sizes and p not in used)
+        parts = tuple(p for p in axes_of(target) if p in sizes and p not in used)
         if shape is not None:
             kept, prod = [], 1
             for p in parts:  # greedy prefix that divides the dim
@@ -319,7 +405,7 @@ def ensure_axis_sharded(spec: PartitionSpec, shape: tuple, axis: str) -> Partiti
     if mesh is None or axis not in mesh.axis_names:
         return spec
     entries = list(spec) + [None] * (len(shape) - len(spec))
-    if any(axis in _axes_of(e) for e in entries):
+    if any(axis in axes_of(e) for e in entries):
         return spec
     size = mesh.shape[axis]
     cands = [(shape[i], i) for i, e in enumerate(entries)
@@ -338,7 +424,7 @@ def ensure_model_sharded(spec: PartitionSpec, shape: tuple) -> PartitionSpec:
 def _stream_axes() -> tuple:
     mesh, rules = _current()
     target = rules.get("stream", None)
-    return tuple(a for a in _axes_of(target) if a in mesh.shape)
+    return tuple(a for a in axes_of(target) if a in mesh.shape)
 
 
 def fleet_axis_size() -> int:

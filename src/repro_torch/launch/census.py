@@ -35,6 +35,7 @@ backward on a thread of its own, and the dispatch modes follow it there.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 import weakref
 from typing import Optional
@@ -228,8 +229,126 @@ def uncounted():
 def collective_census(census: StepCensus) -> dict:
     """``{kind: {"count": int, "bytes": int}, "total_bytes": int}`` over
     the census's exchanges (the reference's structure; kinds
-    ``all-to-all``, ``collective-permute``).  A count is one tensor moved
-    from one mesh position to another, its bytes the tensor's."""
+    ``all-to-all``, ``collective-permute``, and the collectives of
+    ``distributed.sharding``: ``all-gather``, ``reduce-scatter``,
+    ``all-reduce``, ``broadcast``, ``reduce`` and ``gather``).  A count is
+    one tensor moved from one mesh position to another, its bytes the
+    tensor's."""
     out = {kind: dict(v) for kind, v in census.exchanges.items()}
     out["total_bytes"] = sum(v["bytes"] for v in census.exchanges.values())
     return out
+
+
+def _add(out: dict, kind: str, count: int, nbytes: int) -> None:
+    """``count`` moves of ``nbytes`` each into ``out``, by kind."""
+    if count:
+        e = out.setdefault(kind, {"count": 0, "bytes": 0})
+        e["count"] += count
+        e["bytes"] += count * nbytes
+
+
+def partitioned_train_exchanges(cfg, tcfg, mesh, batch: int, seq: int) -> dict:
+    """The exchanges of one ``model.partitioned_train_step`` of ``cfg`` under
+    ``tcfg`` on the (data, model) ``mesh`` at ``batch`` x ``seq`` tokens,
+    counted from the leaves' layouts (``model.abstract_train_state``), in
+    ``collective_census``'s structure.  With P positions, a collective over
+    an axis of n positions moves n - 1 tensors into each of the P:
+
+    * each leaf's gathers before use (a stacked leaf's per layer, again in
+      remat's recompute): ``all-gather`` forward, ``reduce-scatter`` back;
+    * the embedding's and each layer's two reductions over "model" of the
+      residual stream (``all-reduce``), forward and back at every
+      position, each layer's first again in remat's recompute (which stops
+      before the layer's last); the cross-entropy's three (the head splits
+      the vocabulary over "model": other layouts raise): forward at every
+      position, back only the sum and the target logit, and only at the
+      home positions (the other positions' copies of a row's loss do not
+      reach the loss);
+    * each home position's row losses (and their gradients back) and
+      pooled features to the first entry (``gather``);
+    * all of the above once a microbatch; then once a step, each gradient's
+      reduce-scatter into its moments' added split and all-reduce over the
+      axes neither splits, the global norm's all-reduce over each axis, and
+      the updated slices' all-gather back (f32 gradients, the params'
+      dtype for the gather)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import layers, model, transformer
+
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    n_pos = d * m
+    with sharding.activate(mesh):
+        _, pl = model.abstract_train_state(cfg, tcfg)
+    psize = torch.empty((), dtype=getattr(torch, tcfg.param_dtype)).element_size()
+    rows = batch // (tcfg.microbatches * d)  # a position's rows a microbatch
+    stream = rows * seq * cfg.d_model * torch.empty((), dtype=layers.COMPUTE_DTYPE).element_size()
+    loss_rows = rows * seq * 4
+    per_mb, out = {}, {}
+
+    def local(shape, spec):
+        return [n // math.prod(mesh.shape[a] for a in sharding.axes_of(e))
+                for n, e in zip(shape, _padded(spec, len(shape)))]
+
+    def gathers(shape, held, used, into, times, back=None):
+        """``sharding.relayout(held -> used)``'s all-gathers, ``times`` over."""
+        cur = local(shape, held)
+        for dim, (a, b) in enumerate(zip(_padded(held, len(shape)), _padded(used, len(shape)))):
+            if a == b:
+                continue
+            for axis in reversed(sharding.axes_of(a)):
+                n = mesh.shape[axis]
+                _add(into, "all-gather", times * n_pos * (n - 1), math.prod(cur) * psize)
+                if back is not None:
+                    _add(back, "reduce-scatter", n_pos * (n - 1), math.prod(cur) * psize)
+                cur[dim] *= n
+
+    top, layer = model.train_layout(cfg, pl.params)
+    if not transformer.vocab_split(cfg, top):
+        # Each position's loss is then whole, and only the home positions'
+        # last layers reach the loss: not counted here.
+        raise NotImplementedError(f"{cfg.arch_id} on {mesh.shape}: the head does not split "
+                                  "the vocabulary over 'model'")
+    fwd_layers = 2 if tcfg.remat else 1
+    for path, leaf in layers._iter_leaves(model.build_schema(cfg)):
+        if path[0] == "layers":
+            for _ in range(cfg.n_layers):
+                gathers(leaf.shape[1:], *layer["/".join(path[1:])], per_mb, fwd_layers, per_mb)
+        elif path[0] in top:
+            gathers(leaf.shape, *top[path[0]], per_mb, 1, per_mb)
+    ring = m - 1
+    per_layer = (transformer.model_split(layer["attn/wq"][1], 1)
+                 + transformer.model_split(layer["mlp/wd"][1], 0))
+    recomputed = max(per_layer - 1, 0) if tcfg.remat else 0
+    reduced = transformer.model_split(top["embed"][1], 0) + per_layer * cfg.n_layers
+    _add(per_mb, "all-reduce", (reduced + recomputed * cfg.n_layers) * n_pos * ring, stream)
+    _add(per_mb, "all-reduce", reduced * n_pos * ring, stream)
+    _add(per_mb, "all-reduce", 3 * n_pos * ring, loss_rows)
+    _add(per_mb, "all-reduce", 2 * d * ring, loss_rows)
+    _add(per_mb, "gather", 2 * (d - 1), loss_rows)
+    _add(per_mb, "gather", d - 1, rows * cfg.d_model * 4)
+    for kind, e in per_mb.items():
+        out[kind] = {"count": e["count"] * tcfg.microbatches,
+                     "bytes": e["bytes"] * tcfg.microbatches}
+
+    for path, leaf in layers._iter_leaves(model.build_schema(cfg)):
+        held, mom = model._at(pl.params, path).spec, model._at(pl.opt.m, path).spec
+        n = len(leaf.shape)
+        cur = local(leaf.shape, held)
+        for dim, (a, b) in enumerate(zip(_padded(held, n), _padded(mom, n))):
+            if a != b:
+                for axis in sharding.axes_of(b):
+                    cur[dim] //= mesh.shape[axis]
+                    _add(out, "reduce-scatter", n_pos * (mesh.shape[axis] - 1),
+                         math.prod(cur) * 4)
+        split = {x for e in _padded(mom, n) for x in sharding.axes_of(e)}
+        for axis in mesh.axis_names:
+            if axis not in split:
+                _add(out, "all-reduce", n_pos * (mesh.shape[axis] - 1), math.prod(cur) * 4)
+        gathers(leaf.shape, mom, held, out, 1)
+    for axis in mesh.axis_names:
+        _add(out, "all-reduce", n_pos * (mesh.shape[axis] - 1), 4)
+    out["total_bytes"] = sum(v["bytes"] for v in out.values())
+    return out
+
+
+def _padded(spec, n: int) -> list:
+    return list(spec) + [None] * (n - len(spec))

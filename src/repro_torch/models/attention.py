@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 from repro_torch.models.layers import Leaf, apply_rope, cast, rmsnorm
 
@@ -229,6 +230,57 @@ def gqa_attention(
     if return_kv:
         return out, (k, v)
     return out
+
+
+def local_heads(cfg: ModelConfig, index: int, n_blocks: int):
+    """(q heads [a, b), kv heads [c, e)) of block ``index`` of ``n_blocks``
+    of the q heads: q head h attends with kv head h // G (G = H / KV).  A
+    block holds whole groups of one or more kv heads, or part of one
+    group."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    g, n = h // kv, h // n_blocks
+    if n % g and g % n:
+        raise ValueError(f"{n} q heads a block do not align with groups of {g}")
+    a = index * n
+    return (a, a + n), (a // g, (a + n - 1) // g + 1)
+
+
+def gqa_attention_tp(x: dict, p: dict, cfg: ModelConfig, positions: dict, mesh,
+                     heads_split: bool, kv_split: bool) -> dict:
+    """``gqa_attention`` per mesh position on its slices, the partial
+    outputs reduced over "model".
+
+    ``p`` holds each leaf's slice per position.  With ``heads_split`` a
+    position's wq is column-parallel on its block of the q heads and its wo
+    row-parallel on the same block; its wk and wv are its block of the kv
+    heads (``kv_split``) or whole, and then sliced to the kv heads its q
+    heads read (at smoke width, 2 kv heads on a 4-way axis).  Its partial
+    output is summed over "model" in axis order.  Without ``heads_split``
+    each position attends with every head and nothing is reduced."""
+    mi = mesh.axis_names.index("model")
+    m = mesh.shape["model"] if heads_split else 1
+    out = {}
+    for pos, xp in x.items():
+        (a, b), (c, e) = local_heads(cfg, pos[mi] if heads_split else 0, m)
+        wk, wv = p["wk"][pos], p["wv"][pos]
+        if not kv_split:
+            wk, wv = wk[:, c:e], wv[:, c:e]
+        q, k, v = _proj(xp, p["wq"][pos]), _proj(xp, wk), _proj(xp, wv)
+        if cfg.qk_norm:
+            q, k = rmsnorm(q, p["q_norm"][pos]), rmsnorm(k, p["k_norm"][pos])
+        q = apply_rope(q, positions[pos], cfg.rope_theta)
+        k = apply_rope(k, positions[pos], cfg.rope_theta)
+        q = q.reshape(q.shape[0], q.shape[1], e - c, (b - a) // (e - c), -1)
+        if cfg.attention_impl == "chunked":
+            o = _chunked_grouped_attention(q, k, v, positions[pos], positions[pos], True,
+                                           cfg.sliding_window, cfg.attention_chunk)
+        else:
+            o = _grouped_attention(q, k, v, _mask_bias(positions[pos], positions[pos], True,
+                                                       cfg.sliding_window))
+        wo = p["wo"][pos]
+        out[pos] = o.reshape(o.shape[0], o.shape[1], -1).to(xp.dtype) @ cast(wo).reshape(
+            -1, wo.shape[-1])
+    return sharding.all_reduce(out, mesh, "model") if heads_split else out
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=layers.COMPUTE_DTYPE,

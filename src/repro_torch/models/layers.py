@@ -143,6 +143,22 @@ def _leaf_spec(leaf: Leaf) -> sharding.PartitionSpec:
     return spec
 
 
+# The logical axes on whose dims a leaf keeps "model" where it is used in
+# the partitioned training step: its q and kv heads, d_ff and vocabulary.
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
+
+
+def compute_spec(leaf: Leaf, spec: sharding.PartitionSpec) -> sharding.PartitionSpec:
+    """The layout the partitioned training step uses ``leaf`` in, from the
+    layout it is held in: "model" where ``spec`` puts it on one of
+    ``TP_AXES``, every other dim whole (gathered before use: the FSDP "data"
+    dims, and "model" where the ``_BIG`` post-pass moved it to another
+    dim)."""
+    entries = list(spec) + [None] * (len(leaf.shape) - len(spec))
+    return sharding.PartitionSpec(*(e if e == "model" and ax in TP_AXES else None
+                                    for e, ax in zip(entries, leaf.axes)))
+
+
 def _tree_of(schema, fn) -> dict:
     out: dict = {}
     for path, leaf in _iter_leaves(schema):
@@ -234,6 +250,16 @@ def swiglu(x, wg, wu, wd):
     return h @ cast(wd)
 
 
+def swiglu_tp(x: dict, wg: dict, wu: dict, wd: dict, mesh, split: bool) -> dict:
+    """``swiglu`` per mesh position on its slices: with ``split``, wg and wu
+    column-parallel on the position's block of d_ff and wd row-parallel on
+    it, the partial products summed over "model" in axis order (the gate is
+    elementwise over d_ff, so a block of it needs only its own columns);
+    else each position's weights whole and nothing reduced."""
+    y = {pos: swiglu(x[pos], wg[pos], wu[pos], wd[pos]) for pos in x}
+    return sharding.all_reduce(y, mesh, "model") if split else y
+
+
 def gelu_mlp(x, wi, wo):
     h = F.gelu(x @ cast(wi), approximate="tanh")
     return h @ cast(wo)
@@ -284,8 +310,65 @@ def sinusoidal_embedding(n_pos: int, dim: int, device: str | torch.device | None
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """logits (..., V); labels (...) int -> mean loss (f32)."""
+    return torch.mean(cross_entropy_rows(logits, labels))
+
+
+def cross_entropy_rows(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (..., V); labels (...) int -> each row's loss (...) in f32."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - ll)
+    return lse - ll
+
+
+# ---------------------------------------------------------------------------
+# Vocab-parallel embedding and cross-entropy (the partitioned training step)
+# ---------------------------------------------------------------------------
+
+
+def _vocab_block(labels: torch.Tensor, lo: int, n: int):
+    """(labels as indices into the rows [lo, lo + n) of the vocabulary, 0
+    where outside, and the mask of those inside)."""
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < n)
+    return torch.where(inside, local, 0), inside
+
+
+def vocab_parallel_embed(tokens: dict, table: dict, mesh, split: bool) -> dict:
+    """The embedding lookup per mesh position, ``cast(table)[tokens]``.  With
+    ``split``, a position holds the rows of its block of the vocabulary
+    (its index along "model"): it looks up the tokens in it, zeroes the
+    others, and the blocks' partial rows are summed over "model" (one of
+    them is not zero: the sum is exact)."""
+    if not split:
+        return {pos: cast(table[pos])[tokens[pos].long()] for pos in tokens}
+    mi = mesh.axis_names.index("model")
+    out = {}
+    for pos, t in table.items():
+        idx, inside = _vocab_block(tokens[pos], pos[mi] * t.shape[0], t.shape[0])
+        out[pos] = torch.where(inside[..., None], cast(t)[idx], 0)
+    return sharding.all_reduce(out, mesh, "model")
+
+
+def vocab_parallel_cross_entropy(logits: dict, labels: dict, mesh, split: bool) -> dict:
+    """Each row's loss per mesh position, ``cross_entropy_rows``.  With
+    ``split``, a position holds its block of the vocabulary's logits: the
+    row max (no gradient, as the max of ``logsumexp``'s shift has none), the
+    sum of the exponentials past it and the target's logit (0 where the
+    target is in another block) are each reduced over "model", and every
+    position of a data row ends with the same losses."""
+    if not split:
+        return {pos: cross_entropy_rows(logits[pos], labels[pos]) for pos in logits}
+    mi = mesh.axis_names.index("model")
+    f32 = {pos: x.float() for pos, x in logits.items()}
+    top = sharding.all_reduce({pos: x.detach().amax(-1) for pos, x in f32.items()}, mesh,
+                              "model", op="max")
+    sums = sharding.all_reduce({pos: torch.exp(x - top[pos][..., None]).sum(-1)
+                                for pos, x in f32.items()}, mesh, "model")
+    target = {}
+    for pos, x in f32.items():
+        idx, inside = _vocab_block(labels[pos], pos[mi] * x.shape[-1], x.shape[-1])
+        target[pos] = torch.where(inside, torch.gather(x, -1, idx[..., None])[..., 0], 0)
+    target = sharding.all_reduce(target, mesh, "model")
+    return {pos: top[pos] + torch.log(sums[pos]) - target[pos] for pos in logits}
 

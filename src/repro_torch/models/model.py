@@ -28,6 +28,10 @@ the same ``GateOutput``, so a delayed answer is judged at query-time
 context, and runs the fleet RLS kernel.  ``decode_step`` is the gate-free
 variant the multiplexed serving path uses.
 
+A state laid out on a (data, model) mesh by ``place_train_state`` trains
+through ``partitioned_train_step`` (the dense stacks): its params and
+moments stay the slices their ``Placement``s name.
+
 A serving step writes the KV caches in place: the ``ServeState`` passed in
 is consumed, as the reference's jitted serving loop donates it.
 
@@ -242,24 +246,28 @@ def odl_update(
 
 
 def accumulate_grads(params: dict, batch: dict, cfg: ModelConfig,
-                     tcfg: TrainConfig = TrainConfig()):
-    """(loss, feats (B, d) f32, grads) of one batch: ``loss_and_grads``, or
-    with ``tcfg.microbatches`` = mb > 1 over mb slices along B, the
-    gradients summed in f32, each divided by mb, and the slices' features
+                     tcfg: TrainConfig = TrainConfig(), grads_fn=None):
+    """(loss, feats (B, d) f32, grads) of one batch: ``loss_and_grads`` (or
+    ``grads_fn``, which takes the same arguments), or with
+    ``tcfg.microbatches`` = mb > 1 over mb slices along B, the gradients
+    summed in f32, each divided by mb, and the slices' features
     concatenated."""
+    grads_fn = grads_fn or loss_and_grads
     mb = tcfg.microbatches
     if mb == 1:
-        return loss_and_grads(params, batch, cfg, tcfg.remat)
+        return grads_fn(params, batch, cfg, tcfg.remat)
 
     def split(x, i):
         return x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))[i]
 
-    grads = _map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-    loss, feats_mb = 0.0, []
+    grads, loss, feats_mb = None, 0.0, []
     for i in range(mb):
-        loss_i, feats_i, g = loss_and_grads(
-            params, {k: split(v, i) for k, v in batch.items()}, cfg, tcfg.remat)
-        _map(lambda a, b: a.add_(b.float() / mb), grads, g)
+        loss_i, feats_i, g = grads_fn(params, {k: split(v, i) for k, v in batch.items()}, cfg,
+                                      tcfg.remat)
+        if grads is None:  # 0 + g / mb, as a zeroed f32 sum would hold it
+            grads = _map(lambda b: b.float() / mb, g)
+        else:
+            _map(lambda a, b: a.add_(b.float() / mb), grads, g)
         loss = loss + loss_i / mb
         feats_mb.append(feats_i)
         del g  # before the next slice's gradients exist
@@ -280,12 +288,195 @@ def train_step(
     features at once.  The params and moments of ``state`` are updated in
     place.  The backbone's step and the head's update run under the
     profiler ranges ``train.backbone`` and ``train.head``.
+
+    A state from ``place_train_state`` (params and moments ``Sharded``)
+    runs the partitioned step on the current mesh instead
+    (``partitioned_train_step``); a state of whole tensors runs the step
+    above under a mesh or without one.
     """
+    if is_partitioned(state):
+        return partitioned_train_step(state, batch, cfg, tcfg)
     with torch.profiler.record_function("train.backbone"):
         loss, feats, grads = accumulate_grads(state.params, batch, cfg, tcfg)
         new_params, new_opt, gnorm = adam.update(grads, state.opt, state.params, tcfg)
     with torch.profiler.record_function("train.head"):
         new_odl, odl_metrics = odl_update(state.odl, feats, batch["odl_labels"], cfg)
+    metrics = {"loss": loss, "grad_norm": gnorm, **odl_metrics}
+    return TrainState(params=new_params, opt=new_opt, odl=new_odl), metrics
+
+
+# ---------------------------------------------------------------------------
+# The partitioned training step: params and moments held as their
+# Placements' slices on a (data, model) mesh
+# ---------------------------------------------------------------------------
+#
+# The reference's step under a mesh is one program that GSPMD partitions by
+# the leaves' layouts (``abstract_train_state``): tensor-parallel heads,
+# d_ff and vocabulary over "model", FSDP leaves over "data", ZeRO-1
+# moments.  Here the same step is written as phases over the mesh
+# positions with the collectives between them (``transformer.lm_hidden_tp``
+# and ``lm_logits_tp``, ``layers.vocab_parallel_cross_entropy``,
+# ``adam.update_partitioned``), in one autograd graph across the positions.
+#
+# Every position of a data row holds that row's residual stream and
+# computes its losses, the same bits at each, but only the row's home
+# position (model index 0) sends its losses to the loss: the loss is the
+# mean over the whole batch's tokens of the home positions' rows, gathered
+# onto the mesh's first entry.  As a function of the params every copy is
+# the same function, so autograd's gradient of that loss is the true one:
+# a leaf slice used at several positions gets the sum of its uses'
+# gradients (summed in the backward pass for a slice gathered from one
+# shard, and over the positions that hold the same slice afterwards, in
+# ``adam.reduce_to_moments``), none counted twice.
+
+
+def require_partitionable(cfg: ModelConfig) -> None:
+    """Raise for the stacks the partitioned step does not run: it runs the
+    dense decoder stacks (GQA attention and SwiGLU in every layer)."""
+    if cfg.enc_dec or cfg.n_experts or cfg.use_mla or cfg.hybrid_pattern or cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the partitioned training step runs the dense decoder stacks only; "
+            "the MoE, MLA, SSD, hybrid and encoder-decoder stacks on partitioned leaves are "
+            "ROADMAP.md Queue 1 item 6.5's open part (a state of whole tensors under a mesh "
+            "trains them)")
+
+
+def is_partitioned(state: TrainState) -> bool:
+    """Whether the state's params are ``sharding.Sharded`` (``place_train_state``)."""
+    return isinstance(adam.leaves(state.params)[0], sharding.Sharded)
+
+
+def place_train_state(state: TrainState, mesh: sharding.Mesh, cfg: ModelConfig,
+                      tcfg: TrainConfig = TrainConfig()) -> TrainState:
+    """``state`` laid out on ``mesh`` by ``abstract_train_state(cfg, tcfg)``'s
+    Placements under it: every param and moment a ``Sharded`` of copies of
+    its slices, each on its entry (``runtime.checkpoint.reshard_tree``).
+    The step and the head, which the reference replicates, are held once,
+    on the mesh's first entry, where the head's update runs."""
+    from repro_torch.runtime import checkpoint
+
+    with sharding.activate(mesh):
+        _, pl = abstract_train_state(cfg, tcfg)
+    specs = _map(lambda p: p.spec, checkpoint.shardings_for_schema(build_schema(cfg), mesh))
+    mspecs = _map(lambda p: p.spec, pl.opt.m)
+    first = mesh.devices[0]
+    return TrainState(
+        params=checkpoint.reshard_tree(state.params, mesh, specs),
+        opt=adam.AdamState(step=state.opt.step.to(first),
+                           m=checkpoint.reshard_tree(state.opt.m, mesh, mspecs),
+                           v=checkpoint.reshard_tree(state.opt.v, mesh, mspecs)),
+        odl=_map_path(lambda _, t: t.to(first), state.odl))
+
+
+def gather_train_state(state: TrainState) -> TrainState:
+    """A partitioned state as whole tensors on its mesh's first entry."""
+    def whole(t):
+        return t.gather() if isinstance(t, sharding.Sharded) else t
+
+    return TrainState(params=_map(whole, state.params),
+                      opt=adam.AdamState(step=state.opt.step, m=_map(whole, state.opt.m),
+                                         v=_map(whole, state.opt.v)),
+                      odl=state.odl)
+
+
+def train_layout(cfg: ModelConfig, placements: dict) -> tuple[dict, dict]:
+    """(top, layer): {path: (held spec, compute spec)} of the top-level
+    leaves and of the layer leaves (without the layers dim), from the
+    params' ``placements`` and ``layers.compute_spec``."""
+    top, layer = {}, {}
+    for path, leaf in layers._iter_leaves(build_schema(cfg)):
+        spec = _at(placements, path).spec
+        if path[0] == "layers":
+            held = list(spec) + [None] * (len(leaf.shape) - len(spec))
+            if held[0] is not None:
+                raise NotImplementedError(f"{'/'.join(path)}: its layers dim is split ({spec})")
+            sub = layers.Leaf(leaf.shape[1:], leaf.axes[1:])
+            held = sharding.PartitionSpec(*held[1:])
+            layer["/".join(path[1:])] = (held, layers.compute_spec(sub, held))
+        else:
+            top[path[0]] = (spec, layers.compute_spec(leaf, spec))
+    return top, layer
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _current_mesh(params: dict) -> sharding.Mesh:
+    """The params' mesh, which must be current (``sharding.activate``) with
+    axes ("data", "model")."""
+    mesh = sharding.mesh_or_none()
+    held = adam.leaves(params)[0].placement.mesh
+    if mesh != held or mesh.axis_names != ("data", "model"):
+        raise ValueError(f"a partitioned state on {held.shape} needs its (data, model) mesh "
+                         f"current, not {None if mesh is None else mesh.shape}")
+    return mesh
+
+
+def partitioned_loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, remat: bool = True):
+    """(loss, feats (B, d) f32 detached, grads) of one batch on the params'
+    mesh, which is current: ``loss_and_grads`` for ``Sharded`` params.  The
+    batch splits over "data" by the ``batch`` rule.  The loss and the
+    features (the home positions' rows, in batch order) are on the mesh's
+    first entry; ``grads`` is a tree like ``params`` whose leaves are {pos:
+    the gradient of the loss through that position's uses of its slice},
+    in the params' dtype (``adam.update_partitioned`` sums them)."""
+    mesh = _current_mesh(params)
+    top_layout, layer_layout = train_layout(cfg, _map(lambda sh: sh.placement, params))
+    b, s = batch["tokens"].shape
+    if b % mesh.shape["data"]:
+        raise ValueError(f"a batch of {b} rows does not split over {mesh.shape['data']} data rows")
+    rows = sharding.Placement(mesh, sharding.resolve("batch", "seq", shape=(b, s)))
+    tokens, labels = (rows.place(batch[k]).shards for k in ("tokens", "labels"))
+    grads = _map(lambda sh: {pos: torch.zeros_like(t) for pos, t in sh.shards.items()},
+                 params)
+    top = {name: {pos: t.detach().requires_grad_() for pos, t in params[name].shards.items()}
+           for name in top_layout}
+    stacked = {}
+    for path in layer_layout:
+        sh, g = _at(params["layers"], path.split("/")), _at(grads["layers"], path.split("/"))
+        stacked[path] = [{pos: _layer_view(t, g[pos], i) for pos, t in sh.shards.items()}
+                         for i in range(cfg.n_layers)]
+    layout = dict(top_layout, **layer_layout)
+    hidden = transformer.lm_hidden_tp(top, stacked, tokens, cfg, mesh, layout, remat)
+    logits = transformer.lm_logits_tp(top, hidden, cfg, mesh, layout)
+    ce = layers.vocab_parallel_cross_entropy(logits, labels, mesh,
+                                             transformer.vocab_split(cfg, layout))
+    del logits
+    first = next(iter(mesh.positions()))
+    homes = [(i, 0) for i in range(mesh.shape["data"])]  # each data row's first position
+    loss = torch.mean(torch.cat([sharding.exchange(ce[pos], pos, first, mesh, "gather")
+                                 for pos in homes]))
+    feats = torch.cat([sharding.exchange(torch.mean(hidden[pos].float(), dim=1).detach(), pos,
+                                         first, mesh, "gather") for pos in homes])
+    loss.backward()
+    for name, parts in top.items():
+        grads[name] = {pos: t.grad if t.grad is not None else torch.zeros_like(t)
+                       for pos, t in parts.items()}
+    return loss.detach(), feats, grads
+
+
+def partitioned_train_step(state: TrainState, batch: dict, cfg: ModelConfig,
+                           tcfg: TrainConfig = TrainConfig()) -> tuple[TrainState, dict]:
+    """``train_step`` on a state from ``place_train_state``, under its mesh
+    (``sharding.activate``): the batch (tensors on any device) is split
+    over "data", the gradients accumulated over ``tcfg.microbatches`` as
+    ``accumulate_grads`` does, AdamW runs on each position's slices
+    (``adam.update_partitioned``), and the head trains on the gathered
+    features on the mesh's first entry.  The new state keeps every leaf's
+    placement; nothing is gathered whole."""
+    require_partitionable(cfg)
+    mesh = _current_mesh(state.params)
+    with torch.profiler.record_function("train.backbone"):
+        loss, feats, grads = accumulate_grads(state.params, batch, cfg, tcfg,
+                                              partitioned_loss_and_grads)
+        new_params, new_opt, gnorm = adam.update_partitioned(grads, state.opt, state.params,
+                                                             tcfg, mesh)
+    with torch.profiler.record_function("train.head"):
+        new_odl, odl_metrics = odl_update(state.odl, feats,
+                                          batch["odl_labels"].to(feats.device), cfg)
     metrics = {"loss": loss, "grad_norm": gnorm, **odl_metrics}
     return TrainState(params=new_params, opt=new_opt, odl=new_odl), metrics
 

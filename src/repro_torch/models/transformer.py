@@ -35,12 +35,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
 from repro_torch.models import attention, moe, rglru, ssm
-from repro_torch.models.layers import Leaf, cast, rmsnorm, stack_schema, swiglu
+from repro_torch.models.layers import (Leaf, cast, rmsnorm, stack_schema, swiglu, swiglu_tp,
+                                       vocab_parallel_embed)
 
 
 def require_dense(cfg: ModelConfig) -> None:
@@ -263,6 +264,94 @@ def lm_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     if cfg.tie_embeddings:
         return hidden @ cast(params["embed"]).t()
     return hidden @ cast(params["lm_head"])
+
+
+# ---------------------------------------------------------------------------
+# The partitioned forward (training a dense stack on a (data, model) mesh)
+# ---------------------------------------------------------------------------
+#
+# Each leaf is held as its ``Placement``'s slices, one per mesh position,
+# and used in ``layers.compute_spec``'s layout: ``sharding.relayout``
+# all-gathers the rest just before use (per layer for a stacked leaf, so
+# remat gathers it again in the backward pass, as FSDP does).  A tensor in
+# flight is a dict {mesh position: its slice}.  The residual stream of a
+# data row's tokens is held by each position of its model row, the same
+# bits at each: the partial products of wo and wd are summed over "model"
+# in axis order before the residual add.
+
+
+def model_split(spec, dim: int) -> bool:
+    """Whether ``spec`` splits dim ``dim`` over "model" alone."""
+    return len(spec) > dim and spec[dim] == "model"
+
+
+def dense_layer_tp(h: dict, lp: dict, cfg: ModelConfig, positions: dict, mesh,
+                   layout: dict) -> dict:
+    """One dense layer on ``mesh``: h {pos: (B_loc, S, d)}; ``lp`` {path in
+    the layer: {pos: slice}} and ``layout`` {path: (held spec, compute
+    spec)} without the layers dim."""
+    w = {k: sharding.relayout(v, *layout[k], mesh) for k, v in lp.items()}
+    hn = {pos: rmsnorm(x, w["ln1"][pos]) for pos, x in h.items()}
+    a = attention.gqa_attention_tp(hn, _subtree(w, "attn/"), cfg, positions, mesh,
+                                   heads_split=model_split(layout["attn/wq"][1], 1),
+                                   kv_split=model_split(layout["attn/wk"][1], 1))
+    h = {pos: x + a[pos] for pos, x in h.items()}
+    hn = {pos: rmsnorm(x, w["ln2"][pos]) for pos, x in h.items()}
+    y = swiglu_tp(hn, w["mlp/wg"], w["mlp/wu"], w["mlp/wd"], mesh,
+                  split=model_split(layout["mlp/wd"][1], 0))
+    return {pos: x + y[pos] for pos, x in h.items()}
+
+
+def _subtree(flat: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+
+
+def lm_hidden_tp(top: dict, stacked: dict, tokens: dict, cfg: ModelConfig, mesh, layout: dict,
+                 remat: bool = True) -> dict:
+    """``lm_hidden`` of a dense stack on ``mesh``: token ids {pos: (B_loc,
+    S)} -> final hidden states {pos: (B_loc, S, d)}.  ``top`` holds the
+    top-level leaves {name: {pos: slice}}, ``stacked`` the layer leaves
+    {path in the layer: [{pos: slice} per layer]}; ``layout`` the held and
+    compute specs of both (a layer leaf's without the layers dim).  With
+    ``remat`` each layer, its gathers included, is recomputed in the
+    backward pass in the forward's mesh scope, up to the last tensor the
+    backward needs (not its last reduction over "model")."""
+    positions = {pos: _positions(t) for pos, t in tokens.items()}
+    embed = sharding.relayout(top["embed"], *layout["embed"], mesh)
+    h = vocab_parallel_embed(tokens, embed, mesh, split=model_split(layout["embed"][1], 0))
+    recompute = remat and torch.is_grad_enabled()
+    captured = sharding.scope()
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in stacked.items()}
+        args = (h, lp, cfg, positions, mesh, layout)
+        if recompute:
+            # Early stop: the recompute ends at the last tensor the backward
+            # needs, before the layer's last reduction over "model".
+            with set_checkpoint_early_stop(True):
+                h = checkpoint(_scoped, captured, dense_layer_tp, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            h = dense_layer_tp(*args)
+    norm = sharding.relayout(top["final_norm"], *layout["final_norm"], mesh)
+    return {pos: rmsnorm(x, norm[pos]) for pos, x in h.items()}
+
+
+def lm_logits_tp(top: dict, hidden: dict, cfg: ModelConfig, mesh, layout: dict) -> dict:
+    """``lm_logits`` on ``mesh``: {pos: (B_loc, S, V)}, or each position's
+    block of the vocabulary where the head splits it over "model"."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    w = sharding.relayout(top[name], *layout[name], mesh)
+    if cfg.tie_embeddings:
+        return {pos: x @ cast(w[pos]).t() for pos, x in hidden.items()}
+    return {pos: x @ cast(w[pos]) for pos, x in hidden.items()}
+
+
+def vocab_split(cfg: ModelConfig, layout: dict) -> bool:
+    """Whether ``lm_logits_tp`` gives each position a block of the
+    vocabulary."""
+    if cfg.tie_embeddings:
+        return model_split(layout["embed"][1], 0)
+    return model_split(layout["lm_head"][1], 1)
 
 
 # ---------------------------------------------------------------------------

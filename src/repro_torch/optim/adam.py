@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed import sharding
 
 
 class AdamState(NamedTuple):
@@ -80,41 +81,163 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _factors(gnorm, step, cfg: TrainConfig):
+    """(clip, bias corrections 1 and 2) of a step: ``step`` is the new
+    step count."""
+    # A tensor divided by a tensor: ``number / tensor`` is torch's
+    # reciprocal-then-multiply, which rounds twice.
+    clip_at = torch.full((), cfg.grad_clip, dtype=torch.float32, device=gnorm.device)
+    clip = torch.clamp(clip_at / torch.clamp(gnorm, min=1e-9), max=1.0)
+    bc1 = 1.0 - cfg.beta1 ** step.to(torch.float32)
+    bc2 = 1.0 - cfg.beta2 ** step.to(torch.float32)
+    return clip, bc1, bc2
+
+
+def _apply(g_leaf, m_leaf, v_leaf, p_leaf, clip, bc1, bc2, lr, cfg: TrainConfig) -> None:
+    """AdamW on one leaf, piece by piece, in place (``g_leaf`` overwritten)."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    for g, m, v, p in zip(*map(_pieces, (g_leaf, m_leaf, v_leaf, p_leaf)), strict=True):
+        g = g.float() if g.dtype != torch.float32 else g
+        p32 = p.float()
+        g.mul_(clip)
+        t = g * (1 - b1)
+        m.mul_(b1).add_(t)  # m2 = b1 m + (1 - b1) g
+        torch.mul(g, g, out=t).mul_(1 - b2)
+        v.mul_(b2).add_(t)  # v2 = b2 v + (1 - b2) g^2
+        torch.div(v, bc2, out=t).sqrt_().add_(1e-8)  # sqrt(v2 / bc2) + 1e-8
+        torch.div(m, bc1, out=g).div_(t)  # (m2 / bc1) / (...)
+        torch.mul(p32, cfg.weight_decay, out=t)
+        g.add_(t).mul_(lr)  # lr (m_hat / (...) + wd p)
+        if p.dtype == torch.float32:
+            p.sub_(g)
+        else:
+            p.copy_(p32 - g)
+
+
 def update(grads, state: AdamState, params, cfg: TrainConfig, lr_scale: float = 1.0):
     """AdamW step; returns (new_params, new_state, gnorm).  ``params``,
     ``state.m`` and ``state.v`` are updated in place (and returned);
     ``grads`` is overwritten."""
     gnorm = global_norm(grads)
-    # A tensor divided by a tensor: ``number / tensor`` is torch's
-    # reciprocal-then-multiply, which rounds twice.
-    clip_at = torch.full((), cfg.grad_clip, dtype=torch.float32, device=gnorm.device)
-    clip = torch.clamp(clip_at / torch.clamp(gnorm, min=1e-9), max=1.0)
-
     step = state.step + 1
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1.0 - b1 ** step.to(torch.float32)
-    bc2 = 1.0 - b2 ** step.to(torch.float32)
-    lr = cfg.learning_rate * lr_scale
+    clip, bc1, bc2 = _factors(gnorm, step, cfg)
+    for leaf in zip(leaves(grads), leaves(state.m), leaves(state.v), leaves(params), strict=True):
+        _apply(*leaf, clip, bc1, bc2, cfg.learning_rate * lr_scale, cfg)
+    return params, AdamState(step=step, m=state.m, v=state.v), gnorm
 
-    for g_leaf, m_leaf, v_leaf, p_leaf in zip(
-        leaves(grads), leaves(state.m), leaves(state.v), leaves(params), strict=True
-    ):
-        for g, m, v, p in zip(*map(_pieces, (g_leaf, m_leaf, v_leaf, p_leaf)), strict=True):
-            g = g.float() if g.dtype != torch.float32 else g
-            p32 = p.float()
-            g.mul_(clip)
-            t = g * (1 - b1)
-            m.mul_(b1).add_(t)  # m2 = b1 m + (1 - b1) g
-            torch.mul(g, g, out=t).mul_(1 - b2)
-            v.mul_(b2).add_(t)  # v2 = b2 v + (1 - b2) g^2
-            torch.div(v, bc2, out=t).sqrt_().add_(1e-8)  # sqrt(v2 / bc2) + 1e-8
-            torch.div(m, bc1, out=g).div_(t)  # (m2 / bc1) / (...)
-            torch.mul(p32, cfg.weight_decay, out=t)
-            g.add_(t).mul_(lr)  # lr (m_hat / (...) + wd p)
-            if p.dtype == torch.float32:
-                p.sub_(g)
-            else:
-                p.copy_(p32 - g)
+
+# ---------------------------------------------------------------------------
+# The partitioned update: params and moments held as ``sharding.Sharded``
+# ---------------------------------------------------------------------------
+
+
+def _paths(tree, path=()):
+    """The key path of each leaf of a tree of dicts, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], path + (k,))
+    else:
+        yield path
+
+
+def _entries(spec, n: int) -> list:
+    return [tuple(sharding.axes_of(e)) for e in list(spec) + [None] * (n - len(spec))]
+
+
+def reduce_to_moments(g: dict, held, moments, mesh) -> dict:
+    """One param's gradient contributions {pos: f32 slice at the param's
+    layout ``held``} -> the whole gradient's slices at the moments' layout
+    ``moments`` (a ``PartitionSpec`` that splits the dims ``held`` splits,
+    and may split more): a reduce-scatter over each axis the moments add
+    (ZeRO-1's "data"), then an all-reduce over each mesh axis neither
+    splits (the positions that hold the same slice)."""
+    n = len(next(iter(g.values())).shape)
+    a, m = _entries(held, n), _entries(moments, n)
+    for dim, (ea, em) in enumerate(zip(a, m)):
+        if ea != em:
+            if ea:
+                raise ValueError(f"moments {moments} do not refine the param's {held}")
+            for axis in em:
+                g = sharding.reduce_scatter(g, mesh, axis, dim)
+    used = {x for e in m for x in e}
+    for axis in mesh.axis_names:
+        if axis not in used:
+            g = sharding.all_reduce(g, mesh, axis)
+    return g
+
+
+def _owners(placement, shape) -> set:
+    """The positions that own a slice of a leaf laid out by ``placement``:
+    the first, row-major, of those that hold each distinct slice."""
+    seen, out = set(), set()
+    for pos, index in placement.indices_map(tuple(shape)).items():
+        key = tuple((s.start, s.stop) for s in index)
+        if key not in seen:
+            seen.add(key)
+            out.add(pos)
+    return out
+
+
+def _sub_view(shard: torch.Tensor, outer: tuple, inner: tuple) -> torch.Tensor:
+    """The part of ``shard`` (the slices ``outer`` of a leaf) that is the
+    slices ``inner`` of the leaf, as a view."""
+    for dim, (o, i) in enumerate(zip(outer, inner)):
+        if i.start is not None:
+            shard = shard.narrow(dim, i.start - (o.start or 0), i.stop - i.start)
+    return shard
+
+
+def update_partitioned(grads, state: AdamState, params, cfg: TrainConfig, mesh,
+                       lr_scale: float = 1.0):
+    """``update`` on partitioned leaves: ``params``, ``state.m`` and
+    ``state.v`` are trees of ``sharding.Sharded`` (the moments' layout
+    refining the params', as ZeRO-1's does), ``grads`` a tree like
+    ``params`` whose leaves are {pos: gradient contribution at the param's
+    slice}, and ``state.step`` is on the mesh's first entry.  Each gradient
+    is reduced into its moments' layout (``reduce_to_moments``); the global
+    norm is the sum of squares over the distinct slices, each counted at its
+    owner, all-reduced over every axis in fixed order; AdamW runs on each
+    position's slices, in place; the updated slices are all-gathered back
+    into the params' layout.  Returns (params, new state, gnorm on the
+    first entry)."""
+    g_red, total = [], {pos: None for pos in mesh.positions()}
+    for path, m_sh, p_sh in zip(_paths(params), leaves(state.m), leaves(params), strict=True):
+        g = grads
+        for k in path:
+            g = g[k]
+        r = reduce_to_moments({pos: t.float() for pos, t in g.items()}, p_sh.placement.spec,
+                              m_sh.placement.spec, mesh)
+        g_red.append(r)
+        owners = _owners(m_sh.placement, m_sh.shape)
+        for pos, t in r.items():
+            if pos in owners:
+                sq = torch.sum(torch.square(t))
+                total[pos] = sq if total[pos] is None else total[pos] + sq
+    total = {pos: t if t is not None else torch.zeros((), device=mesh.device_at(pos))
+             for pos, t in total.items()}
+    for axis in mesh.axis_names:
+        total = sharding.all_reduce(total, mesh, axis)
+    first = next(iter(mesh.positions()))
+    step = state.step + 1
+    lr = cfg.learning_rate * lr_scale
+    factors = {}
+    for pos, t in total.items():
+        dev = mesh.device_at(pos)
+        factors[pos] = _factors(torch.sqrt(t), step.to(dev), cfg)
+    with torch.no_grad():
+        for r, m_sh, v_sh, p_sh in zip(g_red, leaves(state.m), leaves(state.v), leaves(params),
+                                       strict=True):
+            outer = p_sh.placement.indices_map(p_sh.shape)
+            inner = m_sh.placement.indices_map(m_sh.shape)
+            views = {pos: _sub_view(p_sh.shards[pos], outer[pos], inner[pos]) for pos in r}
+            for pos in r:
+                _apply(r[pos], m_sh.shards[pos], v_sh.shards[pos], views[pos], *factors[pos],
+                       lr, cfg)
+            whole = sharding.relayout(views, m_sh.placement.spec, p_sh.placement.spec, mesh)
+            if whole is not views:
+                for pos, t in whole.items():
+                    p_sh.shards[pos].copy_(t)
+    gnorm = torch.sqrt(total[first])
     return params, AdamState(step=step, m=state.m, v=state.v), gnorm
 
 

@@ -38,7 +38,8 @@ whole logical arrays, so the same bytes restore onto any device layout.
 ``rescale`` restores a model's params onto a mesh of another size by the
 schema's ``param_specs``; a fleet saved from N shards is split into M by
 ``engine.split_fleet`` after the restore.  A ``sharding.Sharded`` leaf is
-saved whole (``Sharded.gather``).
+saved whole (``Sharded.gather``); ``restore_train_state`` lays a saved
+``TrainState`` out on a mesh for the partitioned training step.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import TrainConfig
 from repro_torch.distributed import sharding
 
 
@@ -349,3 +351,18 @@ def rescale(manager: CheckpointManager, schema, new_mesh: sharding.Mesh, step=No
     """Restore a checkpoint (the latest, or ``step``) of a model's params
     onto a mesh of another size: ``(step, tree of Sharded)``."""
     return manager.restore(step=step, shardings=shardings_for_schema(schema, new_mesh))
+
+
+def restore_train_state(manager: CheckpointManager, cfg, mesh: sharding.Mesh,
+                        tcfg: TrainConfig = TrainConfig(), step=None):
+    """Restore a checkpoint (the latest, or ``step``) of a model's
+    ``TrainState``, partitioned or whole (a ``Sharded`` leaf is saved
+    whole), as a partitioned state on ``mesh``: ``(step, state)``, laid out
+    by ``models.model.place_train_state`` (the params by
+    ``shardings_for_schema``, the moments by their ZeRO-1 placements)."""
+    from repro_torch import convert
+    from repro_torch.models import model
+
+    step, host = manager.restore(step=step)
+    state = convert.train_state_from_numpy(host, cfg, "cpu", tcfg)
+    return step, model.place_train_state(state, mesh, cfg, tcfg)
