@@ -320,6 +320,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    and kernel 3 once a step, at shapes phases 2-4 held; (e) s/step of the
    partitioned and the meshless steps and each one's allocator peak (one
    card, eight entries: not a multi-GPU time);
+6t. the DeepSeek stacks' training step over partitioned leaves, after 6s,
+   on its 2 x 4 mesh of ``cuda:0`` entries, remat on: (a) deepseek-moe-16b
+   at full width and 2 of its 28 layers, B=32, S=64, f32 state and compute
+   (TF32 off), under moe_impl "dense" (two partitioned steps against two
+   meshless ones, at the default capacity factor, where pairs drop) and
+   "ep" (against the whole-tensor EP step under the mesh), from one seeded
+   state, each step from the reference step's state before it: loss and
+   grad norm within 1e-5 relative, every gathered param and moment within
+   twice the reference step's own spread (the same step with its sums in
+   another valid order against it: the meshless step at capacity factor
+   E/k on the batch's rows reversed, and the step with the residual
+   stream's basis, the heads and the experts' d_ff permuted; the larger),
+   each step's kept pairs those of the step held to on every token before
+   the first unclear one; (b) deepseek-v2-236b at full width and 1 of its 60
+   layers, B=8, S=64, bf16 params and f32 moments, the meshless step first
+   (its losses and the MLA and router leaves kept on the host), then the
+   partitioned one: loss rtol 2e-2, those leaves within 3e-2 + 3e-2
+   |meshless|; (c) after each step each position's bytes equal to the
+   census's; (d) one more step of each deepseek-moe-16b mode under a
+   census, its exchanges (``all-to-all`` included) equal to
+   ``census.partitioned_train_exchanges``; (e) the projection launched twice
+   and kernel 3 once a step; (f) s/step and allocator peak of each step
+   beside its meshless or whole-tensor step's, and the phase's seconds;
 7. times of each kernel and route, its plain version and its library
    yardstick, and its bound; the projection and the RLS update also at
    N=256 (S=16,384, P 4 GiB) and, with the plan's pass in ``serve``, at 6k's
@@ -663,6 +686,14 @@ CENSUS = dict(leaf_bytes=512, peak_rtol=0.10,
 # ``steps`` partitioned and meshless steps from one seeded state in f32
 # compute (TF32 off) and again in bf16, then one more under a census.
 PARTITIONED = dict(arch="qwen3-4b", depth=4, batch=32, seq=64, mesh=(2, 4), steps=2)
+# Phase 6t, the DeepSeek stacks' training step over partitioned leaves, on
+# 6s's mesh: (a) deepseek-moe-16b at full width and ``depth`` of its 28
+# layers, f32 state and compute (TF32 off), under moe_impl "dense" and "ep";
+# (b) deepseek-v2-236b at full width and 1 of its 60 layers, bf16 params and
+# f32 moments, bf16 compute (6p (d)'s state).
+PARTITIONED_MOE = dict(mesh=(2, 4), steps=2,
+                       moe=dict(arch="deepseek-moe-16b", depth=2, batch=32, seq=64),
+                       mla=dict(arch="deepseek-v2-236b", depth=1, batch=8, seq=64))
 # The kernels the training path launches every step.
 TRAIN_KERNELS = ("xorshift_projection", "oselm_rls_update")
 COUNTERS = ("ticks", "stream_steps", "tickets_issued", "queries_issued", "labels_applied",
@@ -5573,13 +5604,15 @@ def _leaf_errs(got, want, bf16):
     """Per tree (params, m, v) of two whole ``TrainState``s, the worst
     leaf's error: in f32 max |diff| (params) or max |diff| over max |want|
     (moments); in bf16 the worst of |diff| - 3e-2 |want| (the reference
-    test's atol = rtol = 3e-2: at most 3e-2)."""
+    test's atol = rtol = 3e-2: at most 3e-2).  ``want``'s leaves may lie in
+    host memory: each is moved to its ``got`` leaf's device in turn."""
     errs = {}
     for name in ("params", "m", "v"):
         a_tree = got.params if name == "params" else getattr(got.opt, name)
         b_tree = want.params if name == "params" else getattr(want.opt, name)
         worst = 0.0
         for a, b in zip(_model_leaves(a_tree), _model_leaves(b_tree)):
+            b = b.to(a.device)
             if bf16:
                 e = (a - b).abs() - 3e-2 * b.abs()
                 worst = max(worst, float(e.max()))
@@ -5783,6 +5816,467 @@ def phase_partitioned(device="cuda"):
           + str({k: res['launches'].get(k, 0) + res['replays'].get(k, 0)
                  for k in TRAIN_KERNELS}) + f" (2 and 1 a step)")
     print(f"  phase 6s took {res['seconds']:.1f} s ({card})")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 6t: the DeepSeek stacks' training step over partitioned leaves
+# (models/moe.py moe_block_tp, attention.py mla_attention_tp) on a mesh of
+# one card's entries
+# ---------------------------------------------------------------------------
+
+
+def _placed_state(cfg, tcfg, mesh, device, params=None):
+    """``init_train_state(cfg, SEED, tcfg, device)`` laid out on ``mesh`` by
+    ``place_train_state``, with no whole state held on the card beside the
+    placed one: the params (or ``params``, host tensors of the same draw)
+    from host memory, the zero moments from one zero element expanded."""
+    import torch
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adam
+
+    odl = model_lib.init_odl_state(cfg, device)
+    if params is None:
+        params = _host_params(model_lib.init_train_state(cfg, SEED, tcfg, device).params)
+        torch.cuda.empty_cache()
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    moments = model_lib._map(lambda p: zero.expand(p.shape), params)
+    state = model_lib.TrainState(
+        params=params, odl=odl, opt=adam.AdamState(
+            step=torch.zeros((), dtype=torch.int32, device=device), m=moments,
+            v=model_lib._map(lambda p: zero.expand(p.shape), params)))
+    return model_lib.place_train_state(state, mesh, cfg, tcfg)
+
+
+def _host_params(params):
+    return {k: _host_params(v) if isinstance(v, dict) else v.cpu() for k, v in params.items()}
+
+
+class _RouteLog:
+    """While active, notes each MoE block call's router probabilities
+    (``moe.route``) and kept pairs (``moe._combine``) in call order: the
+    token shards of a layer in token order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.routes, self.keep = [], []
+        self._saved = (moe.route, moe._combine)
+        route, combine = self._saved
+
+        def logged_route(xt, router, cfg):
+            out = route(xt, router, cfg)
+            self.routes.append(out[0].detach().clone())
+            return out
+
+        def logged_combine(out_e, flat_e, pos, keep, gate_k, dtype):
+            self.keep.append(keep.detach().clone())
+            return combine(out_e, flat_e, pos, keep, gate_k, dtype)
+
+        moe.route, moe._combine = logged_route, logged_combine
+        return self
+
+    def take(self, n_layers, remat=False):
+        """[(probs (T, E), kept (T k,)) per layer] of the calls so far: the
+        forward's, the first half where remat recomputed every layer."""
+        import torch
+
+        routes, keep = self.routes, self.keep
+        self.routes, self.keep = [], []
+        if not routes:
+            return []
+        if remat:
+            routes, keep = routes[:len(routes) // 2], keep[:len(keep) // 2]
+        return [(torch.cat(routes[j * len(routes) // n_layers:(j + 1) * len(routes) // n_layers]),
+                 torch.cat(keep[j * len(keep) // n_layers:(j + 1) * len(keep) // n_layers]))
+                for j in range(n_layers)]
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route, moe._combine = self._saved
+
+
+def _kept_pairs_equal(got, want, k, what):
+    """6t (a): each layer's kept pairs of the first step against the step
+    held to, on the tokens before the first whose router gap (k-th against
+    (k+1)-th probability, from ``want``'s router) is not past 1e-5, whose
+    slots do not depend on where that token routes.  Returns (tokens held,
+    tokens, pairs dropped, all pairs equal) per layer."""
+    import torch
+
+    out = []
+    for layer, ((_, gk), (wp, wk)) in enumerate(zip(got, want)):
+        top = torch.sort(wp.double(), dim=-1, descending=True).values
+        unclear = torch.nonzero(top[:, k - 1] - top[:, k] <= 1e-5)
+        n = wp.shape[0] if not len(unclear) else int(unclear[0, 0])
+        check(gk.shape == wk.shape and torch.equal(gk[:n * k], wk[:n * k]),
+              f"partitioned moe (a) {what}: layer {layer}'s kept pairs differ on clear tokens")
+        out.append((n, wp.shape[0], int((~wk).sum()), bool(torch.equal(gk, wk))))
+    return out
+
+
+def _run_train(state, cfg, tcfg, pt, device, scope=None, placements=None, reverse=False,
+               what="", log=None):
+    """``pt["steps"]`` train_steps (from step ``pt["first"]``, default 1)
+    from ``state`` under the mesh ``scope``
+    (None: no mesh), each batch's rows reversed where ``reverse``: (state,
+    metrics, s/step, allocator peak above the bytes held before them,
+    launches + replays of the head's kernels; with ``log``, a ``_RouteLog``,
+    each step's routing by layer).  With ``placements`` ((metas,
+    Placements) of a partitioned state) each step is held to 2 projections
+    and 1 kernel-3 update and each position's bytes to the census's."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.engine import graphs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+
+    metrics, seconds, launches, routing = [], [], {}, None
+    if log is not None:
+        log.take(1)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    first = pt.get("first", 1)
+    for step in range(first, first + pt["steps"]):
+        batch = _train_batch(cfg, step, pt["batch"], pt["seq"], device)
+        if reverse:
+            batch = {k: v.flip(0) for k, v in batch.items()}
+        ops.reset_launch_counts()
+        graphs.reset_replay_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        with sharding.activate(scope) if scope is not None else contextlib.nullcontext():
+            state, m = model_lib.train_step(state, batch, cfg, tcfg)
+        _sync(device)
+        seconds.append(time.perf_counter() - t0)
+        if log is not None:
+            routing = (routing or []) + [log.take(cfg.n_layers, tcfg.remat)]
+        got = {k: ops.launch_counts.get(k, 0) + graphs.kernel_replays.get(k, 0)
+               for k in TRAIN_KERNELS}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        if placements is not None:
+            check(got == {"xorshift_projection": 2, "oselm_rls_update": 1},
+                  f"partitioned moe (e) {what} step {step}: head kernels {got}")
+            per_pos, want_bytes = _placement_checks(state, placements[1], placements[0], scope)
+            check(set(per_pos.values()) == {want_bytes},
+                  f"partitioned moe (c) {what} step {step}: bytes a position "
+                  f"{sorted(set(per_pos.values()))}, census {want_bytes}")
+    return dict(state=state, metrics=metrics, s_per_step=seconds, held_bytes=held,
+                peak_bytes=torch.cuda.max_memory_allocated() - held, launches=launches,
+                position_bytes=want_bytes if placements is not None else None, routing=routing)
+
+
+def _permute_sums(state, cfg, axes, inverse=False):
+    """``state`` (params and moments) with every dim of logical axis in
+    ``axes`` permuted by a fixed permutation from SEED, one for each (axis,
+    size), in place of the leaves (``inverse``: back): the same function
+    with the sums over those dims in another order.  "embed" permutes the
+    residual stream's basis (every product contracting over d_model, and
+    rmsnorm's mean); "heads" the attention heads, q, k, v and wo alike (the
+    arch has as many kv heads as q heads); "mlp" the experts' d_ff, whose
+    partial products TP sums over "model"; "experts" the experts' order."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+
+    if cfg.n_kv_heads != cfg.n_heads or cfg.use_mla:
+        raise ValueError(f"{cfg.arch_id}: heads permute alike only without grouping or MLA")
+    gen = torch.Generator().manual_seed(SEED)
+    perms = {}
+    for path, leaf in layers._iter_leaves(model_lib.build_schema(cfg)):
+        for dim, (ax, n) in enumerate(zip(leaf.axes, leaf.shape)):
+            ax = "heads" if ax == "kv_heads" else ax
+            if ax not in axes:
+                continue
+            if (ax, n) not in perms:
+                perms[ax, n] = torch.randperm(n, generator=gen)
+            perm = perms[ax, n] if not inverse else torch.argsort(perms[ax, n])
+            for tree in (state.params, state.opt.m, state.opt.v):
+                sub = model_lib._at(tree, path[:-1])
+                sub[path[-1]] = sub[path[-1]].index_select(dim, perm.to(sub[path[-1]].device))
+    return state
+
+
+# 6t (a): the dims whose sums the reference step's own spread reorders (the
+# residual stream's basis, the heads and the experts' d_ff: the sums TP
+# splits over "model").
+SPREAD_AXES = ("embed", "heads", "mlp")
+
+
+def _worst_leaves(got, want):
+    """{tree: (leaf path, its error)} of the leaf with the largest error in
+    each of params, m and v (``_leaf_errs``' measure, f32)."""
+    from repro_torch.optim import adam
+
+    out = {}
+    for name in ("params", "m", "v"):
+        a = got.params if name == "params" else getattr(got.opt, name)
+        b = want.params if name == "params" else getattr(want.opt, name)
+        errs = []
+        for path, x, y in zip(adam._paths(a), adam.leaves(a), adam.leaves(b)):
+            scale = 1.0 if name == "params" else float(y.abs().max().clamp_min(1e-30))
+            errs.append((float((x - y).abs().max()) / scale, "/".join(path)))
+        e, path = max(errs)
+        out[name] = (path, f"{e:.2e}")
+    return out
+
+
+def _rel_errs(metrics, want):
+    return max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(metrics, want)
+               for k in ("loss", "grad_norm"))
+
+
+def _clone_state(state):
+    from repro_torch.models import model as model_lib
+
+    return model_lib._map_path(lambda _, t: t.clone(), state)
+
+
+def _moe_partitioned_f32(base, tcfg, mesh, device, card, res):
+    """6t (a), (c), (d), (e), (f): deepseek-moe-16b under "dense" and "ep",
+    each step from the reference step's state before it (AdamW turns a
+    gradient near its 1e-8 eps into a move of a good part of lr, so two
+    steps chained compound any rounding, most in the router's 0.02-scale
+    weights)."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import census
+    from repro_torch.models import model as model_lib
+
+    pt = dict(PARTITIONED_MOE["moe"], steps=1)
+    even = base.replace(capacity_factor=base.n_experts / base.top_k)
+    log = _RouteLog()
+    for impl in ("dense", "ep"):
+        cfg = base.replace(moe_impl=impl)
+        scope = mesh if impl == "ep" else None
+        ref_name = "the meshless step" if impl == "dense" else "the whole-tensor EP step"
+        with sharding.activate(mesh):
+            metas, placements = model_lib.abstract_train_state(cfg, tcfg)
+        state = model_lib.init_train_state(cfg, SEED, tcfg, device)
+        out = dict(metrics=[], ref_metrics=[], s_per_step=[], ref_s_per_step=[], peak_bytes=[],
+                   ref_peak_bytes=[], held_bytes=[], leaf_errs=[], spreads=[], kept=[],
+                   launches={})
+        for step in range(1, PARTITIONED_MOE["steps"] + 1):
+            one = dict(pt, first=step)
+            with log:
+                ref = _run_train(_clone_state(state), cfg, tcfg, one, device, scope=scope,
+                                 log=log)
+            want = ref.pop("state")
+            # The reference step's own spread: the same step with its sums in
+            # another valid order, against it: (i) the meshless step at
+            # capacity factor E/k (no pair drops, so a token's output does not
+            # depend on the others) on the batch's rows reversed against in
+            # order; (ii) the step with the SPREAD_AXES dims permuted.
+            a = _run_train(_clone_state(state), even, tcfg, one, device)
+            in_order = model_lib._map_path(lambda _, t: t.cpu(), a.pop("state"))
+            del a
+            torch.cuda.empty_cache()
+            b = _run_train(_clone_state(state), even, tcfg, one, device, reverse=True)
+            spreads = {"rows reversed": _leaf_errs(b["state"], in_order, False)}
+            del in_order, b
+            torch.cuda.empty_cache()
+            q = _run_train(_permute_sums(_clone_state(state), cfg, SPREAD_AXES), cfg, tcfg, one,
+                           device, scope=scope)
+            spreads["sums permuted"] = _leaf_errs(
+                _permute_sums(q.pop("state"), cfg, SPREAD_AXES, inverse=True), want, False)
+            del q
+            torch.cuda.empty_cache()
+            floor = {k: max(e[k] for e in spreads.values()) for k in ("params", "m", "v")}
+            placed = model_lib.place_train_state(state, mesh, cfg, tcfg)
+            del state
+            torch.cuda.empty_cache()
+            with log:
+                part = _run_train(placed, cfg, tcfg, one, device, scope=mesh,
+                                  placements=(metas, placements), what=impl, log=log)
+            del placed
+            got = model_lib.gather_train_state(part["state"])
+            if step == PARTITIONED_MOE["steps"]:
+                # (d) one more step under a census: the exchanges against
+                # the count.
+                batch = _train_batch(cfg, step + 1, pt["batch"], pt["seq"], device)
+                with sharding.activate(mesh), census.StepCensus() as c:
+                    model_lib.train_step(part["state"], batch, cfg, tcfg)
+                exchanges = census.collective_census(c)
+                count = census.partitioned_train_exchanges(cfg, tcfg, mesh, pt["batch"],
+                                                           pt["seq"])
+                check(exchanges == count,
+                      f"partitioned moe (d) {impl}: exchanges {exchanges} against {count}")
+            del part["state"]
+            torch.cuda.empty_cache()
+            loss_err = _rel_errs(part["metrics"], ref["metrics"])
+            errs = _leaf_errs(got, want, False)
+            worst = _worst_leaves(got, want)
+            del got
+            torch.cuda.empty_cache()
+            held = _kept_pairs_equal(part["routing"][0], ref["routing"][0], cfg.top_k,
+                                     f"{impl} step {step}")
+            check(loss_err <= 1e-5, f"partitioned moe (a) {impl} step {step}: "
+                  f"{part['metrics']} against {ref['metrics']}")
+            check(all(errs[k] <= 2 * floor[k] for k in errs),
+                  f"partitioned moe (a) {impl} step {step}: leaves {errs} against the spread "
+                  f"{spreads}")
+            print(f"  (a) {impl} step {step} (from {ref_name}'s state): loss "
+                  f"{part['metrics'][0]['loss']:.6f}, grad norm "
+                  f"{part['metrics'][0]['grad_norm']:.6f} against {ref_name}'s "
+                  f"{ref['metrics'][0]['loss']:.6f}, {ref['metrics'][0]['grad_norm']:.6f}: worst "
+                  f"relative {loss_err:.2e} (bound 1e-5); leaves (params max |diff|, moments "
+                  f"over max |ref|) {({k: f'{v:.2e}' for k, v in errs.items()})}, worst "
+                  f"{worst}, against twice the spread "
+                  + "; ".join(f"{how} {({k: f'{v:.2e}' for k, v in e.items()})}"
+                              for how, e in spreads.items())
+                  + f"; kept pairs equal on (tokens held, tokens, pairs dropped, all equal) "
+                  f"{held} by layer (held: the tokens before the first whose router gap is not "
+                  f"past 1e-5)")
+            for key, src in (("metrics", part["metrics"]), ("ref_metrics", ref["metrics"]),
+                             ("s_per_step", part["s_per_step"]),
+                             ("ref_s_per_step", ref["s_per_step"])):
+                out[key] += src
+            out["peak_bytes"].append(part["peak_bytes"])
+            out["ref_peak_bytes"].append(ref["peak_bytes"])
+            out["held_bytes"].append(part["held_bytes"])
+            out["leaf_errs"].append(errs)
+            out["spreads"].append(spreads)
+            out["kept"].append(held)
+            for k, v in part["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            state = want
+        del state
+        torch.cuda.empty_cache()
+        print(f"  (c) {impl}: after each step every param and moment on its placement; "
+              f"{part['position_bytes']} bytes a position = the census's")
+        print(f"  (d) {impl}: one step under a census: {json.dumps(exchanges)}, equal to "
+              f"census.partitioned_train_exchanges by kind, count and bytes")
+        print(f"  (f) {impl}: s/step partitioned {[round(x, 3) for x in out['s_per_step']]}, "
+              f"{ref_name} {[round(x, 3) for x in out['ref_s_per_step']]} (host clock, "
+              f"synchronised; step 1 includes warm-up); allocator peak above the bytes held "
+              f"before each step: partitioned {out['peak_bytes']} (above {out['held_bytes']}), "
+              f"{ref_name} {out['ref_peak_bytes']}")
+        out["exchanges"] = exchanges
+        res[impl] = out
+
+
+def _mla_partitioned_bf16(cfg, tcfg, mesh, device, card, res):
+    """6t (b), (c), (e): deepseek-v2-236b at 1 layer, bf16 params, the
+    meshless step first (two states do not fit the card)."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model as model_lib
+
+    pt = dict(PARTITIONED_MOE["mla"], steps=PARTITIONED_MOE["steps"])
+    state = model_lib.init_train_state(cfg, SEED, tcfg, device)
+    params = _host_params(state.params)  # the same draw for the partitioned state
+
+    def kept(tree):  # the MLA and router leaves, on the host
+        lay = tree["layers"]
+        return {**{f"attn/{k}": v.float().cpu() for k, v in lay["attn"].items()},
+                "moe/router": lay["moe"]["router"].float().cpu()}
+
+    whole = _run_train(state, cfg, tcfg, pt, device)
+    del state
+    want = kept(whole.pop("state").params)
+    torch.cuda.empty_cache()
+    with sharding.activate(mesh):
+        metas, placements = model_lib.abstract_train_state(cfg, tcfg)
+    placed = _placed_state(cfg, tcfg, mesh, device, params=params)
+    del params
+    part = _run_train(placed, cfg, tcfg, pt, device, scope=mesh, placements=(metas, placements),
+                      what="mla")
+    del placed
+    state = part.pop("state")
+    got = {f"attn/{k}": v.gather().float().cpu()
+           for k, v in state.params["layers"]["attn"].items()}
+    got["moe/router"] = state.params["layers"]["moe"]["router"].gather().float().cpu()
+    del state
+    torch.cuda.empty_cache()
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(part["metrics"], whole["metrics"]))
+    excess = max(float(((got[k] - want[k]).abs() - 3e-2 - 3e-2 * want[k].abs()).max())
+                 for k in want)
+    check(loss_err <= 2e-2, f"partitioned moe (b): losses {part['metrics']} against "
+          f"{whole['metrics']}")
+    check(excess <= 0, f"partitioned moe (b): the MLA and router leaves exceed 3e-2 + 3e-2 "
+          f"|meshless| by {excess}")
+    print(f"  (b) {cfg.arch_id}: {pt['steps']} partitioned steps "
+          f"{[round(x['loss'], 6) for x in part['metrics']]} (grad norms "
+          f"{[round(x['grad_norm'], 6) for x in part['metrics']]}) against the meshless "
+          f"{[round(x['loss'], 6) for x in whole['metrics']]} "
+          f"({[round(x['grad_norm'], 6) for x in whole['metrics']]}): loss worst relative "
+          f"{loss_err:.2e} (bound 2e-2); the MLA and router leaves' worst |diff| - 3e-2 - 3e-2 "
+          f"|meshless| {excess:.2e} (at most 0)")
+    print(f"  (c) {cfg.arch_id}: after each step every param and moment on its placement; "
+          f"{part['position_bytes']} bytes a position = the census's")
+    print(f"  (f) {cfg.arch_id}: s/step partitioned {[round(x, 3) for x in part['s_per_step']]}, "
+          f"meshless {[round(x, 3) for x in whole['s_per_step']]}; allocator peak above the "
+          f"bytes held before the steps: partitioned {part['peak_bytes']} (above "
+          f"{part['held_bytes']}), meshless {whole['peak_bytes']} (above {whole['held_bytes']})")
+    res["mla"] = dict(metrics=part["metrics"], ref_metrics=whole["metrics"], loss_err=loss_err,
+                      excess=excess, s_per_step=part["s_per_step"],
+                      ref_s_per_step=whole["s_per_step"], peak_bytes=part["peak_bytes"],
+                      ref_peak_bytes=whole["peak_bytes"], held_bytes=part["held_bytes"],
+                      launches=part["launches"])
+
+
+def phase_partitioned_moe(device="cuda"):
+    """6t: the DeepSeek stacks' training step on partitioned leaves at full
+    width, on a (data, model) mesh of cuda:0 entries (see the module
+    docstring)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers
+
+    t_phase = time.perf_counter()
+    card = _card()
+    torch.cuda.empty_cache()
+    d, m = PARTITIONED_MOE["mesh"]
+    mesh = mesh_lib.make_dev_mesh(d, m, devices=[_entry(device)] * (d * m))
+    pm, pl = PARTITIONED_MOE["moe"], PARTITIONED_MOE["mla"]
+    moe_full, mla_full = (configs.get_config(x["arch"], "full") for x in (pm, pl))
+    res = {"allocated_before": torch.cuda.memory_allocated()}
+    print(f"partitioned moe training (6t: {pm['arch']} at full width, B={pm['batch']}, "
+          f"S={pm['seq']}, f32 state and compute (TF32 off), moe_impl dense and ep; "
+          f"{pl['arch']} at full width, B={pl['batch']}, S={pl['seq']}, bf16 params, f32 "
+          f"moments (reduced: depth {moe_full.n_layers} -> {pm['depth']} and "
+          f"{mla_full.n_layers} -> {pl['depth']}, one card); remat, on a {d} x {m} (data, model) "
+          f"mesh of cuda:0 entries: one device, no NVLink, every exchange a device-local copy) "
+          f"on {card}: {res['allocated_before']} bytes allocated before it")
+    with _ShapeLog() as log:
+        saved = (layers.COMPUTE_DTYPE, torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        layers.COMPUTE_DTYPE = torch.float32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            _moe_partitioned_f32(moe_full.replace(n_layers=pm["depth"]), TrainConfig(), mesh,
+                                 device, card, res)
+        finally:
+            (layers.COMPUTE_DTYPE, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+        _mla_partitioned_bf16(mla_full.replace(n_layers=pl["depth"]),
+                              TrainConfig(param_dtype="bfloat16"), mesh, device, card, res)
+    missing = log.missing()
+    check(not missing, f"partitioned moe: shapes phases 2-4 did not hold: {missing}")
+    res["shapes"] = {k: sorted(v) for k, v in log.shapes.items() if v}
+    res["launches"] = {}
+    for key in ("dense", "ep", "mla"):
+        for k, v in res[key]["launches"].items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"  (e) kernel shapes on 6t's path, each held in phases 2-4: {res['shapes']}; "
+          f"launches + replays over the {3 * PARTITIONED_MOE['steps']} compared partitioned "
+          f"steps: " + str(res["launches"]) + " (2 and 1 a step)")
+    print(f"  phase 6t took {res['seconds']:.1f} s ({card})")
     return res
 
 
@@ -6601,6 +7095,7 @@ def main(argv=None) -> int:
     sweep = _start_census_sweep()  # 6q (d), host-bound, beside 6p, 6s and 6q (a)-(c)
     moe_train = phase_moe_train()
     partitioned = phase_partitioned()
+    partitioned_moe = phase_partitioned_moe()
     phase_census(sweep)
     times = {r["name"]: r for r in phase_times()}
 
@@ -6713,6 +7208,10 @@ def main(argv=None) -> int:
             # eager launches and replays over its f32 and bf16 steps.
             "partitioned_train_launches": partitioned["launches"].get(name, 0),
             "partitioned_train_replays": partitioned["replays"].get(name, 0),
+            # The DeepSeek stacks' training step over partitioned leaves
+            # (phase 6t): launches + replays over its compared steps
+            # (deepseek-moe-16b dense and ep, deepseek-v2-236b).
+            "partitioned_moe_train_launches": partitioned_moe["launches"].get(name, 0),
             # The MoE archs' serving path (phase 6m, (a)-(f)): eager launches
             # and graph replays in this process, and, apart, in its two
             # workers (summed from their own scrapes).

@@ -264,6 +264,16 @@ def partitioned_train_exchanges(cfg, tcfg, mesh, batch: int, seq: int) -> dict:
       position, back only the sum and the target logit, and only at the
       home positions (the other positions' copies of a row's loss do not
       reach the loss);
+    * an MoE layer's (``moe.moe_block_tp``, at the token shards and
+      capacity ``moe.ep_layout`` and ``cfg.moe_impl`` give): the dispatch
+      and return moves to and from the experts' homes (``all-to-all``,
+      forward, again in remat's recompute, and back), the row's y
+      all-gathered over "model" where the tokens split over it (and its
+      ``reduce-scatter`` back), under ``"dense"`` each shard's per-expert
+      pair counts to every other position (``all-gather`` of E int32,
+      forward and in the recompute), and each token shard's aux (a 0-d f32)
+      to the first entry (``gather``, and back); the shared experts'
+      reduction is counted with the residual stream's;
     * each home position's row losses (and their gradients back) and
       pooled features to the first entry (``gather``);
     * all of the above once a microbatch; then once a step, each gradient's
@@ -315,12 +325,16 @@ def partitioned_train_exchanges(cfg, tcfg, mesh, batch: int, seq: int) -> dict:
         elif path[0] in top:
             gathers(leaf.shape, *top[path[0]], per_mb, 1, per_mb)
     ring = m - 1
-    per_layer = (transformer.model_split(layer["attn/wq"][1], 1)
-                 + transformer.model_split(layer["mlp/wd"][1], 0))
-    recomputed = max(per_layer - 1, 0) if tcfg.remat else 0
+    attn = transformer.heads_split(cfg, layer)
+    per_layer = attn + transformer.ffn_split(cfg, layer)
+    # The recompute ends before the layer's last reductions: it repeats the
+    # attention's, which tensors the backward needs follow.
+    recomputed = attn if tcfg.remat else 0
     reduced = transformer.model_split(top["embed"][1], 0) + per_layer * cfg.n_layers
     _add(per_mb, "all-reduce", (reduced + recomputed * cfg.n_layers) * n_pos * ring, stream)
     _add(per_mb, "all-reduce", reduced * n_pos * ring, stream)
+    if cfg.n_experts:
+        _moe_exchanges(per_mb, cfg, mesh, batch // tcfg.microbatches * seq, fwd_layers)
     _add(per_mb, "all-reduce", 3 * n_pos * ring, loss_rows)
     _add(per_mb, "all-reduce", 2 * d * ring, loss_rows)
     _add(per_mb, "gather", 2 * (d - 1), loss_rows)
@@ -348,6 +362,28 @@ def partitioned_train_exchanges(cfg, tcfg, mesh, batch: int, seq: int) -> dict:
         _add(out, "all-reduce", n_pos * (mesh.shape[axis] - 1), 4)
     out["total_bytes"] = sum(v["bytes"] for v in out.values())
     return out
+
+
+def _moe_exchanges(out: dict, cfg, mesh, n_tokens: int, fwd_layers: int) -> None:
+    """The exchanges of ``cfg.n_layers`` MoE layers of the partitioned step
+    over a microbatch of ``n_tokens`` tokens (``partitioned_train_exchanges``)."""
+    from repro_torch.models import layers, moe
+
+    m, n_pos = mesh.shape["model"], math.prod(mesh.sizes)
+    tok_axes, n_split, t_loc, cap = moe.ep_layout(n_tokens, cfg, mesh)
+    if cfg.moe_impl == "dense":
+        cap = min(t_loc, moe._capacity(cfg, n_tokens))
+    dt = torch.empty((), dtype=layers.COMPUTE_DTYPE).element_size()
+    n = cfg.n_layers
+    moves = n_pos * (m - 1)
+    buf = cfg.n_experts // m * cap * cfg.d_model * dt
+    _add(out, "all-to-all", 2 * moves * (fwd_layers + 1) * n, buf)
+    if "model" in tok_axes:
+        _add(out, "all-gather", moves * n, t_loc * cfg.d_model * dt)
+        _add(out, "reduce-scatter", moves * n, t_loc * cfg.d_model * dt)
+    if cfg.moe_impl == "dense":
+        _add(out, "all-gather", n_pos * (n_split - 1) * fwd_layers * n, cfg.n_experts * 4)
+    _add(out, "gather", 2 * (n_split - 1) * n, 4)
 
 
 def _padded(spec, n: int) -> list:

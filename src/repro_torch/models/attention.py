@@ -427,6 +427,24 @@ def mla_attention(x, p, cfg: ModelConfig, positions, causal: bool = True,
     return out
 
 
+def mla_attention_tp(x: dict, p: dict, cfg: ModelConfig, positions: dict, mesh,
+                     heads_split: bool) -> dict:
+    """``mla_attention`` per mesh position on its slices, the partial
+    outputs reduced over "model".
+
+    ``p`` holds each leaf's slice per position.  With ``heads_split`` a
+    position's wq_b and wkv_b are column-parallel on its block of the heads
+    and its wo row-parallel on the same block; the down-projections wq_a
+    and wkv_a and their norms are whole, so each position computes the
+    latent and the one rope key all heads share.  The scores stay f32; the
+    partial outputs are summed over "model" in axis order.  Without
+    ``heads_split`` each position attends with every head and nothing is
+    reduced."""
+    out = {pos: mla_attention(xp, {k: v[pos] for k, v in p.items()}, cfg, positions[pos])
+           for pos, xp in x.items()}
+    return sharding.all_reduce(out, mesh, "model") if heads_split else out
+
+
 def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=layers.COMPUTE_DTYPE,
                    device=None) -> dict:
     return {

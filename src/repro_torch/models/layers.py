@@ -144,8 +144,9 @@ def _leaf_spec(leaf: Leaf) -> sharding.PartitionSpec:
 
 
 # The logical axes on whose dims a leaf keeps "model" where it is used in
-# the partitioned training step: its q and kv heads, d_ff and vocabulary.
-TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
+# the partitioned training step: its q and kv heads, d_ff and vocabulary,
+# and the experts of an expert-stacked weight (experts its leading dim).
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "experts")
 
 
 def compute_spec(leaf: Leaf, spec: sharding.PartitionSpec) -> sharding.PartitionSpec:
@@ -153,10 +154,19 @@ def compute_spec(leaf: Leaf, spec: sharding.PartitionSpec) -> sharding.Partition
     layout it is held in: "model" where ``spec`` puts it on one of
     ``TP_AXES``, every other dim whole (gathered before use: the FSDP "data"
     dims, and "model" where the ``_BIG`` post-pass moved it to another
-    dim)."""
+    dim).  "experts" keeps "model" only as an expert-stacked weight's
+    leading dim, where the expert-parallel block runs a position's block of
+    the experts; the router, whose experts are its output dim, is used
+    whole, as the reference's EP block takes it."""
     entries = list(spec) + [None] * (len(leaf.shape) - len(spec))
-    return sharding.PartitionSpec(*(e if e == "model" and ax in TP_AXES else None
-                                    for e, ax in zip(entries, leaf.axes)))
+    return sharding.PartitionSpec(*(
+        e if e == "model" and ax in TP_AXES and (ax != "experts" or i == 0) else None
+        for i, (e, ax) in enumerate(zip(entries, leaf.axes))))
+
+
+def model_split(spec, dim: int) -> bool:
+    """Whether ``spec`` splits dim ``dim`` over "model" alone."""
+    return len(spec) > dim and spec[dim] == "model"
 
 
 def _tree_of(schema, fn) -> dict:
@@ -250,13 +260,15 @@ def swiglu(x, wg, wu, wd):
     return h @ cast(wd)
 
 
-def swiglu_tp(x: dict, wg: dict, wu: dict, wd: dict, mesh, split: bool) -> dict:
-    """``swiglu`` per mesh position on its slices: with ``split``, wg and wu
-    column-parallel on the position's block of d_ff and wd row-parallel on
-    it, the partial products summed over "model" in axis order (the gate is
-    elementwise over d_ff, so a block of it needs only its own columns);
-    else each position's weights whole and nothing reduced."""
-    y = {pos: swiglu(x[pos], wg[pos], wu[pos], wd[pos]) for pos in x}
+def swiglu_tp(x: dict, wg: dict, wu: dict, wd: dict, mesh, split: bool, fn=swiglu) -> dict:
+    """``fn`` (``swiglu``, or another gated MLP of the same weights) per mesh
+    position on its slices: with ``split``, wg and wu column-parallel on the
+    position's block of d_ff and wd row-parallel on it, the partial products
+    summed over "model" in axis order (the gate is elementwise over d_ff, so
+    a block of it needs only its own columns); else each position's weights
+    whole and nothing reduced (or the caller reduces the partial products
+    later: ``moe.moe_block_tp``)."""
+    y = {pos: fn(x[pos], wg[pos], wu[pos], wd[pos]) for pos in x}
     return sharding.all_reduce(y, mesh, "model") if split else y
 
 

@@ -29,8 +29,8 @@ context, and runs the fleet RLS kernel.  ``decode_step`` is the gate-free
 variant the multiplexed serving path uses.
 
 A state laid out on a (data, model) mesh by ``place_train_state`` trains
-through ``partitioned_train_step`` (the dense stacks): its params and
-moments stay the slices their ``Placement``s name.
+through ``partitioned_train_step`` (the dense and MoE stacks, GQA or MLA):
+its params and moments stay the slices their ``Placement``s name.
 
 A serving step writes the KV caches in place: the ``ServeState`` passed in
 is consumed, as the reference's jitted serving loop donates it.
@@ -322,7 +322,8 @@ def train_step(
 # computes its losses, the same bits at each, but only the row's home
 # position (model index 0) sends its losses to the loss: the loss is the
 # mean over the whole batch's tokens of the home positions' rows, gathered
-# onto the mesh's first entry.  As a function of the params every copy is
+# onto the mesh's first entry, plus 0.01 times an MoE stack's aux loss,
+# which its layers gather onto that entry.  As a function of the params every copy is
 # the same function, so autograd's gradient of that loss is the true one:
 # a leaf slice used at several positions gets the sum of its uses'
 # gradients (summed in the backward pass for a slice gathered from one
@@ -332,13 +333,14 @@ def train_step(
 
 def require_partitionable(cfg: ModelConfig) -> None:
     """Raise for the stacks the partitioned step does not run: it runs the
-    dense decoder stacks (GQA attention and SwiGLU in every layer)."""
-    if cfg.enc_dec or cfg.n_experts or cfg.use_mla or cfg.hybrid_pattern or cfg.family == "ssm":
+    dense decoder stacks and the MoE stacks (GQA or MLA attention, SwiGLU
+    or the MoE block in every layer)."""
+    if cfg.enc_dec or cfg.hybrid_pattern or cfg.family == "ssm":
         raise NotImplementedError(
-            f"{cfg.arch_id}: the partitioned training step runs the dense decoder stacks only; "
-            "the MoE, MLA, SSD, hybrid and encoder-decoder stacks on partitioned leaves are "
-            "ROADMAP.md Queue 1 item 6.5's open part (a state of whole tensors under a mesh "
-            "trains them)")
+            f"{cfg.arch_id}: the partitioned training step runs the dense and MoE decoder "
+            "stacks only; the SSD, hybrid and encoder-decoder stacks on partitioned leaves, and "
+            "one process per card, are ROADMAP.md Queue 1 item 6.5's open steps (3)-(6) (a "
+            "state of whole tensors under a mesh trains them)")
 
 
 def is_partitioned(state: TrainState) -> bool:
@@ -440,7 +442,7 @@ def partitioned_loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, rema
         stacked[path] = [{pos: _layer_view(t, g[pos], i) for pos, t in sh.shards.items()}
                          for i in range(cfg.n_layers)]
     layout = dict(top_layout, **layer_layout)
-    hidden = transformer.lm_hidden_tp(top, stacked, tokens, cfg, mesh, layout, remat)
+    hidden, aux = transformer.lm_hidden_tp(top, stacked, tokens, cfg, mesh, layout, remat)
     logits = transformer.lm_logits_tp(top, hidden, cfg, mesh, layout)
     ce = layers.vocab_parallel_cross_entropy(logits, labels, mesh,
                                              transformer.vocab_split(cfg, layout))
@@ -449,6 +451,8 @@ def partitioned_loss_and_grads(params: dict, batch: dict, cfg: ModelConfig, rema
     homes = [(i, 0) for i in range(mesh.shape["data"])]  # each data row's first position
     loss = torch.mean(torch.cat([sharding.exchange(ce[pos], pos, first, mesh, "gather")
                                  for pos in homes]))
+    if cfg.n_experts:  # one copy of the aux, on the first entry
+        loss = loss + 0.01 * aux
     feats = torch.cat([sharding.exchange(torch.mean(hidden[pos].float(), dim=1).detach(), pos,
                                          first, mesh, "gather") for pos in homes])
     loss.backward()

@@ -35,6 +35,12 @@ that holds the expert, the expert products run there on the local experts'
 weights, and the reverse exchange brings the rows back for the combine.
 The exchanges are explicit tensor moves between mesh entries
 (``distributed.sharding``).  Without such a mesh it runs the dense block.
+
+``moe_block_tp`` is the block of the partitioned training step
+(``model.partitioned_train_step``): the same phases between the positions
+of each model row, on the positions' own slices of the expert weights, with
+either ``moe_impl``'s capacity (the dense block's one over the whole batch,
+or one per token shard).
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
-from repro_torch.models.layers import Leaf
+from repro_torch.models.layers import Leaf, model_split, swiglu_tp
 from repro_torch.models.layers import dot as _dot
 from repro_torch.models.layers import silu as _silu
 
@@ -147,9 +153,14 @@ def _combine(out_e: torch.Tensor, flat_e, pos, keep, gate_k, dtype) -> torch.Ten
     return y
 
 
+def _shared_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+    """The shared experts' gated MLP, in the reference's steps."""
+    return _dot(_silu(_dot(x, wg)) * _dot(x, wu), wd)
+
+
 def _shared(xt: torch.Tensor, sh: dict) -> torch.Tensor:
     """The shared experts: the always-on dense path."""
-    return _dot(_silu(_dot(xt, sh["wg"])) * _dot(xt, sh["wu"]), sh["wd"])
+    return _shared_mlp(xt, sh["wg"], sh["wu"], sh["wd"])
 
 
 def _moe_block_dense(x: torch.Tensor, p: dict, cfg: ModelConfig):
@@ -215,6 +226,40 @@ def _token_shard(pos: tuple, tok_axes: tuple, mesh: sharding.Mesh) -> int:
     return k
 
 
+def _shard_homes(tok_axes: tuple, mesh: sharding.Mesh) -> dict:
+    """{token shard: the first position, row-major, that holds it}."""
+    homes = {}
+    for pos in mesh.positions():
+        homes.setdefault(_token_shard(pos, tok_axes, mesh), pos)
+    return homes
+
+
+def _to_homes(bufs: dict, mesh: sharding.Mesh, e_loc: int) -> dict:
+    """Phase (2), the dispatch exchange: position (.., j) takes experts
+    [j e_loc, (j+1) e_loc) of the (E, C, d) buffers of every position of its
+    model row, concatenated along the capacity in model order: {pos:
+    (e_loc, m C, d)}."""
+    mi = mesh.axis_names.index("model")
+    out = {}
+    for pos in bufs:
+        experts = slice(pos[mi] * e_loc, (pos[mi] + 1) * e_loc)
+        out[pos] = torch.cat([sharding.exchange(bufs[q][experts], q, pos, mesh)
+                              for q in sharding.peers(pos, mesh, "model")], dim=1)
+    return out
+
+
+def _from_homes(out: dict, mesh: sharding.Mesh, cap: int, at) -> dict:
+    """Phase (4), the return exchange, at the positions ``at``: position
+    (.., j) takes capacity block j of the (e_loc, m C, d) outputs of every
+    position of its model row, concatenated along the experts in model
+    order: {pos: (E, C, d)}."""
+    mi = mesh.axis_names.index("model")
+    block = {pos: slice(pos[mi] * cap, (pos[mi] + 1) * cap) for pos in at}
+    return {pos: torch.cat([sharding.exchange(out[q][:, block[pos]], q, pos, mesh)
+                            for q in sharding.peers(pos, mesh, "model")], dim=0)
+            for pos in at}
+
+
 def moe_block_ep(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh: sharding.Mesh):
     """x: (B, S, d) -> (y, aux): the reference's EP block on ``mesh``, each
     position's work on its entry; y and aux on x's device.  aux is the mean
@@ -234,9 +279,6 @@ def moe_block_ep(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh: sharding.Mesh
     xt = x.reshape(b * s, d)
     positions = list(mesh.positions())
 
-    def row(pos, j):  # the position of pos's model row at model index j
-        return pos[:mi] + (j,) + pos[mi + 1:]
-
     # (1) route and dispatch each position's token shard.
     routing, bufs, auxes = {}, {}, {}
     for pos in positions:
@@ -248,27 +290,127 @@ def moe_block_ep(x: torch.Tensor, p: dict, cfg: ModelConfig, mesh: sharding.Mesh
         routing[pos] = (flat_e, slot, keep, gate_k)
         bufs[pos] = _dispatch(xs, flat_e, slot, keep, e, cap)
     # (2) dispatch exchange and (3) the local experts' products.
+    recv = _to_homes(bufs, mesh, e_loc)
     out = {}
     for pos in positions:
-        dev, j = mesh.device_at(pos), pos[mi]
-        experts = slice(j * e_loc, (j + 1) * e_loc)
-        recv = torch.cat([sharding.exchange(bufs[row(pos, jj)][experts], row(pos, jj), pos,
-                                            mesh) for jj in range(m)], dim=1)
-        out[pos] = _experts(recv, *(p[w][experts].to(dev) for w in ("wg", "wu", "wd")))
+        experts = slice(pos[mi] * e_loc, (pos[mi] + 1) * e_loc)
+        dev = mesh.device_at(pos)
+        out[pos] = _experts(recv[pos], *(p[w][experts].to(dev) for w in ("wg", "wu", "wd")))
     # (4) return exchange and (5) the combine, at one position per token shard.
-    ys, shard_aux = {}, {}
-    for pos in positions:
-        k = _token_shard(pos, tok_axes, mesh)
-        if k in ys:
-            continue
-        j = pos[mi]
-        back = torch.cat([sharding.exchange(out[row(pos, jj)][:, j * cap:(j + 1) * cap],
-                                            row(pos, jj), pos, mesh) for jj in range(m)],
-                         dim=0)
-        ys[k] = _combine(back, *routing[pos], x.dtype).to(x.device)
-        shard_aux[k] = auxes[pos].to(x.device)
+    homes = _shard_homes(tok_axes, mesh)
+    back = _from_homes(out, mesh, cap, homes.values())
+    ys = {k: _combine(back[pos], *routing[pos], x.dtype).to(x.device) for k, pos in homes.items()}
     y = torch.cat([ys[k] for k in range(n_split)])
-    aux = torch.stack([shard_aux[k] for k in range(n_split)]).mean()
+    aux = torch.stack([auxes[homes[k]].to(x.device) for k in range(n_split)]).mean()
     if "shared" in p:
         y = y + _shared(xt, p["shared"])
     return y.view(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# The MoE block of the partitioned training step
+# ---------------------------------------------------------------------------
+#
+# In ``model.partitioned_train_step`` every position of a data row holds the
+# row's residual stream, and the block's leaves are the position's slices:
+# the router whole, the expert weights the position's block of E/m experts.
+# Each position routes its token shard (``ep_layout``: the row's tokens
+# split further over "model" where they divide), the phases of the EP block
+# above run between the positions of each model row, and the row's y is
+# all-gathered over "model" so that every position of the row holds it
+# whole again.  The capacity follows ``cfg.moe_impl``:
+#
+# * "ep": a capacity per token shard, and the aux the mean of the shards'
+#   aux losses, as ``moe_block_ep`` computes them;
+# * "dense": the dense block's one capacity over the whole batch, with the
+#   slots in its global token order: each shard sends its per-expert pair
+#   counts to every other shard (E int32 each), and a pair's slot is the
+#   pairs the shards before it (row-major) sent to its expert plus its
+#   exclusive cumsum in its own shard.  A shard fills at most min(T_loc,
+#   capacity) slots of an expert, so its buffers have that many rows, and
+#   expert block j runs at position (i, j) on the slots data row i's tokens
+#   fill: every kept pair's product is the dense block's, and no position
+#   computes another row's slots.  The aux is the dense block's over every
+#   token, e sum(mean probs mean counts): each shard's share of the sum
+#   (its probs' sum against the batch's counts), summed.
+#
+# The reductions over "model" (the y all-gather, the shared experts'
+# partial products' all-reduce) and the aux's gather come after the last
+# tensor the backward needs, so that remat's recompute stops before them.
+
+
+def moe_block_tp(h: dict, w: dict, cfg: ModelConfig, mesh: sharding.Mesh, layout: dict):
+    """The MoE block on the (data, model) ``mesh`` of the partitioned
+    training step: h {pos: (B_loc, S, d)}, the same at every position of a
+    data row, -> ({pos: y (B_loc, S, d)}, aux, a 0-d f32 tensor on the
+    mesh's first entry).  ``w`` holds the block's leaves {name in the block:
+    {pos: tensor}} in their compute layout, ``layout`` their (held spec,
+    compute spec): the router whole, ``wg``/``wu``/``wd`` the position's
+    block of the experts, the shared experts column- and row-parallel on
+    their d_ff where ``layout["shared/wd"]`` splits it (``layers.swiglu_tp``)."""
+    e = cfg.n_experts
+    m, n_rows = mesh.shape["model"], mesh.shape["data"]
+    if e % m:
+        raise ValueError(f"{e} experts do not split over a model axis of {m}")
+    b_loc, s, d = next(iter(h.values())).shape
+    t_row = b_loc * s
+    t_all = t_row * n_rows
+    tok_axes, n_split, t_loc, cap = ep_layout(t_all, cfg, mesh)
+    dense = cfg.moe_impl == "dense"
+    if dense:
+        cap = _capacity(cfg, t_all)
+    rows = min(t_loc, cap) if dense else cap  # a shard's buffer rows an expert
+    per_row = n_split // n_rows
+    xt = {pos: x.reshape(t_row, d) for pos, x in h.items()}
+    positions = list(h)
+    shard = {pos: _token_shard(pos, tok_axes, mesh) for pos in positions}
+    homes = _shard_homes(tok_axes, mesh)
+    first = positions[0]
+
+    # The shared experts' partial products, reduced at the end.
+    split = "shared/wd" in w and model_split(layout["shared/wd"][1], 0)
+    shared = None if "shared/wd" not in w else swiglu_tp(
+        xt, w["shared/wg"], w["shared/wu"], w["shared/wd"], mesh, split=False, fn=_shared_mlp)
+    # (1) route each position's token shard and place its pairs.
+    xs, routed, slots = {}, {}, {}
+    for pos in positions:
+        k = shard[pos] % per_row
+        xs[pos] = xt[pos][k * t_loc:(k + 1) * t_loc]
+        routed[pos] = route(xs[pos], w["router"][pos], cfg)
+        slots[pos] = dispatch_slots(routed[pos][2], e, rows)
+    auxes = {pos: r[3] for pos, r in routed.items()}
+    if dense:
+        experts = torch.arange(e, device=h[first].device)
+        counts = {pos: (r[2][..., None] == experts.to(r[2].device)).sum((0, 1), dtype=torch.int32)
+                  for pos, r in routed.items()}
+        for pos in positions:
+            got = {kk: counts[pos] if kk == shard[pos] else
+                   sharding.exchange(counts[q], q, pos, mesh, "all-gather")
+                   for kk, q in homes.items()}
+            before = sum((got[kk] for kk in range(shard[pos])), torch.zeros_like(counts[pos]))
+            total = sum((got[kk] for kk in range(n_split)), torch.zeros_like(counts[pos]))
+            flat_e, slot, _ = slots[pos]
+            slots[pos] = (flat_e, slot, before[flat_e] + slot < cap)
+            probs = routed[pos][0]
+            auxes[pos] = e * torch.sum(probs.sum(0) / t_all * (total.float() / t_all))
+    # (2) dispatch, the exchange to the experts' homes, (3) the local
+    # experts' products, (4) the return exchange and (5) the combine.
+    bufs = {pos: _dispatch(xs[pos], *slots[pos], e, rows) for pos in positions}
+    recv = _to_homes(bufs, mesh, e // m)
+    out = {pos: _experts(recv[pos], w["wg"][pos], w["wu"][pos], w["wd"][pos])
+           for pos in positions}
+    back = _from_homes(out, mesh, rows, positions)
+    y = {pos: _combine(back[pos], *slots[pos], routed[pos][1], h[pos].dtype)
+         for pos in positions}
+    # The row's y whole at each of its positions, the shared experts'
+    # partial products summed, the shards' aux on the first entry.
+    if "model" in tok_axes:
+        y = sharding.all_gather(y, mesh, "model", 0)
+    if split:
+        shared = sharding.all_reduce(shared, mesh, "model")
+    parts = torch.stack([sharding.exchange(auxes[q], q, first, mesh, "gather")
+                         for q in homes.values()])
+    aux = parts.sum() if dense else parts.mean()
+    if shared is not None:
+        y = {pos: t + shared[pos] for pos, t in y.items()}
+    return {pos: t.view(b_loc, s, d) for pos, t in y.items()}, aux

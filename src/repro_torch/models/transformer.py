@@ -40,8 +40,8 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
 from repro_torch.models import attention, moe, rglru, ssm
-from repro_torch.models.layers import (Leaf, cast, rmsnorm, stack_schema, swiglu, swiglu_tp,
-                                       vocab_parallel_embed)
+from repro_torch.models.layers import (Leaf, cast, model_split, rmsnorm, stack_schema, swiglu,
+                                       swiglu_tp, vocab_parallel_embed)
 
 
 def require_dense(cfg: ModelConfig) -> None:
@@ -267,7 +267,8 @@ def lm_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# The partitioned forward (training a dense stack on a (data, model) mesh)
+# The partitioned forward (training a dense or MoE stack on a (data, model)
+# mesh)
 # ---------------------------------------------------------------------------
 #
 # Each leaf is held as its ``Placement``'s slices, one per mesh position,
@@ -276,30 +277,53 @@ def lm_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Ten
 # remat gathers it again in the backward pass, as FSDP does).  A tensor in
 # flight is a dict {mesh position: its slice}.  The residual stream of a
 # data row's tokens is held by each position of its model row, the same
-# bits at each: the partial products of wo and wd are summed over "model"
-# in axis order before the residual add.
+# bits at each: the partial products of wo and wd (or of the shared
+# experts' wd) are summed over "model" in axis order before the residual
+# add, and an MoE layer's routed experts run expert-parallel between the
+# positions of a model row (``moe.moe_block_tp``).
 
 
-def model_split(spec, dim: int) -> bool:
-    """Whether ``spec`` splits dim ``dim`` over "model" alone."""
-    return len(spec) > dim and spec[dim] == "model"
+def heads_split(cfg: ModelConfig, layout: dict) -> bool:
+    """Whether the layer's attention splits its heads over "model": GQA's
+    wq, or MLA's wq_b, on the heads dim."""
+    return model_split(layout["attn/wq_b" if cfg.use_mla else "attn/wq"][1], 1)
+
+
+def ffn_split(cfg: ModelConfig, layout: dict) -> bool:
+    """Whether the layer's dense MLP (or an MoE layer's shared experts)
+    splits its d_ff over "model" (wd row-parallel): a reduction of the
+    residual stream over "model"."""
+    if cfg.n_experts:
+        return "moe/shared/wd" in layout and model_split(layout["moe/shared/wd"][1], 0)
+    return model_split(layout["mlp/wd"][1], 0)
 
 
 def dense_layer_tp(h: dict, lp: dict, cfg: ModelConfig, positions: dict, mesh,
-                   layout: dict) -> dict:
-    """One dense layer on ``mesh``: h {pos: (B_loc, S, d)}; ``lp`` {path in
-    the layer: {pos: slice}} and ``layout`` {path: (held spec, compute
-    spec)} without the layers dim."""
+                   layout: dict):
+    """One layer of a dense or MoE stack on ``mesh``, as ``_dense_layer``:
+    GQA or MLA attention, then SwiGLU or the MoE block (``moe.moe_block_tp``).
+    h {pos: (B_loc, S, d)}; ``lp`` {path in the layer: {pos: slice}} and
+    ``layout`` {path: (held spec, compute spec)} without the layers dim.
+    Returns (h, aux): the MoE block's aux on the mesh's first entry, 0.0
+    for a dense layer."""
     w = {k: sharding.relayout(v, *layout[k], mesh) for k, v in lp.items()}
     hn = {pos: rmsnorm(x, w["ln1"][pos]) for pos, x in h.items()}
-    a = attention.gqa_attention_tp(hn, _subtree(w, "attn/"), cfg, positions, mesh,
-                                   heads_split=model_split(layout["attn/wq"][1], 1),
-                                   kv_split=model_split(layout["attn/wk"][1], 1))
+    if cfg.use_mla:
+        a = attention.mla_attention_tp(hn, _subtree(w, "attn/"), cfg, positions, mesh,
+                                       heads_split=heads_split(cfg, layout))
+    else:
+        a = attention.gqa_attention_tp(hn, _subtree(w, "attn/"), cfg, positions, mesh,
+                                       heads_split=heads_split(cfg, layout),
+                                       kv_split=model_split(layout["attn/wk"][1], 1))
     h = {pos: x + a[pos] for pos, x in h.items()}
     hn = {pos: rmsnorm(x, w["ln2"][pos]) for pos, x in h.items()}
-    y = swiglu_tp(hn, w["mlp/wg"], w["mlp/wu"], w["mlp/wd"], mesh,
-                  split=model_split(layout["mlp/wd"][1], 0))
-    return {pos: x + y[pos] for pos, x in h.items()}
+    if cfg.n_experts:
+        y, aux = moe.moe_block_tp(hn, _subtree(w, "moe/"), cfg, mesh, _subtree(layout, "moe/"))
+    else:
+        y = swiglu_tp(hn, w["mlp/wg"], w["mlp/wu"], w["mlp/wd"], mesh,
+                      split=ffn_split(cfg, layout))
+        aux = 0.0
+    return {pos: x + y[pos] for pos, x in h.items()}, aux
 
 
 def _subtree(flat: dict, prefix: str) -> dict:
@@ -307,33 +331,38 @@ def _subtree(flat: dict, prefix: str) -> dict:
 
 
 def lm_hidden_tp(top: dict, stacked: dict, tokens: dict, cfg: ModelConfig, mesh, layout: dict,
-                 remat: bool = True) -> dict:
-    """``lm_hidden`` of a dense stack on ``mesh``: token ids {pos: (B_loc,
-    S)} -> final hidden states {pos: (B_loc, S, d)}.  ``top`` holds the
-    top-level leaves {name: {pos: slice}}, ``stacked`` the layer leaves
-    {path in the layer: [{pos: slice} per layer]}; ``layout`` the held and
-    compute specs of both (a layer leaf's without the layers dim).  With
-    ``remat`` each layer, its gathers included, is recomputed in the
-    backward pass in the forward's mesh scope, up to the last tensor the
-    backward needs (not its last reduction over "model")."""
+                 remat: bool = True):
+    """``lm_hidden`` of a dense or MoE stack on ``mesh``: token ids {pos:
+    (B_loc, S)} -> (final hidden states {pos: (B_loc, S, d)}, the aux loss
+    summed over the layers in order on the mesh's first entry, 0.0 for a
+    dense stack).  ``top`` holds the top-level leaves {name: {pos: slice}},
+    ``stacked`` the layer leaves {path in the layer: [{pos: slice} per
+    layer]}; ``layout`` the held and compute specs of both (a layer leaf's
+    without the layers dim).  With ``remat`` each layer, its gathers
+    included, is recomputed in the backward pass in the forward's mesh
+    scope, up to the last tensor the backward needs (not its last
+    reductions over "model", nor an MoE layer's aux gather); it routes as
+    the forward did (the same ops on the same inputs)."""
     positions = {pos: _positions(t) for pos, t in tokens.items()}
     embed = sharding.relayout(top["embed"], *layout["embed"], mesh)
     h = vocab_parallel_embed(tokens, embed, mesh, split=model_split(layout["embed"][1], 0))
     recompute = remat and torch.is_grad_enabled()
     captured = sharding.scope()
+    aux = 0.0
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in stacked.items()}
         args = (h, lp, cfg, positions, mesh, layout)
         if recompute:
             # Early stop: the recompute ends at the last tensor the backward
-            # needs, before the layer's last reduction over "model".
+            # needs, before the layer's last reductions over "model".
             with set_checkpoint_early_stop(True):
-                h = checkpoint(_scoped, captured, dense_layer_tp, *args, use_reentrant=False,
-                               preserve_rng_state=False)
+                h, a = checkpoint(_scoped, captured, dense_layer_tp, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
         else:
-            h = dense_layer_tp(*args)
+            h, a = dense_layer_tp(*args)
+        aux = aux + a
     norm = sharding.relayout(top["final_norm"], *layout["final_norm"], mesh)
-    return {pos: rmsnorm(x, norm[pos]) for pos, x in h.items()}
+    return {pos: rmsnorm(x, norm[pos]) for pos, x in h.items()}, aux
 
 
 def lm_logits_tp(top: dict, hidden: dict, cfg: ModelConfig, mesh, layout: dict) -> dict:

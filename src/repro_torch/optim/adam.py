@@ -194,24 +194,32 @@ def update_partitioned(grads, state: AdamState, params, cfg: TrainConfig, mesh,
     refining the params', as ZeRO-1's does), ``grads`` a tree like
     ``params`` whose leaves are {pos: gradient contribution at the param's
     slice}, and ``state.step`` is on the mesh's first entry.  Each gradient
-    is reduced into its moments' layout (``reduce_to_moments``); the global
-    norm is the sum of squares over the distinct slices, each counted at its
-    owner, all-reduced over every axis in fixed order; AdamW runs on each
+    is reduced into its moments' layout (``reduce_to_moments``, in f32),
+    then held in its contributions' dtype, as ``update`` takes a gradient
+    in the params' dtype (f32 where the microbatches' sum made it so); the
+    contributions are taken out of ``grads`` as each leaf is reduced, so
+    that the two are not held whole at once.  The global norm is the sum of
+    squares over the distinct slices, each counted at its owner,
+    all-reduced over every axis in fixed order; AdamW runs on each
     position's slices, in place; the updated slices are all-gathered back
     into the params' layout.  Returns (params, new state, gnorm on the
     first entry)."""
     g_red, total = [], {pos: None for pos in mesh.positions()}
     for path, m_sh, p_sh in zip(_paths(params), leaves(state.m), leaves(params), strict=True):
         g = grads
-        for k in path:
+        for k in path[:-1]:
             g = g[k]
+        g = g.pop(path[-1])
+        dtype = next(iter(g.values())).dtype
         r = reduce_to_moments({pos: t.float() for pos, t in g.items()}, p_sh.placement.spec,
                               m_sh.placement.spec, mesh)
+        del g
+        r = {pos: t.to(dtype) for pos, t in r.items()}
         g_red.append(r)
         owners = _owners(m_sh.placement, m_sh.shape)
         for pos, t in r.items():
             if pos in owners:
-                sq = torch.sum(torch.square(t))
+                sq = torch.sum(torch.square(t.float()))
                 total[pos] = sq if total[pos] is None else total[pos] + sq
     total = {pos: t if t is not None else torch.zeros((), device=mesh.device_at(pos))
              for pos, t in total.items()}

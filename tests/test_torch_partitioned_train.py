@@ -65,8 +65,7 @@ CPU = "cpu"
 MESHES = [(2, 4), (4, 2), (2, 2)]
 DENSE = ["qwen3-4b", "h2o-danube-1.8b", "mistral-nemo-12b", "deepseek-coder-33b",
          "chameleon-34b"]
-OTHERS = ["deepseek-moe-16b", "deepseek-v2-236b", "mamba2-780m", "recurrentgemma-9b",
-          "whisper-small"]
+OTHERS = ["mamba2-780m", "recurrentgemma-9b", "whisper-small"]
 REF_ARCH = "qwen3-4b"
 BATCH = 8  # rows a step: 4 a data row on (2, 4), 2 on (4, 2)
 NO_REMAT = TrainConfig(remat=False)
